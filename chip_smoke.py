@@ -1,0 +1,354 @@
+#!/usr/bin/env python3
+"""On-card smoke test of the PyTorch/CUDA port (kit4b_tpu_torch).
+
+Run from the root of a checkout on a machine with one NVIDIA Hopper card:
+
+    python3 chip_smoke.py
+
+It imports no jax. Each phase raises on failure, and the script then exits
+non-zero without printing a result:
+
+1. The card's name and power limit (nvidia-smi), the CUDA version, and the
+   build of the min-match kernel (csrc/minmm.cu) with ptxas's report.
+2. The kernel against its plain PyTorch version on the card at the shapes
+   of phase 4's run (Cw = 128, T = 2048, S = 1024, one row chunk of 2^21
+   own rows against the node's partner spans), bit for bit, and at a
+   shorter span with diag on and off, a non-zero row_base and span_lo > 0;
+   the first case timed with CUDA events.
+3. `hammings_exhaustive_mxu` on the card against the numpy oracle on a
+   2 kbp seeded genome with N bases and an EOS, K 7 and 25, antisense on
+   and off: exact equality.
+4. The CLI end to end: `hammings -K 25 -n NUMNODES -N 1` on a seeded
+   synthetic genome with the 16 nuclear chromosome lengths of
+   S. cerevisiae R64 (12,071,326 bp), with planted near-copies and N runs.
+   The .hmg is read back and checked at 2,000 random and 500 planted
+   positions against a direct on-card computation of the node's partial
+   minimum from the codes. The kernel's launch counter must equal the
+   run's row chunks times its two strands.
+
+The line before the last is a JSON table of the kernels; the last line is
+{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
+"""
+from __future__ import annotations
+
+import json
+import logging
+import subprocess
+import sys
+import tempfile
+import time
+from concurrent.futures import ProcessPoolExecutor
+from multiprocessing import get_context
+from pathlib import Path
+
+import numpy as np
+
+SEED = 20240611
+K = 25
+T, S, ROW_CHUNK = 2048, 1024, 1 << 21   # the engine's defaults
+NUMNODES = 4           # node 1 of NUMNODES takes 1/NUMNODES of the partner spans
+R64_LENGTHS = [        # S. cerevisiae S288C R64 nuclear chromosomes I-XVI
+    230_218, 813_184, 316_620, 1_531_933, 576_874, 270_161, 1_090_940,
+    562_643, 439_888, 745_751, 666_816, 1_078_177, 924_431, 784_333,
+    1_091_291, 948_066]
+N_RANDOM, N_PLANTED = 2000, 500
+ROMAN = ["I", "II", "III", "IV", "V", "VI", "VII", "VIII", "IX", "X", "XI",
+         "XII", "XIII", "XIV", "XV", "XVI"]
+
+
+def _revcomp(codes: np.ndarray) -> np.ndarray:
+    rev = codes[::-1]
+    return np.where(rev < 4, 3 - rev, rev).astype(np.uint8)
+
+
+def _round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+def _time_ms(torch, fn) -> float:
+    """Milliseconds of one call of fn, timed with CUDA events."""
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b)
+
+
+def write_fasta(path: Path, names: list[str], chroms: list[np.ndarray],
+                wrap: int = 60) -> None:
+    """FASTA of base codes 0-4 (ACGTN), `wrap` bases per line."""
+    acgtn = np.frombuffer(b"ACGTN", np.uint8)
+    with open(path, "wb") as f:
+        for name, c in zip(names, chroms):
+            s = acgtn[c].tobytes()
+            f.write(b">" + name.encode() + b"\n")
+            f.write(b"".join(s[i:i + wrap] + b"\n"
+                             for i in range(0, len(s), wrap)))
+
+
+def synthetic_r64(rng):
+    """Seeded random chromosomes of R64's lengths with planted near-copies
+    (forward copies of sources in the genome's first partner spans and
+    reverse-complement copies of sources in its last ones, so node 1 sees
+    them on both strands) and N runs. Returns (chroms, planted dest
+    (chrom, start, length) list)."""
+    chroms = [rng.integers(0, 4, n, dtype=np.uint8) for n in R64_LENGTHS]
+    planted = []
+    for i in range(12):
+        L = 3000
+        if i % 2 == 0:   # forward copy of a chrI segment
+            s = int(rng.integers(1000, 150_000))
+            seg = chroms[0][s:s + L].copy()
+        else:            # reverse-complement copy of a chrXVI tail segment
+            n16 = len(chroms[15])
+            s = int(rng.integers(n16 - 150_000, n16 - L - 1000))
+            seg = _revcomp(chroms[15][s:s + L])
+        subs = rng.choice(L, 4, replace=False)
+        seg[subs] = (seg[subs] + rng.integers(1, 4, 4)) % 4
+        c = int(rng.integers(1, 15))
+        d = int(rng.integers(0, len(chroms[c]) - L))
+        chroms[c][d:d + L] = seg
+        planted.append((c, d, L))
+    for _ in range(6):
+        c = int(rng.integers(0, 16))
+        d = int(rng.integers(0, len(chroms[c]) - 400))
+        chroms[c][d:d + int(rng.integers(50, 400))] = 4
+    return chroms, planted
+
+
+def direct_node_min(torch, dev, seq, pos, c_lo, c_hi, Gp):
+    """Node partial minimum at concatenated positions `pos`, straight from
+    the codes: min over the partner windows j in [c_lo, c_hi) of both
+    strands (sense j != pos) of the Hamming distance, where a window that
+    holds a sentinel (code >= 5) or starts past G - K counts as K, as the
+    engine's zero rows do; 0xFFFF where the window at pos is not valid."""
+    G = len(seq)
+    nk = G - K + 1
+    pad = np.full(Gp + K - G, 0x0F, np.uint8)
+    fwd = torch.from_numpy(np.concatenate([seq, pad])).to(dev)
+    rc = torch.from_numpy(np.concatenate([_revcomp(seq), pad])).to(dev)
+    p = torch.from_numpy(pos).to(dev)
+    q = fwd.unfold(0, K, 1)[p]
+    qvalid = ~(q >= 5).any(1) & (p < nk)
+    best = torch.full((len(pos),), K, dtype=torch.int32, device=dev)
+    cols = torch.arange(c_lo, c_hi, device=dev)
+    for src, sense in ((fwd, True), (rc, False)):
+        pw = src.unfold(0, K, 1)[c_lo:c_hi]
+        pvalid = ~(pw >= 5).any(1) & (cols < nk)
+        for b in range(0, len(pos), 32):
+            d = (q[b:b + 32, None, :] != pw[None]).sum(2, dtype=torch.int32)
+            d = torch.where(pvalid[None], d, K)
+            if sense:
+                d = torch.where(p[b:b + 32, None] == cols[None], 1 << 20, d)
+            best[b:b + 32] = torch.minimum(best[b:b + 32], d.amin(1))
+    return torch.where(qvalid, best, 0xFFFF).cpu().numpy()
+
+
+class _PhaseLog(logging.Handler):
+    """Keeps the unrounded seconds of the CLI's PhaseTimer phases."""
+
+    def __init__(self):
+        super().__init__()
+        self.seconds = {}
+
+    def emit(self, record):
+        if record.msg == "phase %s: %.2fs":
+            self.seconds[record.args[0]] = record.args[1]
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available; this test needs an NVIDIA "
+              "card", file=sys.stderr)
+        return 1
+    root = Path(__file__).resolve().parent
+    if not (root / "kit4b_tpu_torch").is_dir():
+        print(f"chip_smoke: {root} holds no kit4b_tpu_torch package; run "
+              "it from the root of a checkout", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(root))
+    from kit4b_tpu_torch import cli
+    from kit4b_tpu_torch.kernels import build
+    from kit4b_tpu_torch.kernels.minmm import minmm, minmm_plain
+    from kit4b_tpu_torch.kmer.hammings import hammings_oracle, read_hmg
+    from kit4b_tpu_torch.kmer.hammings_mxu import (build_w,
+                                                   hammings_exhaustive_mxu)
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(SEED)
+
+    # --- 1. card, toolkit, kernel build -------------------------------
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60).stdout
+    card = smi.strip().splitlines()[0]
+    print(card)
+    print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
+          f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
+    built = build.paths("minmm")[1].exists()
+    t0 = time.perf_counter()
+    build.load("minmm")
+    print(f"kernel build (nvcc, sm_90a): {time.perf_counter() - t0} s"
+          + (" (library already built; loaded only)" if built else ""))
+    for line in build.paths("minmm")[2].read_text().splitlines():
+        if "registers" in line or "spill" in line:
+            print("  ptxas:", line.strip())
+
+    # --- the phase-4 genome and its node geometry ---------------------
+    chroms, planted = synthetic_r64(rng)
+    G = sum(len(c) + 1 for c in chroms)        # one EOS/EOG after each
+    Gp = _round_up(max(G, max(T, S)), max(T, S))
+    n_spans = Gp // S
+    cnt = n_spans // NUMNODES                  # node 1: spans [0, cnt)
+    seq = np.concatenate([np.append(c, 7) for c in chroms]).astype(np.uint8)
+    seq[-1] = 0x0F
+
+    # --- 2. kernel vs plain at the main path's shapes -----------------
+    ext = torch.from_numpy(np.concatenate(
+        [seq, np.full(Gp + K - G, 0x0F, np.uint8)])).to(dev)
+    W, _ = build_w(ext, K=K, Gp=Gp, G=G, rc=False)
+    Wrc, _ = build_w(ext, K=K, Gp=Gp, G=G, rc=True)
+    R = min(_round_up(Gp, T), _round_up(ROW_CHUNK, T))   # the engine's chunk
+    short = 184    # spans of the coverage cases: 1/64 of the genome
+    cases = [   # (label, own rows, partner, diag, span_lo, span_cnt, row_base)
+        ("main path: sense, rows [0,R), node 1 spans", W[:R], W, True, 0,
+         cnt, 0),
+        ("sense, rows [R,2R), diag inside span_lo=R/S", W[R:2 * R], W, True,
+         R // S, short, R),
+        ("antisense, rows [R,2R), span_lo>0", W[R:2 * R], Wrc, False,
+         cnt, short, R),
+        ("sense, tail rows [Gp-R,Gp), span_lo>0", W[Gp - R:], W, True,
+         2 * cnt, short, Gp - R),
+    ]
+    max_err = 0
+    for label, wo, wp, diag, lo, n, rb in cases:
+        kw = dict(diag=diag, span_lo=lo, span_cnt=n, S=S, row_base=rb)
+        got = minmm(wo, wp, **kw)
+        want = minmm_plain(wo, wp, **kw)
+        torch.cuda.synchronize()
+        err = int((got.long() - want.long()).abs().max())
+        max_err = max(max_err, err)
+        print(f"kernel vs plain [{label}]: R={wo.shape[0]} Cw={wo.shape[1]} "
+              f"span_lo={lo} span_cnt={n} row_base={rb}: "
+              f"equal={torch.equal(got, want)} max_abs_err={err}")
+        if not torch.equal(got, want):
+            raise AssertionError(f"kernel differs from plain: {label}")
+    # the comparison of cases[0] above warmed both functions at this shape
+    _, wo, wp, diag, lo, n, rb = cases[0]
+    kw = dict(diag=diag, span_lo=lo, span_cnt=n, S=S, row_base=rb)
+    turns = []
+    for name in ("plain", "kernel", "kernel", "plain"):
+        fn = minmm_plain if name == "plain" else minmm
+        turns.append((name, _time_ms(torch, lambda: fn(wo, wp, **kw))))
+    k_ms = [ms for n, ms in turns if n == "kernel"]
+    p_ms = [ms for n, ms in turns if n == "plain"]
+    kernel_ms, plain_ms = sum(k_ms) / 2, sum(p_ms) / 2
+    ops = 2 * R * cnt * S * W.shape[1]
+    print(f"min-match at R={R} span={cnt * S} Cw={W.shape[1]} on {card}: "
+          f"kernel {k_ms} ms, plain {p_ms} ms (turns plain, kernel, "
+          f"kernel, plain); kernel {ops / kernel_ms / 1e9} int8 TOP/s, "
+          f"plain {ops / plain_ms / 1e9} TOP/s")
+    del W, Wrc, ext, wo, wp, cases
+    torch.cuda.empty_cache()
+
+    # --- 3. the engine on the card vs the numpy oracle ----------------
+    g = rng.integers(0, 4, 2000).astype(np.uint8)
+    g[700] = 7                                  # EOS
+    g[rng.integers(0, 2000, 12)] = 4            # N bases
+    g[1500:1560] = g[200:260]                   # a repeat: distance 0
+    g[1530] = (g[1530] + 1) % 4                 # and 1
+    combos = [(k, anti) for k in (7, 25) for anti in (True, False)]
+    with ProcessPoolExecutor(len(combos), mp_context=get_context("spawn")) \
+            as pool:
+        oracles = [pool.submit(hammings_oracle, g, k, anti)
+                   for k, anti in combos]
+        for (k, anti), fut in zip(combos, oracles):
+            got = hammings_exhaustive_mxu(g, k, antisense=anti, device=dev)
+            want = fut.result()
+            ok = np.array_equal(got, want)
+            print(f"oracle check G=2000 K={k} antisense={anti}: equal={ok} "
+                  f"(min {int(want[:2000 - k + 1].min())})")
+            if not ok:
+                raise AssertionError(f"engine differs from oracle: K={k} "
+                                     f"antisense={anti}")
+
+    # --- 4. the CLI end to end on the R64-sized genome ----------------
+    with tempfile.TemporaryDirectory(prefix=".chip_smoke_", dir=root) as tmp:
+        fa, out = Path(tmp) / "r64_synthetic.fa", Path(tmp) / "node1.hmg"
+        write_fasta(fa, [f"chr{r}" for r in ROMAN], chroms)
+        print(f"CLI: hammings -K {K} -n {NUMNODES} -N 1 on {G - 16} bp in "
+              f"16 chromosomes (node 1 of {NUMNODES}: partner spans "
+              f"[0, {cnt}) of {n_spans}, {cnt * S} columns per strand)")
+        phases = _PhaseLog()
+        logging.getLogger("kit4b_tpu").addHandler(phases)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        minmm.launches = 0
+        t0 = time.perf_counter()
+        rc = cli.main(["hammings", "-i", str(fa), "-o", str(out), "-K",
+                       str(K), "-n", str(NUMNODES), "-N", "1"])
+        wall = time.perf_counter() - t0
+        launches = minmm.launches
+        peak = torch.cuda.max_memory_allocated()
+        logging.getLogger("kit4b_tpu").removeHandler(phases)
+        if rc != 0:
+            raise AssertionError(f"CLI exited {rc}")
+        sweep = phases.seconds["sweep"]
+        nk = G - K + 1
+        print(f"CLI on {card}: wall {wall} s, phases {phases.seconds}; "
+              f"{nk / sweep} k-mer rows/s for the node's share "
+              f"({2 * nk * cnt * S / sweep} window pairs/s over both "
+              f"strands); peak device memory {peak} bytes; "
+              f"kernel launches {launches}")
+        want_launches = -(-Gp // R) * 2    # row chunks x both strands
+        if launches != want_launches:
+            raise AssertionError(f"the CLI run launched the min-match kernel "
+                                 f"{launches} times, not {want_launches}")
+        names, dists = read_hmg(out)
+
+    if names != [f"chr{r}" for r in ROMAN]:
+        raise AssertionError(f"chromosome names read back: {names}")
+    starts = np.cumsum([0] + [len(c) + 1 for c in chroms[:-1]])
+    sel = []   # (chrom, offset)
+    for _ in range(N_RANDOM):
+        c = int(rng.choice(16, p=np.array(R64_LENGTHS) / sum(R64_LENGTHS)))
+        sel.append((c, int(rng.integers(0, R64_LENGTHS[c] - K + 1))))
+    for i in range(N_PLANTED):
+        c, d, L = planted[i % len(planted)]
+        sel.append((c, d + int(rng.integers(0, L - K + 1))))
+    got = np.array([dists[c][o] for c, o in sel], np.uint16)
+    pos = np.array([starts[c] + o for c, o in sel], np.int64)
+    want = direct_node_min(torch, dev, seq, pos, 0, cnt * S, Gp)
+    bad = np.nonzero(got != want)[0]
+    print(f"sample check: {len(sel)} positions ({N_RANDOM} random, "
+          f"{N_PLANTED} planted), {len(bad)} differ; sampled minima "
+          f"min {int(got.min())} median {float(np.median(got))} "
+          f"zeros {int((got == 0).sum())}; "
+          f"whole-node zeros {sum(int((d == 0).sum()) for d in dists)}")
+    if len(bad):
+        raise AssertionError(f"node result differs from the direct "
+                             f"computation at {pos[bad[:5]]}: "
+                             f"{got[bad[:5]]} vs {want[bad[:5]]}")
+    if int(got[N_RANDOM:].min()) != 0:
+        raise AssertionError("no planted position reads distance 0")
+    if "jax" in sys.modules:
+        raise AssertionError("jax was imported")
+
+    print(json.dumps({"kernels": [{
+        "name": "minmm", "route": "cuda",
+        "source": "kit4b_tpu_torch/csrc/minmm.cu",
+        "replaces": "kit4b_tpu/kmer/hammings_mxu.py:100",
+        "launches": launches, "max_abs_err": max_err,
+        "ms": kernel_ms, "plain_ms": plain_ms}]}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

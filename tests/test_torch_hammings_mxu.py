@@ -1,0 +1,171 @@
+"""The port's max-match hammings engine (kit4b_tpu_torch/kmer/hammings_mxu.py)
+against the JAX package's (kit4b_tpu/kmer/hammings_mxu.py) and the numpy
+oracle, on the CPU.
+
+Both packages get the same numpy inputs. The JAX side runs its Pallas
+kernel in interpret mode, as tests/test_hammings_mxu.py does. Every value is
+an integer, so every comparison is exact (tolerance 0).
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from kit4b_tpu.kmer import hammings as jh
+from kit4b_tpu.kmer import hammings_mxu as jm
+from kit4b_tpu_torch import state
+from kit4b_tpu_torch.kernels.minmm import minmm, minmm_plain
+from kit4b_tpu_torch.kmer import hammings as th
+from kit4b_tpu_torch.kmer import hammings_mxu as tm
+
+
+def _genome(n, seed):
+    rng = np.random.default_rng(seed)
+    g = rng.integers(0, 4, n).astype(np.uint8)
+    g[n // 3] = 7                     # EOS chrom separator
+    g[rng.integers(0, n, 6)] = 4      # N bases (valid, N == N matches)
+    g[n - 60:n - 30] = g[20:50]       # a repeat: distance 0
+    return g
+
+
+def _ext(g, K, Gp):
+    return np.concatenate([g, np.full(Gp + K - len(g), 0x0F, np.uint8)])
+
+
+@pytest.mark.parametrize("rc", [False, True])
+@pytest.mark.parametrize("K", [7, 13, 25])
+def test_build_w_matches_jax(K, rc):
+    g = _genome(333, seed=K)          # G not a multiple of the tile
+    G, Gp = len(g), 512
+    ext = _ext(g, K, Gp)
+    Wj, vj = jm._build_w(jnp.asarray(ext), K=K, Gp=Gp, G=G, rc=rc)
+    Wt, vt = tm.build_w(torch.from_numpy(ext), K=K, Gp=Gp, G=G, rc=rc)
+    assert Wt.dtype == torch.int8 and Wt.shape == (Gp, 128 * -(-5 * K // 128))
+    np.testing.assert_array_equal(Wt.numpy(), np.asarray(Wj))
+    np.testing.assert_array_equal(vt.numpy(), np.asarray(vj))
+
+
+# (diag, span_lo, span_cnt, row_base, R) with T = 256, S = 128, Gp = 1024
+MINMM_CASES = [
+    (True, 0, 4, 0, 512),
+    (True, 2, 4, 256, 512),
+    (False, 1, 3, 0, 256),
+    (False, 3, 5, 512, 512),
+]
+
+
+@pytest.mark.parametrize("diag,span_lo,span_cnt,row_base,R", MINMM_CASES)
+def test_minmm_plain_matches_pallas_interpret(diag, span_lo, span_cnt,
+                                              row_base, R):
+    K, T, S, Gp = 25, 256, 128, 1024
+    g = _genome(1000, seed=7)
+    ext = jnp.asarray(_ext(g, K, Gp))
+    Wj, vj = jm._build_w(ext, K=K, Gp=Gp, G=len(g), rc=False)
+    Wrcj, _ = jm._build_w(ext, K=K, Gp=Gp, G=len(g), rc=True)
+    Wpj = Wj if diag else Wrcj
+    want = jnp.max(jm._minmm_pallas(
+        Wj[row_base:row_base + R], Wpj, K, diag=diag, span_lo=span_lo,
+        span_cnt=span_cnt, T=T, S=S,
+        row_base=jnp.asarray([row_base], jnp.int32), interpret=True), axis=1)
+    _, W, _ = state.from_jax(g, np.asarray(Wj), np.asarray(vj), "cpu")
+    _, Wp, _ = state.from_jax(g, np.asarray(Wpj), np.asarray(vj), "cpu")
+    kw = dict(diag=diag, span_lo=span_lo, span_cnt=span_cnt, S=S,
+              row_base=row_base)
+    got = minmm_plain(W[row_base:row_base + R], Wp, **kw)
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    np.testing.assert_array_equal(
+        minmm(W[row_base:row_base + R], Wp, **kw).numpy(), np.asarray(want))
+
+
+def test_from_jax_checks_its_inputs():
+    g = _genome(300, seed=1)
+    W = np.zeros((512, 128), np.int8)
+    v = np.zeros(512, bool)
+    codes, Wt, vt = state.from_jax(g, W, v, "cpu")
+    assert (codes.dtype, Wt.dtype, vt.dtype) == (torch.uint8, torch.int8,
+                                                 torch.bool)
+    with pytest.raises(ValueError, match="W"):
+        state.from_jax(g, W[:, :100], v, "cpu")
+    with pytest.raises(ValueError, match="valid"):
+        state.from_jax(g, W, v[:10], "cpu")
+    with pytest.raises(ValueError, match="codes"):
+        state.from_jax(g.astype(np.int32), W, v, "cpu")
+
+
+@pytest.mark.parametrize("anti", [True, False])
+@pytest.mark.parametrize("K", [7, 25])
+def test_exhaustive_matches_jax_pallas_and_oracle(K, anti):
+    g = _genome(300, seed=K + anti)
+    kw = dict(antisense=anti, T=256, S=128)
+    got = tm.hammings_exhaustive_mxu(g, K, device="cpu", **kw)
+    want = jm.hammings_exhaustive_mxu(g, K, use_pallas=True, interpret=True,
+                                      **kw)
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(got, jh.hammings_oracle(g, K,
+                                                          antisense=anti))
+
+
+def test_exhaustive_defaults_match_jax_pallas():
+    g = _genome(700, seed=5)
+    got = tm.hammings_exhaustive_mxu(g, 25, device="cpu")
+    want = jm.hammings_exhaustive_mxu(g, 25, use_pallas=True, interpret=True)
+    np.testing.assert_array_equal(got, want)
+
+
+def test_node_partials_and_merge_match_jax():
+    g = _genome(1100, seed=7)
+    kw = dict(T=256, S=128)
+    parts = []
+    for node in range(3):
+        got = tm.hammings_exhaustive_mxu(g, 13, node=node, numnodes=3,
+                                         device="cpu", **kw)
+        want = jm.hammings_exhaustive_mxu(g, 13, node=node, numnodes=3,
+                                          use_pallas=True, interpret=True,
+                                          **kw)
+        np.testing.assert_array_equal(got, want)
+        parts.append(got)
+    full = tm.hammings_exhaustive_mxu(g, 13, device="cpu", **kw)
+    np.testing.assert_array_equal(th.merge(*parts), full)
+    np.testing.assert_array_equal(full, jm.hammings_exhaustive_mxu(
+        g, 13, use_pallas=True, interpret=True, **kw))
+
+
+def test_row_chunk_overlapping_tail_matches_jax():
+    # Gp = 1280 is not a multiple of R = 512: the last chunk overlaps
+    g = _genome(1200, seed=9)
+    kw = dict(T=256, S=128, row_chunk=400)
+    got = tm.hammings_exhaustive_mxu(g, 25, device="cpu", **kw)
+    want = jm.hammings_exhaustive_mxu(g, 25, use_pallas=True, interpret=True,
+                                      **kw)
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(
+        got, tm.hammings_exhaustive_mxu(g, 25, device="cpu", T=256, S=128))
+
+
+@pytest.mark.parametrize("case", ["G<K", "all sentinels", "one window"])
+def test_edge_cases_match_jax(case):
+    if case == "G<K":
+        g, K, anti = np.zeros(5, np.uint8), 9, True
+    elif case == "all sentinels":
+        g, K, anti = np.full(300, 7, np.uint8), 9, True
+    else:   # sense only with a single valid window: no partner exists
+        g, K, anti = np.full(300, 7, np.uint8), 9, False
+        g[100:109] = [0, 1, 2, 3, 0, 1, 2, 3, 0]
+    got = tm.hammings_exhaustive_mxu(g, K, antisense=anti, device="cpu",
+                                     T=256, S=128)
+    want = jm.hammings_exhaustive_mxu(g, K, antisense=anti, use_pallas=True,
+                                      interpret=True, T=256, S=128)
+    assert got.dtype == np.uint16 and got.shape == (len(g),)
+    np.testing.assert_array_equal(got, want)
+    assert (got == 0xFFFF).all()
+    # the dispatching entry point keeps the JAX package's G < K result
+    np.testing.assert_array_equal(
+        th.hammings_exhaustive(g, K, antisense=anti, device="cpu"),
+        jh.hammings_exhaustive(g, K, antisense=anti))
+
+
+def test_legacy_sweep_is_not_ported():
+    with pytest.raises(NotImplementedError, match="queue B item 2"):
+        th.hammings_exhaustive(_genome(300, 1), 9, legacy_sweep=True,
+                               device="cpu")
