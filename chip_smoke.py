@@ -9,8 +9,9 @@ It imports no jax. Each phase raises on failure, and the script then exits
 non-zero without printing a result:
 
 1. The card's name and power limit (nvidia-smi), the CUDA version, and the
-   build of the min-match kernel (csrc/minmm.cu) with ptxas's report.
-2. The kernel against its plain PyTorch version on the card at the shapes
+   build of the three kernels (csrc/minmm.cu, sweep.cu, take.cu; one nvcc
+   each, all at once) with ptxas's report.
+2. The min-match kernel against its plain PyTorch version at the shapes
    of phase 4's run (Cw = 128, T = 2048, S = 1024, one row chunk of 2^21
    own rows against the node's partner spans), bit for bit, and at a
    shorter span with diag on and off, a non-zero row_base and span_lo > 0;
@@ -25,8 +26,25 @@ non-zero without printing a result:
    positions against a direct on-card computation of the node's partial
    minimum from the codes. The kernel's launch counter must equal the
    run's row chunks times its two strands.
+5. The offset-sweep kernel (csrc/sweep.cu) against its plain version, bit
+   for bit, on a seeded synthetic genome of R64 chromosome IV's length
+   (1,531,933 bp + EOG) with planted forward and reverse-complement
+   near-copies and N runs: 4,096-offset slices of a sense, an antisense and
+   a reversed sweep at full length and the slice that ends at G - K; all
+   four sweeps in full on 3 kbp. The first slice timed with CUDA events.
+6. The sweep engine end to end: `hammings_exhaustive(legacy_sweep=True,
+   use_kernel=True)` on that genome, both strands, equal at every position
+   to the max-match engine, with exactly four sweep launches; and equal to
+   the numpy oracles of phase 3 (K 7 and 25, antisense on and off).
+7. The gather kernel (csrc/take.cu): the profiler
+   `python -m kit4b_tpu_torch.tools.profile_gather` (524,288 indices into
+   a 262,144-entry table), then the kernel against its plain version bit
+   for bit on the same inputs with indices counted from the end and out of
+   range.
 
-The line before the last is a JSON table of the kernels; the last line is
+Each kernel's launch counter is set to 0 just before its path (phases 4,
+6, 7) and read just after it. The line before the last is a JSON table of
+the kernels; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 from __future__ import annotations
@@ -52,6 +70,8 @@ R64_LENGTHS = [        # S. cerevisiae S288C R64 nuclear chromosomes I-XVI
     562_643, 439_888, 745_751, 666_816, 1_078_177, 924_431, 784_333,
     1_091_291, 948_066]
 N_RANDOM, N_PLANTED = 2000, 500
+CHR4_LEN = R64_LENGTHS[3]   # chromosome IV, the sweep engine's genome
+SWEEP_SLICE = 4096     # offsets of each phase-5 slice
 ROMAN = ["I", "II", "III", "IV", "V", "VI", "VII", "VIII", "IX", "X", "XI",
          "XII", "XIII", "XIV", "XV", "XVI"]
 
@@ -119,6 +139,25 @@ def synthetic_r64(rng):
     return chroms, planted
 
 
+def synthetic_chr4(rng) -> np.ndarray:
+    """Seeded random codes of R64 chromosome IV's length with six forward
+    and six reverse-complement near-copies (3 kbp with 4 substitutions
+    each) and six N runs, then EOG."""
+    g = rng.integers(0, 4, CHR4_LEN, dtype=np.uint8)
+    L = 3000
+    for i in range(12):
+        s = int(rng.integers(0, CHR4_LEN - L))
+        seg = g[s:s + L].copy() if i % 2 == 0 else _revcomp(g[s:s + L])
+        subs = rng.choice(L, 4, replace=False)
+        seg[subs] = (seg[subs] + rng.integers(1, 4, 4)) % 4
+        d = int(rng.integers(0, CHR4_LEN - L))
+        g[d:d + L] = seg
+    for _ in range(6):
+        d = int(rng.integers(0, CHR4_LEN - 400))
+        g[d:d + int(rng.integers(50, 400))] = 4
+    return np.append(g, 0x0F).astype(np.uint8)
+
+
 def direct_node_min(torch, dev, seq, pos, c_lo, c_hi, Gp):
     """Node partial minimum at concatenated positions `pos`, straight from
     the codes: min over the partner windows j in [c_lo, c_hi) of both
@@ -145,6 +184,155 @@ def direct_node_min(torch, dev, seq, pos, c_lo, c_hi, Gp):
                 d = torch.where(p[b:b + 32, None] == cols[None], 1 << 20, d)
             best[b:b + 32] = torch.minimum(best[b:b + 32], d.amin(1))
     return torch.where(qvalid, best, 0xFFFF).cpu().numpy()
+
+
+def sweep_vs_plain(torch, dev, seq, card):
+    """Phase 5: the sweep kernel against its plain version, bit for bit, at
+    full length on 4,096-offset slices and in full on 3 kbp; the first slice
+    timed in turns. Returns (max_abs_err, kernel ms, plain ms)."""
+    from kit4b_tpu_torch.kernels.sweep import sweep, sweep_plain
+
+    def codes(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    def cases_of(g):   # the engine's four sweeps: (label, own, partner, d_lo)
+        rc = _revcomp(g)
+        return [("sense forward", codes(g), codes(g), 1),
+                ("antisense forward", codes(g), codes(rc), 0),
+                ("sense reversed", codes(g[::-1]), codes(g[::-1]), 1),
+                ("antisense reversed", codes(g[::-1]), codes(rc[::-1]), 0)]
+
+    G = len(seq)
+    full = cases_of(seq)
+    small = seq[:3000].copy()
+    small[2000:2100] = small[100:200]          # a repeat
+    small[1500], small[-1] = 7, 0x0F           # EOS, EOG
+    runs = [(label, own, part, lo, lo + SWEEP_SLICE, G)
+            for label, own, part, lo in full[:3]]
+    runs.append(("sense forward, the slice that ends at G - K", full[0][1],
+                 full[0][2], G - K - SWEEP_SLICE, None, G))
+    runs += [(f"{label}, 3 kbp in full", own, part, lo, None, len(small))
+             for label, own, part, lo in cases_of(small)]
+    max_err = 0
+    for label, own, part, lo, hi, gv in runs:
+        kw = dict(K=K, G_valid=gv, d_lo=lo, d_hi=hi)
+        got, want = sweep(own, part, **kw), sweep_plain(own, part, **kw)
+        torch.cuda.synchronize()
+        err = int((got.long() - want.long()).abs().max())
+        max_err = max(max_err, err)
+        print(f"sweep vs plain [{label}]: G={gv} d in [{lo}, {hi}): "
+              f"equal={torch.equal(got, want)} max_abs_err={err} "
+              f"(min {int(want.min())}, {int((want < 9999).sum())} starts "
+              f"with a valid pair)")
+        if not torch.equal(got, want):
+            raise AssertionError(f"sweep kernel differs from plain: {label}")
+    # the comparison of runs[0] above warmed both functions at this shape
+    _, own, part, lo, hi, gv = runs[0]
+    kw = dict(K=K, G_valid=gv, d_lo=lo, d_hi=hi)
+    turns = []
+    for name in ("plain", "kernel", "kernel", "plain"):
+        fn = sweep_plain if name == "plain" else sweep
+        turns.append((name, _time_ms(torch, lambda: fn(own, part, **kw))))
+    k_ms = [ms for n, ms in turns if n == "kernel"]
+    p_ms = [ms for n, ms in turns if n == "plain"]
+    kernel_ms, plain_ms = sum(k_ms) / 2, sum(p_ms) / 2
+    pairs = SWEEP_SLICE * (G - K + 1) - SWEEP_SLICE * (SWEEP_SLICE + 1) // 2
+    print(f"sweep at G={G} K={K} d in [{lo}, {hi}) on {card}: kernel {k_ms} "
+          f"ms, plain {p_ms} ms (turns plain, kernel, kernel, plain); "
+          f"kernel {pairs / kernel_ms * 1e3} window pairs/s, plain "
+          f"{pairs / plain_ms * 1e3} pairs/s")
+    return max_err, kernel_ms, plain_ms
+
+
+def sweep_engine(torch, dev, seq, oracle_genome, oracles, card):
+    """Phase 6: the sweep engine end to end on the chrIV-length genome,
+    against the max-match engine and the numpy oracles. Returns the sweep
+    kernel's launches in the engine run."""
+    from kit4b_tpu_torch.kernels.sweep import sweep
+    from kit4b_tpu_torch.kmer.hammings import hammings_exhaustive
+    from kit4b_tpu_torch.kmer.hammings_mxu import hammings_exhaustive_mxu
+    G = len(seq)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    got = hammings_exhaustive(seq, K, legacy_sweep=True, use_kernel=True,
+                              device=dev)     # returns numpy: synchronised
+    wall = time.perf_counter() - t0
+    launches = sweep.launches
+    peak = torch.cuda.max_memory_allocated()
+    nk = G - K + 1
+    print(f"sweep engine on {G} bp (K={K}, both strands) on {card}: wall "
+          f"{wall} s, {2 * nk * nk / wall} window pairs/s (2 N^2 / s), "
+          f"{nk / wall} k-mer rows/s, peak device memory {peak} bytes, "
+          f"sweep launches {launches}")
+    if launches != 4:
+        raise AssertionError(f"the sweep engine launched the kernel "
+                             f"{launches} times, not 4")
+    t0 = time.perf_counter()
+    want = hammings_exhaustive_mxu(seq, K, device=dev)
+    mxu_wall = time.perf_counter() - t0
+    bad = np.nonzero(got != want)[0]
+    print(f"sweep engine vs max-match engine ({mxu_wall} s): {len(bad)} of "
+          f"{G} positions differ; min {int(got.min())}, zeros "
+          f"{int((got == 0).sum())}, no valid window "
+          f"{int((got == 0xFFFF).sum())}")
+    if len(bad):
+        raise AssertionError(f"sweep engine differs from the max-match "
+                             f"engine at {bad[:5]}: {got[bad[:5]]} vs "
+                             f"{want[bad[:5]]}")
+    if int(got.min()) != 0:
+        raise AssertionError("no planted copy reads distance 0")
+    for (k, anti), want in oracles.items():
+        before = sweep.launches
+        got = hammings_exhaustive(oracle_genome, k, antisense=anti,
+                                  legacy_sweep=True, use_kernel=True,
+                                  device=dev)
+        n = sweep.launches - before
+        ok = np.array_equal(got, want)
+        print(f"sweep engine vs oracle G={len(oracle_genome)} K={k} "
+              f"antisense={anti}: equal={ok}, {n} launches")
+        if not ok or n != (4 if anti else 2):
+            raise AssertionError(f"sweep engine vs oracle: K={k} "
+                                 f"antisense={anti} equal={ok} launches={n}")
+    return launches
+
+
+def gather(torch, dev):
+    """Phase 7: the gather profiler, then the kernel against its plain
+    version with indices counted from the end and out of range. Returns
+    (launches in the profiler run, max_abs_err, kernel ms, plain ms)."""
+    from kit4b_tpu_torch.kernels.take import FILL, take, take_plain
+    from kit4b_tpu_torch.tools import profile_gather
+    reset_launches()
+    times = profile_gather.main()
+    launches = take.launches
+    if launches != profile_gather.CALLS + 1:
+        raise AssertionError(f"the profiler launched the gather kernel "
+                             f"{launches} times, not "
+                             f"{profile_gather.CALLS + 1}")
+    table, idx = profile_gather.inputs(dev)
+    n = table.shape[0]
+    idx[:5] = torch.tensor([-1, -n, -n - 1, n, n + 5], dtype=torch.int32)
+    got, want = take(table, idx), take_plain(table, idx)
+    torch.cuda.synchronize()
+    err = int((got.long() - want.long()).abs().max())
+    edges = got[:5].tolist()
+    print(f"take vs plain with indices -1, -T, -T-1, T, T+5: "
+          f"equal={torch.equal(got, want)} max_abs_err={err}; "
+          f"they read {edges}")
+    if not torch.equal(got, want) or edges != [
+            int(table[-1]), int(table[0]), FILL, FILL, FILL]:
+        raise AssertionError("gather kernel differs from plain")
+    return launches, err, times["ms"], times["plain_ms"]
+
+
+def reset_launches() -> None:
+    """Sets every kernel's launch counter to 0."""
+    from kit4b_tpu_torch.kernels.minmm import minmm
+    from kit4b_tpu_torch.kernels.sweep import sweep
+    from kit4b_tpu_torch.kernels.take import take
+    minmm.launches = sweep.launches = take.launches = 0
 
 
 class _PhaseLog(logging.Handler):
@@ -189,14 +377,17 @@ def main() -> int:
     print(card)
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
-    built = build.paths("minmm")[1].exists()
+    kernels = ("minmm", "sweep", "take")
+    built = [k for k in kernels if build.paths(k)[1].exists()]
     t0 = time.perf_counter()
-    build.load("minmm")
-    print(f"kernel build (nvcc, sm_90a): {time.perf_counter() - t0} s"
-          + (" (library already built; loaded only)" if built else ""))
-    for line in build.paths("minmm")[2].read_text().splitlines():
-        if "registers" in line or "spill" in line:
-            print("  ptxas:", line.strip())
+    build.build(*kernels)
+    print(f"kernel build (nvcc, sm_90a, {len(kernels)} at once): "
+          f"{time.perf_counter() - t0} s"
+          + (f" ({built} already built)" if built else ""))
+    for k in kernels:
+        for line in build.paths(k)[2].read_text().splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"  ptxas {k}:", line.strip())
 
     # --- the phase-4 genome and its node geometry ---------------------
     chroms, planted = synthetic_r64(rng)
@@ -262,13 +453,14 @@ def main() -> int:
     g[1500:1560] = g[200:260]                   # a repeat: distance 0
     g[1530] = (g[1530] + 1) % 4                 # and 1
     combos = [(k, anti) for k in (7, 25) for anti in (True, False)]
+    oracle_results = {}     # phase 6 holds the sweep engine to them too
     with ProcessPoolExecutor(len(combos), mp_context=get_context("spawn")) \
             as pool:
         oracles = [pool.submit(hammings_oracle, g, k, anti)
                    for k, anti in combos]
         for (k, anti), fut in zip(combos, oracles):
             got = hammings_exhaustive_mxu(g, k, antisense=anti, device=dev)
-            want = fut.result()
+            want = oracle_results[k, anti] = fut.result()
             ok = np.array_equal(got, want)
             print(f"oracle check G=2000 K={k} antisense={anti}: equal={ok} "
                   f"(min {int(want[:2000 - k + 1].min())})")
@@ -287,7 +479,7 @@ def main() -> int:
         logging.getLogger("kit4b_tpu").addHandler(phases)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        minmm.launches = 0
+        reset_launches()
         t0 = time.perf_counter()
         rc = cli.main(["hammings", "-i", str(fa), "-o", str(out), "-K",
                        str(K), "-n", str(NUMNODES), "-N", "1"])
@@ -335,15 +527,32 @@ def main() -> int:
                              f"{got[bad[:5]]} vs {want[bad[:5]]}")
     if int(got[N_RANDOM:].min()) != 0:
         raise AssertionError("no planted position reads distance 0")
+
+    # --- 5-7. the sweep kernel, the sweep engine, the gather ----------
+    chr4 = synthetic_chr4(np.random.default_rng(SEED + 4))
+    sweep_err, sweep_ms, sweep_plain_ms = sweep_vs_plain(torch, dev, chr4,
+                                                         card)
+    sweep_launches = sweep_engine(torch, dev, chr4, g, oracle_results, card)
+    take_launches, take_err, take_ms, take_plain_ms = gather(torch, dev)
     if "jax" in sys.modules:
         raise AssertionError("jax was imported")
 
-    print(json.dumps({"kernels": [{
-        "name": "minmm", "route": "cuda",
-        "source": "kit4b_tpu_torch/csrc/minmm.cu",
-        "replaces": "kit4b_tpu/kmer/hammings_mxu.py:100",
-        "launches": launches, "max_abs_err": max_err,
-        "ms": kernel_ms, "plain_ms": plain_ms}]}))
+    print(json.dumps({"kernels": [
+        {"name": "minmm", "route": "cuda",
+         "source": "kit4b_tpu_torch/csrc/minmm.cu",
+         "replaces": "kit4b_tpu/kmer/hammings_mxu.py:100",
+         "launches": launches, "max_abs_err": max_err,
+         "ms": kernel_ms, "plain_ms": plain_ms},
+        {"name": "sweep", "route": "cuda",
+         "source": "kit4b_tpu_torch/csrc/sweep.cu",
+         "replaces": "kit4b_tpu/kmer/hammings_kernel.py:55",
+         "launches": sweep_launches, "max_abs_err": sweep_err,
+         "ms": sweep_ms, "plain_ms": sweep_plain_ms},
+        {"name": "take", "route": "cuda",
+         "source": "kit4b_tpu_torch/csrc/take.cu",
+         "replaces": "tools/archive/profile_pallas_gather.py:36",
+         "launches": take_launches, "max_abs_err": take_err,
+         "ms": take_ms, "plain_ms": take_plain_ms}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

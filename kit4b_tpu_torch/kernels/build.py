@@ -5,7 +5,8 @@ compiles it with nvcc for Hopper (sm_90a) into
 `_build/lib<name>-<key>.so`, where the key is a hash of the source and the
 flags, and loads it with ctypes. A library that is already built for the
 same key is loaded as it is, so a process builds each kernel once and a
-changed source builds anew. nvcc's output, with ptxas's register and
+changed source builds anew. `build(*names)` compiles several kernels at
+once, one nvcc process each. nvcc's output, with ptxas's register and
 shared-memory report, is kept beside the library in a `.log` file.
 
 A failed build raises: there is no fallback to another implementation.
@@ -47,19 +48,36 @@ def _nvcc() -> str:
                        "or set CUDA_HOME")
 
 
+def build(*names: str) -> None:
+    """Build every named kernel whose library is missing: one nvcc each,
+    all started together."""
+    jobs = []
+    for name in names:
+        src, lib, log = paths(name)
+        if lib.exists():
+            continue
+        BUILD.mkdir(exist_ok=True)
+        tmp = lib.with_name(f".{lib.stem}.{os.getpid()}.so")
+        proc = subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+                                 str(src)], stdout=subprocess.PIPE,
+                                stderr=subprocess.PIPE, text=True)
+        jobs.append((src, lib, log, tmp, proc))
+    failed = []
+    for src, lib, log, tmp, proc in jobs:
+        out, err = proc.communicate()
+        log.write_text(out + err)
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            failed.append(f"nvcc failed to build {src.name} "
+                          f"(exit {proc.returncode}):\n{err[-4000:]}")
+        else:
+            os.replace(tmp, lib)   # atomic: a concurrent process never sees half a file
+    if failed:
+        raise RuntimeError("\n".join(failed))
+
+
 @functools.cache
 def load(name: str) -> ctypes.CDLL:
     """Build (if needed) and load the shared library of `csrc/<name>.cu`."""
-    src, lib, log = paths(name)
-    if not lib.exists():
-        BUILD.mkdir(exist_ok=True)
-        tmp = lib.with_name(f".{lib.stem}.{os.getpid()}.so")
-        r = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
-                           capture_output=True, text=True)
-        log.write_text(r.stdout + r.stderr)
-        if r.returncode != 0:
-            tmp.unlink(missing_ok=True)
-            raise RuntimeError(f"nvcc failed to build {src.name} "
-                               f"(exit {r.returncode}):\n{r.stderr[-4000:]}")
-        os.replace(tmp, lib)   # atomic: concurrent builders never see half a file
-    return ctypes.CDLL(str(lib))
+    build(name)
+    return ctypes.CDLL(str(paths(name)[1]))

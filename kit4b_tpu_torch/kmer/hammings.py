@@ -1,10 +1,11 @@
 """hammings: genome-wide minimum K-mer Hamming distances.
 
 Port of kit4b_tpu/kmer/hammings.py. `hammings_exhaustive` runs the
-max-match engine (hammings_mxu.py). The naive oracle, the node merge and
-the .csv/.hmg/.npy readers and writers are numpy code re-homed here from
-kit4b_tpu/kmer/hammings.py, whose module imports jax; the tests hold them
-byte-identical to the originals.
+max-match engine (hammings_mxu.py), or with `legacy_sweep` and
+`use_kernel` the offset-sweep engine (hammings_kernel.py). The naive
+oracle, the node merge and the .csv/.hmg/.npy readers and writers are
+numpy code re-homed here from kit4b_tpu/kmer/hammings.py, whose module
+imports jax; the tests hold them byte-identical to the originals.
 """
 from __future__ import annotations
 
@@ -15,6 +16,7 @@ import torch
 
 from kit4b_tpu import dna
 
+from .hammings_kernel import hammings_exhaustive_kernel
 from .hammings_mxu import hammings_exhaustive_mxu
 
 BIG = np.uint16(0xFFFF)
@@ -23,21 +25,31 @@ BIG = np.uint16(0xFFFF)
 def hammings_exhaustive(genome_seq: np.ndarray, K: int,
                         *, antisense: bool = True,
                         node: int = 0, numnodes: int = 1,
+                        use_kernel: bool | None = None,
                         legacy_sweep: bool = False,
                         device: str | torch.device = "cuda") -> np.ndarray:
     """Minimum Hamming distance per K-mer start position (uint16, 0xFFFF
     where no valid K-mer), by the max-match engine. Node partitioning
-    splits partner-span ranges; merge partials with np.minimum (ePMmerge)."""
-    if legacy_sweep:
-        raise NotImplementedError(
-            "hammings legacy per-offset sweep (kit4b_tpu/kmer/"
-            "hammings_kernel.py) is not ported: ROADMAP.md queue B item 2")
+    splits partner-span ranges; merge partials with np.minimum (ePMmerge).
+
+    legacy_sweep=True with use_kernel runs the offset-sweep engine. As in
+    the JAX package, that engine ignores node/numnodes: every node returns
+    the whole-genome minimum, which merges to the same result. The legacy
+    XLA sweep (legacy_sweep without use_kernel) is not ported."""
     G = len(genome_seq)
     if G < K:
         return np.full(0, BIG, np.uint16)
-    return hammings_exhaustive_mxu(np.asarray(genome_seq), K,
-                                   antisense=antisense, node=node,
-                                   numnodes=numnodes, device=device)
+    if not legacy_sweep:
+        return hammings_exhaustive_mxu(np.asarray(genome_seq), K,
+                                       antisense=antisense, node=node,
+                                       numnodes=numnodes, device=device)
+    if use_kernel:
+        return hammings_exhaustive_kernel(np.asarray(genome_seq), K,
+                                          antisense=antisense, device=device)
+    raise NotImplementedError(
+        "hammings legacy XLA sweep (kit4b_tpu/kmer/hammings.py "
+        "_sweep_range) is not ported; use_kernel=True runs the offset-sweep "
+        "engine")
 
 
 def hammings_oracle(genome_seq: np.ndarray, K: int,

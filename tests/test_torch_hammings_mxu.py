@@ -12,6 +12,7 @@ import pytest
 import torch
 
 from kit4b_tpu.kmer import hammings as jh
+from kit4b_tpu.kmer import hammings_kernel as jk
 from kit4b_tpu.kmer import hammings_mxu as jm
 from kit4b_tpu_torch import state
 from kit4b_tpu_torch.kernels.minmm import minmm, minmm_plain
@@ -166,6 +167,12 @@ def test_edge_cases_match_jax(case):
 
 
 def test_legacy_sweep_is_not_ported():
-    with pytest.raises(NotImplementedError, match="queue B item 2"):
-        th.hammings_exhaustive(_genome(300, 1), 9, legacy_sweep=True,
-                               device="cpu")
+    # the legacy XLA sweep stays unported; its kernel path runs the port's
+    # offset-sweep engine and gives the JAX package's result
+    g = _genome(300, 1)
+    with pytest.raises(NotImplementedError, match="_sweep_range"):
+        th.hammings_exhaustive(g, 9, legacy_sweep=True, device="cpu")
+    got = th.hammings_exhaustive(g, 9, legacy_sweep=True, use_kernel=True,
+                                 device="cpu")
+    np.testing.assert_array_equal(got, jk.hammings_exhaustive_tpu(
+        g, 9, tile=512, span=512, interpret=True))

@@ -1,5 +1,5 @@
-"""Max-match kernel wrapper of the port (kit4b_tpu_torch/kernels/minmm.py),
-its build, and device resolution.
+"""Kernel wrappers of the port (kit4b_tpu_torch/kernels/: minmm, sweep,
+take), their build, and device resolution.
 
 CPU tests: for CPU tensors the wrapper runs the plain PyTorch version and
 launches nothing. Tests marked `cuda` need an NVIDIA card and skip without
@@ -16,6 +16,8 @@ import torch
 from kit4b_tpu_torch import device as devmod
 from kit4b_tpu_torch.kernels import build
 from kit4b_tpu_torch.kernels.minmm import NEG, minmm, minmm_plain
+from kit4b_tpu_torch.kernels.sweep import BIG, sweep, sweep_plain
+from kit4b_tpu_torch.kernels.take import FILL, take, take_plain
 from kit4b_tpu_torch.kmer.hammings import hammings_oracle
 from kit4b_tpu_torch.kmer.hammings_mxu import build_w, hammings_exhaustive_mxu
 
@@ -98,14 +100,34 @@ def test_resolve_device(monkeypatch):
             devmod.resolve(asked)
 
 
-def test_build_paths_are_keyed_by_the_source():
-    src, lib, log = build.paths("minmm")
-    assert src == build.CSRC / "minmm.cu" and src.is_file()
+def _check_build_paths(name):
+    src, lib, log = build.paths(name)
+    assert src == build.CSRC / f"{name}.cu" and src.is_file()
     assert lib.parent == log.parent == build.PKG / "_build"
     key = lib.stem.split("-")[-1]
     assert len(key) == 16 and int(key, 16) >= 0
-    assert build.paths("minmm") == (src, lib, log)
+    assert build.paths(name) == (src, lib, log)
     assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
+
+
+def test_build_paths_are_keyed_by_the_source():
+    _check_build_paths("minmm")
+
+
+@pytest.mark.parametrize("name", ["sweep", "take"])
+def test_build_paths_of_the_sweep_and_take_kernels(name):
+    _check_build_paths(name)
+
+
+def test_build_without_nvcc_raises(monkeypatch, tmp_path):
+    # a kernel that is not built yet needs nvcc; without it the build raises
+    import torch.utils.cpp_extension as cpp_extension
+    monkeypatch.setattr(build, "BUILD", tmp_path)
+    monkeypatch.setattr(build.shutil, "which", lambda _: None)
+    monkeypatch.setattr(cpp_extension, "CUDA_HOME", None)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        build.build("sweep", "take")
+    assert not list(tmp_path.iterdir())
 
 
 @pytest.mark.cuda
@@ -134,3 +156,158 @@ def test_engine_on_card_matches_cpu_and_oracle(cuda, K, anti):
     np.testing.assert_array_equal(
         got, hammings_exhaustive_mxu(g, K, device="cpu", **kw))
     np.testing.assert_array_equal(got, hammings_oracle(g, K, antisense=anti))
+
+
+# --- offset sweep (kernels/sweep.py) --------------------------------------
+
+# (G, K, G_valid, partner: "self" or its length, d_lo, d_hi) at CPU sizes:
+# the sense and antisense shapes of the engine, G_valid < G, a partner
+# shorter than own, an offset slice and K = 1
+SWEEP_CASES = [
+    (300, 25, 300, "self", 1, None),
+    (300, 7, 280, 300, 0, None),
+    (400, 13, 400, 250, 0, 300),
+    (350, 1, 350, "self", 1, None),
+]
+# the same at sizes of several 1,024-start tiles and 2,048-offset spans of
+# the kernel, with offset slices that start and end inside a span and
+# straddle a span boundary
+SWEEP_CARD_CASES = [
+    (5000, 25, 5000, "self", 1, None),
+    (5000, 7, 4900, 5000, 0, None),
+    (4500, 13, 4500, 3000, 100, 4000),
+    (5000, 25, 5000, "self", 2040, 2056),
+    (3000, 1, 3000, "self", 1, None),
+]
+
+
+def _sweep_inputs(G, partner, seed, device="cpu"):
+    own = _genome(G, seed)
+    if partner == "self":
+        part = own
+    else:   # another genome holding a copy of own[100:150]
+        part = _genome(partner, seed + 1)
+        part[partner // 2:partner // 2 + 50] = own[100:150]
+    return (torch.from_numpy(own).to(device),
+            torch.from_numpy(part).to(device))
+
+
+def _direct_sweep(own, part, K, G_valid, d_lo, d_hi):
+    """Direct numpy definition: every (i, d) pair scored on its own; codes
+    at or past G_valid, or past the partner's end, read as EOG."""
+    G = len(own)
+    out = np.full(G, BIG, np.int64)
+    n_win = G_valid - K + 1
+    d_end = n_win if d_hi is None else min(d_hi, n_win)
+    pad = np.full(G + K, 15, np.uint8)
+    ow = np.lib.stride_tricks.sliding_window_view(
+        np.concatenate([own[:G_valid], pad]), K)
+    pw = np.lib.stride_tricks.sliding_window_view(
+        np.concatenate([part[:G_valid], pad]), K)
+    for d in range(d_lo, d_end):
+        a, b = ow[:n_win - d], pw[d:n_win]
+        ok = (a < 5).all(1) & (b < 5).all(1)
+        ws = (a != b).sum(1)
+        out[:n_win - d] = np.where(ok, np.minimum(out[:n_win - d], ws),
+                                   out[:n_win - d])
+    return out
+
+
+@pytest.mark.parametrize("G,K,G_valid,partner,d_lo,d_hi", SWEEP_CASES)
+def test_sweep_on_cpu_runs_plain_and_launches_nothing(G, K, G_valid, partner,
+                                                      d_lo, d_hi):
+    own, part = _sweep_inputs(G, partner, seed=G + K)
+    kw = dict(K=K, G_valid=G_valid, d_lo=d_lo, d_hi=d_hi)
+    before = sweep.launches
+    got = sweep(own, part, **kw)
+    assert sweep.launches == before
+    assert got.dtype == torch.int32 and got.shape == (G,)
+    assert torch.equal(got, sweep_plain(own, part, **kw))
+    np.testing.assert_array_equal(
+        got.numpy(), _direct_sweep(own.numpy(), part.numpy(), **kw))
+    assert int(got.min()) <= 1   # the planted copies are found
+
+
+def test_sweep_rejects_what_the_kernel_does_not_take():
+    own, part = _sweep_inputs(300, "self", seed=1)
+    with pytest.raises(ValueError, match="K must be in"):
+        sweep(own, part, K=26, G_valid=300, d_lo=1)
+    with pytest.raises(ValueError, match="uint8"):
+        sweep(own.int(), part, K=25, G_valid=300, d_lo=1)
+    with pytest.raises(ValueError, match="G_valid"):
+        sweep(own, part, K=25, G_valid=301, d_lo=1)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        sweep(own, part.to("meta"), K=25, G_valid=300, d_lo=1)
+
+
+# --- gather (kernels/take.py) ---------------------------------------------
+
+def _take_inputs(T, N, seed, device="cpu"):
+    """An int32 table and indices: in range, counted from the end, and out
+    of range on both sides."""
+    rng = np.random.default_rng(seed)
+    table = rng.integers(-2**31, 2**31, T).astype(np.int32)
+    idx = rng.integers(-T, T, N).astype(np.int32)
+    idx[:8] = [-1, -T, -T - 1, T, T + 5, 0, T - 1, -(2**31)]
+    return (torch.from_numpy(table).to(device),
+            torch.from_numpy(idx).to(device))
+
+
+def _direct_take(table, idx):
+    T = len(table)
+    return np.array([table[i] if 0 <= i < T else
+                     table[i + T] if -T <= i < 0 else FILL
+                     for i in idx.tolist()], np.int32)
+
+
+@pytest.mark.parametrize("T,N", [(1000, 3000), (7, 64), (1, 9)])
+def test_take_on_cpu_runs_plain_and_launches_nothing(T, N):
+    table, idx = _take_inputs(T, N, seed=T)
+    before = take.launches
+    got = take(table, idx)
+    assert take.launches == before
+    assert got.dtype == torch.int32 and got.shape == (N,)
+    assert torch.equal(got, take_plain(table, idx))
+    np.testing.assert_array_equal(got.numpy(),
+                                  _direct_take(table.numpy(), idx.numpy()))
+
+
+def test_take_of_an_empty_table_fills():
+    idx = torch.tensor([0, -1, 5], dtype=torch.int32)
+    got = take(torch.zeros(0, dtype=torch.int32), idx)
+    assert got.tolist() == [FILL] * 3
+
+
+def test_take_rejects_what_the_kernel_does_not_take():
+    table, idx = _take_inputs(100, 10, seed=3)
+    with pytest.raises(ValueError, match="int32"):
+        take(table.long(), idx)
+    with pytest.raises(ValueError, match="int32"):
+        take(table, idx.long())
+    with pytest.raises(ValueError, match="one CUDA device"):
+        take(table, idx.to("meta"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("G,K,G_valid,partner,d_lo,d_hi",
+                         SWEEP_CASES + SWEEP_CARD_CASES)
+def test_sweep_kernel_matches_plain_on_card(cuda, G, K, G_valid, partner,
+                                            d_lo, d_hi):
+    own, part = _sweep_inputs(G, partner, seed=G + K, device=cuda)
+    kw = dict(K=K, G_valid=G_valid, d_lo=d_lo, d_hi=d_hi)
+    before = sweep.launches
+    got = sweep(own, part, **kw)
+    torch.cuda.synchronize()
+    assert sweep.launches == before + 1
+    assert torch.equal(got, sweep_plain(own, part, **kw))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,N", [(1000, 3000), (7, 64), (262_144, 524_288)])
+def test_take_kernel_matches_plain_on_card(cuda, T, N):
+    table, idx = _take_inputs(T, N, seed=T, device=cuda)
+    before = take.launches
+    got = take(table, idx)
+    torch.cuda.synchronize()
+    assert take.launches == before + 1
+    assert torch.equal(got, take_plain(table, idx))
