@@ -41,10 +41,27 @@ non-zero without printing a result:
    a 262,144-entry table), then the kernel against its plain version bit
    for bit on the same inputs with indices counted from the end and out of
    range.
+8. kalign, the single-end path (plain PyTorch passes on the card; no
+   kernel of its own yet). (a) The port on the seeded workload of
+   `kit4b_tpu_torch.tools.make_kalign_golden` (200 kbp with a planted
+   repeat, 8,192 reads with Ns, v5 forced, tier 2 overflowed) against the
+   JAX package's committed golden: tier-1 rows, nar/pos/strand/mm, the
+   tier-2 read count and the SAM's SHA-256, all equal. (b) Config #1 at
+   full size: the genome and reads of bench.py (4.6 Mbp, 100,000 simreads
+   reads of 100 bp, Illumina-skewed 2 % substitutions) written as FASTA,
+   then the port's CLI `index` and `kalign -b 98304 -M 1`. Checks: the v5
+   tier 1 ran, the native `pack2bit_u8` and `format_sam_se` were bound,
+   >= 99.9 % of accepted reads sit at their QNAME truth locus and strand,
+   every accepted read's `NM:i:` equals its mismatches recomputed from the
+   genome, and the CLI's first batch (98,304 reads, the timed shapes) run
+   again on the card and on the CPU gives the same tier-1 rows and classes
+   on both, which the CLI's SAM records of those reads agree with. Prints the CLI phases, reads/s, the median of 5 CUDA-event
+   timings of `fast_pass_packed_v5` on a device-resident 98,304-read
+   batch, its tier-2 and ladder read counts, and peak device memory.
 
 Each kernel's launch counter is set to 0 just before its path (phases 4,
-6, 7) and read just after it. The line before the last is a JSON table of
-the kernels; the last line is
+6, 7) and read just after it; phase 8 runs none of the three kernels. The
+line before the last is a JSON table of the kernels; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 from __future__ import annotations
@@ -72,6 +89,8 @@ R64_LENGTHS = [        # S. cerevisiae S288C R64 nuclear chromosomes I-XVI
 N_RANDOM, N_PLANTED = 2000, 500
 CHR4_LEN = R64_LENGTHS[3]   # chromosome IV, the sweep engine's genome
 SWEEP_SLICE = 4096     # offsets of each phase-5 slice
+ECOLI_LEN, ECOLI_READS = 4_600_000, 100_000   # config #1, as bench.py
+ECOLI_BATCH, READ_LEN = 98_304, 100
 ROMAN = ["I", "II", "III", "IV", "V", "VI", "VII", "VIII", "IX", "X", "XI",
          "XII", "XIII", "XIV", "XV", "XVI"]
 
@@ -327,6 +346,192 @@ def gather(torch, dev):
     return launches, err, times["ms"], times["plain_ms"]
 
 
+def kalign_escalations(torch, al, reads):
+    """Tier-1 escalations of one batch on the aligner's v5 pass: (reads of
+    class -3 after tier 1, which tier 2 takes up to E; reads still -3
+    after tier 2, which go to the host ladder; the pass on the
+    device-resident batch as a closure)."""
+    from kit4b_tpu_torch.align.kalign import TIER2, pack_reads_2bit
+    from kit4b_tpu_torch.ops import seed_extend_v5
+    L = reads.shape[1]
+    gview, sa, _, lut2 = al._device_for(L)
+    lut4 = al._lut4_for(L, sa)
+    _, mtm = al.schedule_for(L)
+    r2b, nlist = pack_reads_2bit(reads)
+    r2b = torch.from_numpy(r2b).to(al.device)
+    nlist = torch.from_numpy(nlist).to(al.device)
+    kw = dict(genome_len=len(al.index.genome.seq), read_len=L,
+              offsets=al._offsets_for(L, mtm), lut_k=al.index.lut_k,
+              n_compact=al.n_compact, n_extend=al.n_extend,
+              max_tot_mm=mtm, mm_delta=al.mm_delta)
+
+    def run(tier2=TIER2):
+        return seed_extend_v5.fast_pass_packed_v5(
+            gview, sa, lut2, lut4, r2b, nlist, tier2=tier2, **kw)
+    return (int((run(None)[:, 0] == -3).sum()),
+            int((run()[:, 0] == -3).sum()), run)
+
+
+def kalign_golden(torch, dev):
+    """Phase 8a: the port against the JAX package's golden."""
+    from kit4b_tpu_torch.align import kalign
+    from kit4b_tpu_torch.tools import make_kalign_golden as mg
+    gold = np.load(mg.GOLDEN)
+    g, idx, recs = mg.workload()
+    if mg.inputs_sha256(g, recs) != str(gold["inputs_sha256"]):
+        raise AssertionError("the golden workload rebuilt here differs from "
+                             "the one the golden was made from")
+    out = mg.compute(kalign, idx, recs, device=dev)
+    reads = np.stack([r.codes for r in recs])
+    out["n_tier2_reads"], _, _ = kalign_escalations(
+        torch, kalign.KAligner(idx, batch_size=len(recs), use_v5=True,
+                               device=dev), reads)
+    bad = [k for k in gold.files
+           if k != "inputs_sha256" and not np.array_equal(out[k], gold[k])]
+    print(f"kalign golden ({len(recs)} reads, {len(g.seq)} bp, v5 forced): "
+          f"tier-2 reads {int(out['n_tier2_reads'])}, ladder reads "
+          f"{int(out['n_ladder_reads'])}, accepted "
+          f"{int((out['nar'] == 0).sum())}; differs from the JAX golden "
+          f"in {bad or 'nothing'}")
+    if bad:
+        raise AssertionError(f"kalign differs from the JAX golden in {bad}")
+
+
+def _sam_body(path: Path):
+    """(qname, flag, rname, pos, seq, NM) columns of a SAM's records."""
+    qn, flag, rname, pos, seq, nm = [], [], [], [], [], []
+    with open(path) as f:
+        for line in f:
+            if line.startswith("@"):
+                continue
+            c = line.rstrip("\n").split("\t")
+            qn.append(c[0])
+            flag.append(int(c[1]))
+            rname.append(c[2])
+            pos.append(int(c[3]))
+            seq.append(c[9])
+            nm.append(int(c[11][5:]) if len(c) > 11 else -1)
+    return qn, np.array(flag), rname, np.array(pos), seq, np.array(nm)
+
+
+def kalign_full(torch, dev, card, tmp: Path):
+    """Phase 8b: config #1 at full size through the port's CLI."""
+    from kit4b_tpu import dna
+    from kit4b_tpu.index import sa_build
+    from kit4b_tpu.index.sfx_index import SfxIndex
+    from kit4b_tpu.io.fasta import Genome
+    from kit4b_tpu.sim import simreads
+    from kit4b_tpu_torch import cli, native
+    from kit4b_tpu_torch.align import kalign
+    lib = native.load()
+    print(f"native host library {sa_build._LIB_PATH}: pack2bit_u8 "
+          f"{lib.pack2bit_u8.argtypes is not None}, format_sam_se "
+          f"{lib.format_sam_se.argtypes is not None}")
+    rng = np.random.default_rng(12345)
+    codes = rng.integers(0, 4, ECOLI_LEN).astype(np.uint8)
+    g = Genome(["ecoli_sim"], np.array([0]), np.array([ECOLI_LEN]),
+               np.append(codes, dna.BASE_EOG).astype(np.uint8))
+    recs = simreads.sim_reads(g, simreads.SimParams(
+        n_reads=ECOLI_READS, read_len=READ_LEN, seed=7,
+        error_mode="illumina", subs_rate=0.02))
+    fa, reads_fa = tmp / "ecoli_sim.fa", tmp / "reads.fa"
+    kix, sam = tmp / "ecoli_sim.kix", tmp / "out.sam"
+    write_fasta(fa, ["ecoli_sim"], [codes])
+    simreads.write_reads(reads_fa, recs)
+
+    phases = _PhaseLog()
+    logging.getLogger("kit4b_tpu").addHandler(phases)
+    t0 = time.perf_counter()
+    rc = cli.main(["index", "-i", str(fa), "-o", str(kix)])
+    t_index = time.perf_counter() - t0
+    if rc != 0:
+        raise AssertionError(f"CLI index exited {rc}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    rc = cli.main(["kalign", "-i", str(reads_fa), "-I", str(kix), "-o",
+                   str(sam), "-b", str(ECOLI_BATCH), "-M", "1"])
+    t_kalign = time.perf_counter() - t0
+    peak_cli = torch.cuda.max_memory_allocated()
+    logging.getLogger("kit4b_tpu").removeHandler(phases)
+    if rc != 0:
+        raise AssertionError(f"CLI kalign exited {rc}")
+    print(f"CLI on {card}: index {t_index} s, kalign {t_kalign} s "
+          f"({ECOLI_READS / t_kalign} reads/s; align phase "
+          f"{ECOLI_READS / phases.seconds['align']} reads/s), phases "
+          f"{phases.seconds}; peak device memory {peak_cli} bytes; tier 1 "
+          f"{phases.tier1}; classes {phases.stats}")
+    if phases.tier1 != {READ_LEN: "v5"}:
+        raise AssertionError(f"kalign took tier 1 {phases.tier1}, not v5")
+
+    idx = SfxIndex.load(kix)
+    if not np.array_equal(idx.genome.seq, g.seq):
+        raise AssertionError("the index holds another genome")
+    qn, flag, rname, pos, seq, nm = _sam_body(sam)
+    acc = np.nonzero((flag & 4) == 0)[0]
+    if len(qn) != ECOLI_READS or len(acc) < 0.9 * ECOLI_READS:
+        raise AssertionError(f"SAM holds {len(qn)} records, {len(acc)} "
+                             "accepted")
+    n_true = 0
+    for i in acc:
+        t = simreads.parse_truth(qn[i])
+        n_true += (rname[i] == t["chrom"] and pos[i] - 1 == t["start"]
+                   and ("-" if flag[i] & 16 else "+") == t["strand"])
+    rcodes = dna.encode("".join(seq[i] for i in acc)).reshape(-1, READ_LEN)
+    gwin = idx.genome.seq[(pos[acc] - 1)[:, None] + np.arange(READ_LEN)]
+    nm_genome = ((rcodes != gwin) | (rcodes >= 4) | (gwin >= 4)).sum(1)
+    nm_bad = int((nm_genome != nm[acc]).sum())
+    print(f"SAM check: {len(qn)} records, {len(acc)} accepted "
+          f"({len(acc) / len(qn)}), {n_true / len(acc)} of them at their "
+          f"truth locus and strand; NM differs from the genome's "
+          f"mismatches in {nm_bad}")
+    if n_true < 0.999 * len(acc) or nm_bad:
+        raise AssertionError(f"{n_true} of {len(acc)} accepted reads at "
+                             f"their truth locus; {nm_bad} NM mismatches")
+
+    # the CLI's first batch again, at its shapes, on the card and the CPU
+    batch = np.stack([r.codes for r in recs[:ECOLI_BATCH]])
+    got = []
+    for d in (dev, torch.device("cpu")):
+        al = kalign.KAligner(idx, batch_size=ECOLI_BATCH, device=d)
+        t0 = time.perf_counter()
+        out = al._submit(batch)
+        rows = out[1].cpu().numpy()
+        raw = al._collect_compact(out, batch)
+        got.append((time.perf_counter() - t0, [rows] + [
+            raw[k] for k in ("nar", "pos", "strand", "mm")]))
+    same = all(np.array_equal(a, b) for a, b in zip(got[0][1], got[1][1]))
+    _, nar, bpos, bstrand, bmm = got[1][1]
+    acc_b = nar == 0
+    b = slice(0, ECOLI_BATCH)
+    sam_same = (np.array_equal((flag[b] & 4) == 0, acc_b)
+                and np.array_equal(pos[b][acc_b] - 1, bpos[acc_b])
+                and np.array_equal((flag[b][acc_b] & 16) != 0,
+                                   bstrand[acc_b] == 1)
+                and np.array_equal(nm[b][acc_b], bmm[acc_b]))
+    print(f"the CLI's first batch ({ECOLI_BATCH} reads) again on the card "
+          f"({got[0][0]} s) and on the CPU ({got[1][0]} s): rows and "
+          f"classes equal: {same}; the CLI's SAM records of that batch "
+          f"agree with them: {sam_same}")
+    if not (same and sam_same):
+        raise AssertionError("the CPU, the card and the CLI's SAM differ on "
+                             "the first batch")
+
+    al = kalign.KAligner(idx, batch_size=ECOLI_BATCH, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    n_t2, n_ladder, run = kalign_escalations(torch, al, batch)  # warms up
+    ms = sorted(_time_ms(torch, run) for _ in range(5))
+    peak_pass = torch.cuda.max_memory_allocated()
+    print(f"fast_pass_packed_v5 on {ECOLI_BATCH} device-resident reads on "
+          f"{card}: median {ms[2]} ms of 5 (CUDA events: {ms}), "
+          f"{ECOLI_BATCH / ms[2] * 1e3} reads/s; tier-2 reads {n_t2}, "
+          f"ladder reads {n_ladder}; peak device memory {peak_pass} bytes "
+          f"(tables and pass)")
+    if not al._lut4_decided[READ_LEN]:
+        raise AssertionError("the timed aligner did not take v5")
+
+
 def reset_launches() -> None:
     """Sets every kernel's launch counter to 0."""
     from kit4b_tpu_torch.kernels.minmm import minmm
@@ -336,15 +541,19 @@ def reset_launches() -> None:
 
 
 class _PhaseLog(logging.Handler):
-    """Keeps the unrounded seconds of the CLI's PhaseTimer phases."""
+    """Keeps the unrounded seconds of the CLI's PhaseTimer phases, and
+    kalign's class counts and tier-1 pass by read length."""
 
     def __init__(self):
         super().__init__()
         self.seconds = {}
+        self.stats = self.tier1 = None
 
     def emit(self, record):
         if record.msg == "phase %s: %.2fs":
             self.seconds[record.args[0]] = record.args[1]
+        elif str(record.msg).startswith("kalign: %d reads"):
+            self.stats, self.tier1 = record.args[1], record.args[2]
 
 
 def main() -> int:
@@ -534,6 +743,11 @@ def main() -> int:
                                                          card)
     sweep_launches = sweep_engine(torch, dev, chr4, g, oracle_results, card)
     take_launches, take_err, take_ms, take_plain_ms = gather(torch, dev)
+
+    # --- 8. kalign: the JAX golden, then config #1 at full size -------
+    kalign_golden(torch, dev)
+    with tempfile.TemporaryDirectory(prefix=".chip_smoke_", dir=root) as tmp:
+        kalign_full(torch, dev, card, Path(tmp))
     if "jax" in sys.modules:
         raise AssertionError("jax was imported")
 
