@@ -5,17 +5,23 @@ Run from the root of a checkout on a machine with one NVIDIA Hopper card:
 
     python3 chip_smoke.py
 
-It imports no jax. Each phase raises on failure, and the script then exits
-non-zero without printing a result:
+It imports nothing of jax or of the JAX package kit4b_tpu. Each phase
+raises on failure, and the script then exits non-zero without printing a
+result:
 
 1. The card's name and power limit (nvidia-smi), the CUDA version, and the
    build of the three kernels (csrc/minmm.cu, sweep.cu, take.cu; one nvcc
-   each, all at once) with ptxas's report.
+   each, all at once) with ptxas's report; minmm must not spill.
 2. The min-match kernel against its plain PyTorch version at the shapes
    of phase 4's run (Cw = 128, T = 2048, S = 1024, one row chunk of 2^21
    own rows against the node's partner spans), bit for bit, and at a
    shorter span with diag on and off, a non-zero row_base and span_lo > 0;
-   the first case timed with CUDA events.
+   then wide rows (K 51 and 153: Cw 256 and 768) and R = 384 (not a
+   multiple of the kernel's 256 own rows). The first case timed with CUDA
+   events, with its share of the int8 bound; then every width the kernel
+   is built for (Cw 128-768) timed on 131,072 own rows against 262,144
+   partner columns (`kit4b_tpu_torch.tools.time_minmm`), each beside its
+   bound.
 3. `hammings_exhaustive_mxu` on the card against the numpy oracle on a
    2 kbp seeded genome with N bases and an EOS, K 7 and 25, antisense on
    and off: exact equality.
@@ -61,13 +67,16 @@ non-zero without printing a result:
 
 Each kernel's launch counter is set to 0 just before its path (phases 4,
 6, 7) and read just after it; phase 8 runs none of the three kernels. The
-line before the last is a JSON table of the kernels; the last line is
+line before the last is a JSON table of the kernels, each with its bound
+(the least time the card could take: int8 tensor operations for minmm,
+popcounts for sweep, bytes for take); the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 from __future__ import annotations
 
 import json
 import logging
+import re
 import subprocess
 import sys
 import tempfile
@@ -91,6 +100,12 @@ CHR4_LEN = R64_LENGTHS[3]   # chromosome IV, the sweep engine's genome
 SWEEP_SLICE = 4096     # offsets of each phase-5 slice
 ECOLI_LEN, ECOLI_READS = 4_600_000, 100_000   # config #1, as bench.py
 ECOLI_BATCH, READ_LEN = 98_304, 100
+INT8_PEAK = 1979e12    # H100 SXM dense int8 tensor operations per second
+HBM_RATE = 3.35e12     # H100 SXM device memory bytes per second
+# popcounts per second: 16 per clock per SM, 132 SMs, 1.98 GHz
+POPC_RATE = 16 * 132 * 1.98e9
+WIDE_K = (51, 153)     # Cw 256 and 768, the widths past the main path's 128
+WIDE_GP = 262_144      # windows of the wide-row cases: a prefix of the genome
 ROMAN = ["I", "II", "III", "IV", "V", "VI", "VII", "VIII", "IX", "X", "XI",
          "XII", "XIII", "XIV", "XV", "XVI"]
 
@@ -208,7 +223,7 @@ def direct_node_min(torch, dev, seq, pos, c_lo, c_hi, Gp):
 def sweep_vs_plain(torch, dev, seq, card):
     """Phase 5: the sweep kernel against its plain version, bit for bit, at
     full length on 4,096-offset slices and in full on 3 kbp; the first slice
-    timed in turns. Returns (max_abs_err, kernel ms, plain ms)."""
+    timed in turns. Returns (max_abs_err, kernel ms, plain ms, bound ms)."""
     from kit4b_tpu_torch.kernels.sweep import sweep, sweep_plain
 
     def codes(a):
@@ -256,11 +271,15 @@ def sweep_vs_plain(torch, dev, seq, card):
     p_ms = [ms for n, ms in turns if n == "plain"]
     kernel_ms, plain_ms = sum(k_ms) / 2, sum(p_ms) / 2
     pairs = SWEEP_SLICE * (G - K + 1) - SWEEP_SLICE * (SWEEP_SLICE + 1) // 2
+    out_bytes = got.numel() * got.element_size()
+    bound = max(pairs / POPC_RATE,
+                (own.numel() + part.numel() + out_bytes) / HBM_RATE) * 1e3
     print(f"sweep at G={G} K={K} d in [{lo}, {hi}) on {card}: kernel {k_ms} "
           f"ms, plain {p_ms} ms (turns plain, kernel, kernel, plain); "
           f"kernel {pairs / kernel_ms * 1e3} window pairs/s, plain "
-          f"{pairs / plain_ms * 1e3} pairs/s")
-    return max_err, kernel_ms, plain_ms
+          f"{pairs / plain_ms * 1e3} pairs/s; bound {bound} ms (one popcount "
+          f"a pair at {POPC_RATE:g}/s), kernel at {bound / kernel_ms} of it")
+    return max_err, kernel_ms, plain_ms, bound
 
 
 def sweep_engine(torch, dev, seq, oracle_genome, oracles, card):
@@ -320,7 +339,8 @@ def sweep_engine(torch, dev, seq, oracle_genome, oracles, card):
 def gather(torch, dev):
     """Phase 7: the gather profiler, then the kernel against its plain
     version with indices counted from the end and out of range. Returns
-    (launches in the profiler run, max_abs_err, kernel ms, plain ms)."""
+    (launches in the profiler run, max_abs_err, kernel ms, plain ms, bound
+    ms: the table, the indices and the output moved once)."""
     from kit4b_tpu_torch.kernels.take import FILL, take, take_plain
     from kit4b_tpu_torch.tools import profile_gather
     reset_launches()
@@ -343,7 +363,9 @@ def gather(torch, dev):
     if not torch.equal(got, want) or edges != [
             int(table[-1]), int(table[0]), FILL, FILL, FILL]:
         raise AssertionError("gather kernel differs from plain")
-    return launches, err, times["ms"], times["plain_ms"]
+    bound = sum(t.numel() * t.element_size()
+                for t in (table, idx, got)) / HBM_RATE * 1e3
+    return launches, err, times["ms"], times["plain_ms"], bound
 
 
 def kalign_escalations(torch, al, reads):
@@ -416,15 +438,13 @@ def _sam_body(path: Path):
 
 def kalign_full(torch, dev, card, tmp: Path):
     """Phase 8b: config #1 at full size through the port's CLI."""
-    from kit4b_tpu import dna
-    from kit4b_tpu.index import sa_build
-    from kit4b_tpu.index.sfx_index import SfxIndex
-    from kit4b_tpu.io.fasta import Genome
-    from kit4b_tpu.sim import simreads
-    from kit4b_tpu_torch import cli, native
+    from kit4b_tpu_torch import cli, dna, native
     from kit4b_tpu_torch.align import kalign
+    from kit4b_tpu_torch.index.sfx_index import SfxIndex
+    from kit4b_tpu_torch.io.fasta import Genome
+    from kit4b_tpu_torch.sim import simreads
     lib = native.load()
-    print(f"native host library {sa_build._LIB_PATH}: pack2bit_u8 "
+    print(f"native host library {native.lib_path()}: pack2bit_u8 "
           f"{lib.pack2bit_u8.argtypes is not None}, format_sam_se "
           f"{lib.format_sam_se.argtypes is not None}")
     rng = np.random.default_rng(12345)
@@ -440,7 +460,7 @@ def kalign_full(torch, dev, card, tmp: Path):
     simreads.write_reads(reads_fa, recs)
 
     phases = _PhaseLog()
-    logging.getLogger("kit4b_tpu").addHandler(phases)
+    logging.getLogger("kit4b_tpu_torch").addHandler(phases)
     t0 = time.perf_counter()
     rc = cli.main(["index", "-i", str(fa), "-o", str(kix)])
     t_index = time.perf_counter() - t0
@@ -453,7 +473,7 @@ def kalign_full(torch, dev, card, tmp: Path):
                    str(sam), "-b", str(ECOLI_BATCH), "-M", "1"])
     t_kalign = time.perf_counter() - t0
     peak_cli = torch.cuda.max_memory_allocated()
-    logging.getLogger("kit4b_tpu").removeHandler(phases)
+    logging.getLogger("kit4b_tpu_torch").removeHandler(phases)
     if rc != 0:
         raise AssertionError(f"CLI kalign exited {rc}")
     print(f"CLI on {card}: index {t_index} s, kalign {t_kalign} s "
@@ -532,6 +552,26 @@ def kalign_full(torch, dev, card, tmp: Path):
         raise AssertionError("the timed aligner did not take v5")
 
 
+def minmm_cases(torch, cases, minmm, minmm_plain) -> int:
+    """Phase 2: the min-match kernel against its plain version, bit for
+    bit, on (label, own rows, partner, diag, span_lo, span_cnt, row_base)
+    cases. Returns the largest absolute difference (0)."""
+    max_err = 0
+    for label, wo, wp, diag, lo, n, rb in cases:
+        kw = dict(diag=diag, span_lo=lo, span_cnt=n, S=S, row_base=rb)
+        got = minmm(wo, wp, **kw)
+        want = minmm_plain(wo, wp, **kw)
+        torch.cuda.synchronize()
+        err = int((got.long() - want.long()).abs().max())
+        max_err = max(max_err, err)
+        print(f"kernel vs plain [{label}]: R={wo.shape[0]} Cw={wo.shape[1]} "
+              f"span_lo={lo} span_cnt={n} row_base={rb}: "
+              f"equal={torch.equal(got, want)} max_abs_err={err}")
+        if not torch.equal(got, want):
+            raise AssertionError(f"kernel differs from plain: {label}")
+    return max_err
+
+
 def reset_launches() -> None:
     """Sets every kernel's launch counter to 0."""
     from kit4b_tpu_torch.kernels.minmm import minmm
@@ -574,6 +614,7 @@ def main() -> int:
     from kit4b_tpu_torch.kmer.hammings import hammings_oracle, read_hmg
     from kit4b_tpu_torch.kmer.hammings_mxu import (build_w,
                                                    hammings_exhaustive_mxu)
+    from kit4b_tpu_torch.tools.time_minmm import COLS, ROWS, time_widths
     dev = torch.device("cuda")
     rng = np.random.default_rng(SEED)
 
@@ -595,8 +636,14 @@ def main() -> int:
           + (f" ({built} already built)" if built else ""))
     for k in kernels:
         for line in build.paths(k)[2].read_text().splitlines():
-            if "registers" in line or "spill" in line:
+            if any(w in line for w in ("registers", "spill", "wgmma",
+                                       "warning")):
                 print(f"  ptxas {k}:", line.strip())
+    spills = [line.strip() for line in
+              build.paths("minmm")[2].read_text().splitlines()
+              if re.search(r"[1-9][0-9]* bytes spill (stores|loads)", line)]
+    if spills:
+        raise AssertionError(f"minmm spills: {spills}")
 
     # --- the phase-4 genome and its node geometry ---------------------
     chroms, planted = synthetic_r64(rng)
@@ -623,20 +670,10 @@ def main() -> int:
          cnt, short, R),
         ("sense, tail rows [Gp-R,Gp), span_lo>0", W[Gp - R:], W, True,
          2 * cnt, short, Gp - R),
+        ("sense, 384 rows [1024,1408), diag inside", W[1024:1408], W, True,
+         0, 8, 1024),
     ]
-    max_err = 0
-    for label, wo, wp, diag, lo, n, rb in cases:
-        kw = dict(diag=diag, span_lo=lo, span_cnt=n, S=S, row_base=rb)
-        got = minmm(wo, wp, **kw)
-        want = minmm_plain(wo, wp, **kw)
-        torch.cuda.synchronize()
-        err = int((got.long() - want.long()).abs().max())
-        max_err = max(max_err, err)
-        print(f"kernel vs plain [{label}]: R={wo.shape[0]} Cw={wo.shape[1]} "
-              f"span_lo={lo} span_cnt={n} row_base={rb}: "
-              f"equal={torch.equal(got, want)} max_abs_err={err}")
-        if not torch.equal(got, want):
-            raise AssertionError(f"kernel differs from plain: {label}")
+    max_err = minmm_cases(torch, cases, minmm, minmm_plain)
     # the comparison of cases[0] above warmed both functions at this shape
     _, wo, wp, diag, lo, n, rb = cases[0]
     kw = dict(diag=diag, span_lo=lo, span_cnt=n, S=S, row_base=rb)
@@ -647,12 +684,42 @@ def main() -> int:
     k_ms = [ms for n, ms in turns if n == "kernel"]
     p_ms = [ms for n, ms in turns if n == "plain"]
     kernel_ms, plain_ms = sum(k_ms) / 2, sum(p_ms) / 2
-    ops = 2 * R * cnt * S * W.shape[1]
-    print(f"min-match at R={R} span={cnt * S} Cw={W.shape[1]} on {card}: "
+    cw = W.shape[1]
+    ops = 2 * R * cnt * S * cw
+    minmm_bound = max(ops / INT8_PEAK,
+                      (R * cw + cnt * S * cw + 4 * R) / HBM_RATE) * 1e3
+    print(f"min-match at R={R} span={cnt * S} Cw={cw} on {card}: "
           f"kernel {k_ms} ms, plain {p_ms} ms (turns plain, kernel, "
           f"kernel, plain); kernel {ops / kernel_ms / 1e9} int8 TOP/s, "
-          f"plain {ops / plain_ms / 1e9} TOP/s")
-    del W, Wrc, ext, wo, wp, cases
+          f"plain {ops / plain_ms / 1e9} TOP/s; bound {minmm_bound} ms "
+          f"(int8 operations at {INT8_PEAK / 1e12:g} TOP/s), kernel at "
+          f"{minmm_bound / kernel_ms} of it")
+    del W, Wrc, wo, wp, cases
+    torch.cuda.empty_cache()
+    # wide rows on a prefix of the genome: Cw 256 and 768, R = 384 included
+    gw = WIDE_GP - 1000
+    for k in WIDE_K:
+        e = ext[:WIDE_GP + k].clone()
+        e[gw:] = 0x0F
+        Wk, _ = build_w(e, K=k, Gp=WIDE_GP, G=gw, rc=False)
+        Wkrc, _ = build_w(e, K=k, Gp=WIDE_GP, G=gw, rc=True)
+        max_err = max(max_err, minmm_cases(torch, [
+            (f"K={k} sense, rows [4096,6144), diag inside", Wk[4096:6144],
+             Wk, True, 0, 64, 4096),
+            (f"K={k} antisense, 384 rows, span_lo>0", Wk[:384], Wkrc, False,
+             5, 40, 0),
+            (f"K={k} sense, 384 rows [384,768), diag inside", Wk[384:768],
+             Wk, True, 0, 8, 384),
+        ], minmm, minmm_plain))
+        del Wk, Wkrc, e
+    del ext
+    torch.cuda.empty_cache()
+    # every width timed on a card-filling shape, beside its int8 bound
+    for row in time_widths(torch, minmm):
+        print(f"min-match width timing on {card}: Cw={row['Cw']} "
+              f"R={ROWS} span={COLS}: kernel {row['ms']} ms; bound "
+              f"{row['bound_ms']} ms ({row['bound_by']}), kernel at "
+              f"{row['bound_ms'] / (sum(row['ms']) / 2)} of it")
     torch.cuda.empty_cache()
 
     # --- 3. the engine on the card vs the numpy oracle ----------------
@@ -685,7 +752,7 @@ def main() -> int:
               f"16 chromosomes (node 1 of {NUMNODES}: partner spans "
               f"[0, {cnt}) of {n_spans}, {cnt * S} columns per strand)")
         phases = _PhaseLog()
-        logging.getLogger("kit4b_tpu").addHandler(phases)
+        logging.getLogger("kit4b_tpu_torch").addHandler(phases)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         reset_launches()
@@ -695,7 +762,7 @@ def main() -> int:
         wall = time.perf_counter() - t0
         launches = minmm.launches
         peak = torch.cuda.max_memory_allocated()
-        logging.getLogger("kit4b_tpu").removeHandler(phases)
+        logging.getLogger("kit4b_tpu_torch").removeHandler(phases)
         if rc != 0:
             raise AssertionError(f"CLI exited {rc}")
         sweep = phases.seconds["sweep"]
@@ -739,34 +806,38 @@ def main() -> int:
 
     # --- 5-7. the sweep kernel, the sweep engine, the gather ----------
     chr4 = synthetic_chr4(np.random.default_rng(SEED + 4))
-    sweep_err, sweep_ms, sweep_plain_ms = sweep_vs_plain(torch, dev, chr4,
-                                                         card)
+    sweep_err, sweep_ms, sweep_plain_ms, sweep_bound = sweep_vs_plain(
+        torch, dev, chr4, card)
     sweep_launches = sweep_engine(torch, dev, chr4, g, oracle_results, card)
-    take_launches, take_err, take_ms, take_plain_ms = gather(torch, dev)
+    take_launches, take_err, take_ms, take_plain_ms, take_bound = gather(
+        torch, dev)
 
     # --- 8. kalign: the JAX golden, then config #1 at full size -------
     kalign_golden(torch, dev)
     with tempfile.TemporaryDirectory(prefix=".chip_smoke_", dir=root) as tmp:
         kalign_full(torch, dev, card, Path(tmp))
-    if "jax" in sys.modules:
-        raise AssertionError("jax was imported")
+    if "jax" in sys.modules or "kit4b_tpu" in sys.modules:
+        raise AssertionError("jax or the JAX package kit4b_tpu was imported")
 
     print(json.dumps({"kernels": [
         {"name": "minmm", "route": "cuda",
          "source": "kit4b_tpu_torch/csrc/minmm.cu",
          "replaces": "kit4b_tpu/kmer/hammings_mxu.py:100",
          "launches": launches, "max_abs_err": max_err,
-         "ms": kernel_ms, "plain_ms": plain_ms},
+         "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": minmm_bound,
+         "bound_by": "operations", "library_ms": None},
         {"name": "sweep", "route": "cuda",
          "source": "kit4b_tpu_torch/csrc/sweep.cu",
          "replaces": "kit4b_tpu/kmer/hammings_kernel.py:55",
          "launches": sweep_launches, "max_abs_err": sweep_err,
-         "ms": sweep_ms, "plain_ms": sweep_plain_ms},
+         "ms": sweep_ms, "plain_ms": sweep_plain_ms, "bound_ms": sweep_bound,
+         "bound_by": "operations", "library_ms": None},
         {"name": "take", "route": "cuda",
          "source": "kit4b_tpu_torch/csrc/take.cu",
          "replaces": "tools/archive/profile_pallas_gather.py:36",
          "launches": take_launches, "max_abs_err": take_err,
-         "ms": take_ms, "plain_ms": take_plain_ms}]}))
+         "ms": take_ms, "plain_ms": take_plain_ms, "bound_ms": take_bound,
+         "bound_by": "bytes", "library_ms": None}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

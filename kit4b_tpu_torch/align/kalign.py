@@ -38,13 +38,11 @@ from typing import Iterable
 import numpy as np
 import torch
 
-from kit4b_tpu import dna
-from kit4b_tpu.index.sfx_index import SfxIndex
-from kit4b_tpu.io.fasta import SeqRecord, read_seq_blocks, read_seqs
-from kit4b_tpu.io.sam import FLAG_REVERSE, FLAG_UNMAPPED
-
-from .. import native
+from .. import dna, native
 from ..device import resolve
+from ..index.sfx_index import SfxIndex
+from ..io.fasta import SeqRecord, read_seq_blocks, read_seqs
+from ..io.sam import FLAG_REVERSE, FLAG_UNMAPPED
 from ..ops import seed_extend_fast, seed_extend_v4, seed_extend_v5
 from ..ops.extend_packed import pack_genome
 from ..ops.seed_extend_v3 import make_lut2_device, unpack_result2

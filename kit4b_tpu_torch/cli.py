@@ -3,8 +3,9 @@
 Port of kit4b_tpu/cli.py with the `index`, `kalign` and `hammings`
 subcommands, taking the same flags and writing the same files, plus
 `--device {cuda,cpu}` on the commands that use a device. The parsers are
-copies: kit4b_tpu/cli.py imports jax. Flags of paths not ported yet parse
-as in kit4b_tpu and raise NotImplementedError naming their ROADMAP item.
+copies, as is all the port needs of the JAX package: it imports none of
+it. Flags of paths not ported yet parse as in kit4b_tpu and raise
+NotImplementedError naming their ROADMAP item.
 """
 from __future__ import annotations
 
@@ -16,7 +17,10 @@ import time
 import numpy as np
 
 from .device import DeviceUnavailable, resolve
+from .index.sfx_index import SfxIndex
+from .io.fasta import Genome, read_seqs
 from .native import NativeUnavailable
+from .utils.runtime import PhaseTimer, log, setup_logging
 
 
 def _common(p: argparse.ArgumentParser) -> None:
@@ -34,10 +38,8 @@ def _common(p: argparse.ArgumentParser) -> None:
 
 def cmd_index(args) -> int:
     """ngskit4b index equivalent (kit4bax.cpp:73 kingsax), standard mode:
-    the shared host build of kit4b_tpu (SA-IS + bucket LUT, .kix)."""
-    from kit4b_tpu.index.sfx_index import SfxIndex
-    from kit4b_tpu.io.fasta import Genome
-    from kit4b_tpu.utils.runtime import PhaseTimer, log
+    SA-IS + bucket LUT on the port's host library, written as a .kix that
+    either package loads."""
     if args.mode != 0:
         raise NotImplementedError("index -m 1 (bisulfite) is not ported "
                                   "yet: ROADMAP.md queue A item 17")
@@ -74,10 +76,6 @@ _KALIGN_UNPORTED = {
 def cmd_kalign(args) -> int:
     """ngskit4b kalign equivalent (KAlignerCL.cpp / KAligner.cpp): SE,
     substitutions only, SAM through the native formatter."""
-    from kit4b_tpu.index.sfx_index import SfxIndex
-    from kit4b_tpu.io.fasta import read_seqs
-    from kit4b_tpu.utils.runtime import PhaseTimer, log
-
     from .align import kalign
     for dest, (flag, item) in _KALIGN_UNPORTED.items():
         if getattr(args, dest):
@@ -97,7 +95,7 @@ def cmd_kalign(args) -> int:
                          sens=sens, device=device)
     caller = None
     if args.snpfile:
-        from kit4b_tpu.align import snp     # imports scipy: only for -S
+        from .align import snp     # imports scipy: only for -S
         caller = snp.SnpCaller(idx.genome, snp.SnpOptions(
             min_snp_reads=args.minsnpreads, qvalue=args.qvalue))
 
@@ -129,9 +127,6 @@ def cmd_kalign(args) -> int:
 
 def cmd_hammings(args) -> int:
     """ngskit4b hammings equivalent (hammings.cpp; mode enum :99-106)."""
-    from kit4b_tpu.io.fasta import Genome
-    from kit4b_tpu.utils.runtime import PhaseTimer, log
-
     from .kmer import hammings
     infiles = args.infile if isinstance(args.infile, list) else [args.infile]
     if args.mode == 3:          # ePMmerge: elementwise min over node files
@@ -311,15 +306,13 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def main(argv=None) -> int:
-    from kit4b_tpu.utils.runtime import setup_logging
     args = build_parser().parse_args(argv)
     setup_logging(args.loglevel, args.logfile)
     t0 = time.time()
     summ = None
     if args.sumrslts:
-        from kit4b_tpu.utils.summaries import Summaries
-
         from . import __version__
+        from .utils.summaries import Summaries
         summ = Summaries(args.sumrslts, args.experimentname,
                          args.experimentdescr, process=args.cmd,
                          version=__version__)

@@ -9,6 +9,10 @@ changed source builds anew. `build(*names)` compiles several kernels at
 once, one nvcc process each. nvcc's output, with ptxas's register and
 shared-memory report, is kept beside the library in a `.log` file.
 
+`source_key` and `compile_libs` hold the keying and the atomic build for
+every library the port compiles; `native.py` builds the host library
+through them too.
+
 A failed build raises: there is no fallback to another implementation.
 """
 from __future__ import annotations
@@ -28,12 +32,47 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 
+def source_key(sources, flags) -> str:
+    """16 hex digits of the SHA-256 of the flags and the sources' bytes.
+    Raises OSError when a source is missing."""
+    h = hashlib.sha256(" ".join(flags).encode())
+    for src in sources:
+        h.update(Path(src).read_bytes())
+    return h.hexdigest()[:16]
+
+
+def compile_libs(jobs) -> list[str]:
+    """Compile each job `(argv, sources, library)` as `argv -o <tmp>
+    sources`: one process each, all started together. A job's library is
+    written under a temporary name made from the pid and moved into place
+    only when its build succeeds, so a concurrent process never sees half a
+    file; the compiler's output goes into a `.log` beside the library.
+    Returns one message for each build that failed."""
+    running = []
+    for argv, sources, lib in jobs:
+        lib.parent.mkdir(exist_ok=True)
+        tmp = lib.with_name(f".{lib.stem}.{os.getpid()}.so")
+        proc = subprocess.Popen([*argv, "-o", str(tmp), *map(str, sources)],
+                                stdout=subprocess.PIPE,
+                                stderr=subprocess.PIPE, text=True)
+        running.append((Path(argv[0]).name, lib, tmp, proc))
+    failed = []
+    for cc, lib, tmp, proc in running:
+        out, err = proc.communicate()
+        lib.with_suffix(".log").write_text(out + err)
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            failed.append(f"{cc} failed to build {lib.name} "
+                          f"(exit {proc.returncode}):\n{err[-4000:]}")
+        else:
+            os.replace(tmp, lib)
+    return failed
+
+
 def paths(name: str) -> tuple[Path, Path, Path]:
     """(source, library, build log) of kernel `name`."""
     src = CSRC / f"{name}.cu"
-    key = hashlib.sha256(src.read_bytes()
-                         + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    stem = BUILD / f"lib{name}-{key}"
+    stem = BUILD / f"lib{name}-{source_key([src], NVCC_FLAGS)}"
     return src, stem.with_suffix(".so"), stem.with_suffix(".log")
 
 
@@ -53,25 +92,10 @@ def build(*names: str) -> None:
     all started together."""
     jobs = []
     for name in names:
-        src, lib, log = paths(name)
-        if lib.exists():
-            continue
-        BUILD.mkdir(exist_ok=True)
-        tmp = lib.with_name(f".{lib.stem}.{os.getpid()}.so")
-        proc = subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-                                 str(src)], stdout=subprocess.PIPE,
-                                stderr=subprocess.PIPE, text=True)
-        jobs.append((src, lib, log, tmp, proc))
-    failed = []
-    for src, lib, log, tmp, proc in jobs:
-        out, err = proc.communicate()
-        log.write_text(out + err)
-        if proc.returncode != 0:
-            tmp.unlink(missing_ok=True)
-            failed.append(f"nvcc failed to build {src.name} "
-                          f"(exit {proc.returncode}):\n{err[-4000:]}")
-        else:
-            os.replace(tmp, lib)   # atomic: a concurrent process never sees half a file
+        src, lib, _ = paths(name)
+        if not lib.exists():
+            jobs.append(([_nvcc(), *NVCC_FLAGS], [src], lib))
+    failed = compile_libs(jobs)
     if failed:
         raise RuntimeError("\n".join(failed))
 

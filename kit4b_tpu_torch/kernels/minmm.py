@@ -23,8 +23,8 @@ import torch
 from . import build
 
 NEG = -(1 << 20)
-TILE = 128      # own rows per block and partner columns per tile (csrc/minmm.cu kRows)
-MAX_CW = 768    # two [128, Cw + 16] int8 tiles must fit a block's 227 KB of shared memory
+TILE = 128      # granule of own rows and partner columns (csrc/minmm.cu kTile)
+MAX_CW = 768    # widest row the kernel is instantiated for (K <= 153)
 
 
 def minmm_plain(W_own: torch.Tensor, W_part: torch.Tensor, *, diag: bool,
@@ -62,8 +62,8 @@ def _lib() -> ctypes.CDLL:
     lib = build.load("minmm")
     lib.minmm_launch.argtypes = [
         ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
-        ctypes.c_int, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int,
-        ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p]
+        ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong, ctypes.c_longlong,
+        ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p]
     lib.minmm_launch.restype = ctypes.c_int
     return lib
 
@@ -103,8 +103,8 @@ def minmm(W_own: torch.Tensor, W_part: torch.Tensor, *, diag: bool,
     dev = W_own.device.index if W_own.device.index is not None \
         else torch.cuda.current_device()
     err = _lib().minmm_launch(
-        dev, W_own.data_ptr(), W_part.data_ptr(), R, cw, col_lo, col_hi,
-        int(diag), row_base, out.data_ptr(),
+        dev, W_own.data_ptr(), W_part.data_ptr(), R, W_part.shape[0], cw,
+        col_lo, col_hi, int(diag), row_base, out.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream)
     if err:
         raise RuntimeError(f"minmm kernel launch failed: CUDA error {err}")

@@ -24,8 +24,7 @@ import functools
 
 import torch
 
-from kit4b_tpu.dna import BASE_EOG
-
+from ..dna import BASE_EOG
 from . import build
 
 BIG = 9999        # no valid pair (the JAX package's BIG)

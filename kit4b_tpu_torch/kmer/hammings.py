@@ -14,8 +14,7 @@ import struct
 import numpy as np
 import torch
 
-from kit4b_tpu import dna
-
+from .. import dna
 from .hammings_kernel import hammings_exhaustive_kernel
 from .hammings_mxu import hammings_exhaustive_mxu
 

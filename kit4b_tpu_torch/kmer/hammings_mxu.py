@@ -19,9 +19,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from kit4b_tpu.dna import BASE_EOG
-
 from ..device import resolve
+from ..dna import BASE_EOG
 from ..kernels.minmm import NEG, minmm
 
 OUT_BIG = np.uint16(0xFFFF)

@@ -1,27 +1,47 @@
-"""The host library of the kalign path: `native/libkit4b_native.so`.
+"""The port's host library, built from `native/sais.cpp` and
+`native/hostops.cpp`.
 
-The port binds the two symbols its kalign path calls, `pack2bit_u8` (2-bit
-read packing) and `format_sam_se` (the bulk SAM formatter), on a ctypes
-handle of its own and declares each signature here, symbol by symbol. A
-library that lacks one of them, or cannot be built, raises
-`NativeUnavailable`: the path has no numpy or per-read fallback.
+Through `kernels/build.py`'s keyed build, `load()` compiles the two C++ sources with g++
+and the flags of `native/Makefile` at first use into
+`_build/libkit4b_native-<key>.so`, where the key is a hash of the sources
+and the flags, and loads it with ctypes. A library already built for the
+same key is loaded as it is; a changed source builds anew, so a stale
+library never reaches the port. Nothing is written into `native/`.
 
-The library is built from `native/` with make at first use by the JAX
-package's loader (`kit4b_tpu.index.sa_build._load_native`, which imports
-no jax), as the suffix-array build of the shared index already needs it.
+Every symbol the port calls is declared in SIGNATURES, one by one: the
+SA-IS and counting-sort builds of the index (`sais_u8_i32`, `sais_u8_i64`,
+`bucket_index`), and the 2-bit read packing and bulk SAM formatter of the
+kalign path (`pack2bit_u8`, `format_sam_se`). A missing compiler or
+source, a failed build or a missing symbol raises `NativeUnavailable`:
+neither path has a numpy fallback.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
+import shutil
+from pathlib import Path
 
-from kit4b_tpu.index import sa_build
+from .kernels.build import compile_libs, source_key
+
+PKG = Path(__file__).resolve().parent
+SOURCES = tuple(PKG.parent / "native" / n for n in ("sais.cpp", "hostops.cpp"))
+BUILD = PKG / "_build"
+# the flags of native/Makefile
+CXXFLAGS = ("-O3", "-march=native", "-fPIC", "-std=c++17", "-Wall")
 
 _u8p = ctypes.POINTER(ctypes.c_uint8)
 _i32p = ctypes.POINTER(ctypes.c_int32)
 _i64p = ctypes.POINTER(ctypes.c_int64)
 
 SIGNATURES = {
+    # (text, suffix array out, n) -> 0 on success
+    "sais_u8_i32": (ctypes.c_int, [_u8p, _i32p, ctypes.c_int64]),
+    "sais_u8_i64": (ctypes.c_int, [_u8p, _i64p, ctypes.c_int64]),
+    # (seq, n, k, positions out, lut out) -> clean positions written, or -1
+    # outside 1 <= k <= 15, k <= n < 2^31
+    "bucket_index": (ctypes.c_int64,
+                     [_u8p, ctypes.c_int64, ctypes.c_int64, _i32p, _i64p]),
     # (reads, B, L, packed out, nlist out, n_cap) -> N count, or -1 when
     # the batch holds more than n_cap Ns
     "pack2bit_u8": (ctypes.c_int64,
@@ -39,24 +59,43 @@ SIGNATURES = {
 
 
 class NativeUnavailable(RuntimeError):
-    """The host library cannot be built or lacks a symbol the path needs."""
+    """The host library cannot be built or lacks a symbol the port needs."""
+
+
+def lib_path() -> Path:
+    """The library of the current sources and flags."""
+    try:
+        key = source_key(SOURCES, CXXFLAGS)
+    except OSError as e:
+        raise NativeUnavailable(f"host library source missing: {e}") from None
+    return BUILD / f"libkit4b_native-{key}.so"
+
+
+def build() -> Path:
+    """Build the library if it is missing, and return its path."""
+    lib = lib_path()
+    if lib.exists():
+        return lib
+    cxx = shutil.which("g++")
+    if cxx is None:
+        raise NativeUnavailable("g++ not found: the host library needs a C++ "
+                                "compiler")
+    failed = compile_libs([([cxx, *CXXFLAGS, "-shared"], SOURCES, lib)])
+    if failed:
+        raise NativeUnavailable(failed[0])
+    return lib
 
 
 @functools.lru_cache(maxsize=1)
 def load() -> ctypes.CDLL:
-    """The library with the signatures of SIGNATURES declared."""
-    if sa_build._load_native() is None:
-        raise NativeUnavailable(
-            f"{sa_build._LIB_PATH} is missing and `make -C native` failed; "
-            "the kalign path needs a C++ compiler to build it")
-    lib = ctypes.CDLL(sa_build._LIB_PATH)
+    """The library, built if needed, with the signatures of SIGNATURES."""
+    path = build()
+    lib = ctypes.CDLL(str(path))
     for name, (restype, argtypes) in SIGNATURES.items():
         try:
             fn = getattr(lib, name)
         except AttributeError:
-            raise NativeUnavailable(
-                f"{sa_build._LIB_PATH} has no symbol {name}; rebuild it "
-                "with `make -C native clean all`") from None
+            raise NativeUnavailable(f"{path} has no symbol {name}") from None
         fn.restype = restype
         fn.argtypes = argtypes
     return lib

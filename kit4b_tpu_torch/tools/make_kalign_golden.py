@@ -1,12 +1,11 @@
-"""The kalign golden file: the JAX package's answers on a seeded workload.
+"""The seeded workload of the kalign golden file and the arrays it holds.
 
-    python -m kit4b_tpu_torch.tools.make_kalign_golden [-o PATH]
-
-writes `kit4b_tpu_torch/data/kalign_se_golden.npz` through kit4b_tpu's
-aligner (jax on the CPU). A machine without jax rebuilds the same inputs
-with `workload()`, which uses numpy and the jax-free host modules of
-kit4b_tpu only, runs the port with `compute()` and compares: that is how
-the port is held to the JAX package on the card.
+`kit4b_tpu_torch/data/kalign_se_golden.npz` holds the JAX package's answers
+on this workload; `python tests/test_torch_kalign_golden.py` regenerates it
+(JAX on the CPU). A machine without JAX rebuilds the same inputs with
+`workload()`, which uses numpy and the port's own host modules, runs the
+port with `compute()` and compares: that is how the port is held to the JAX
+package on the card.
 
 The workload: a 200 kbp genome holding 30 copies of a 400 bp repeat and
 five N runs, and 8,192 simulated 100 bp reads (simreads, Illumina-skewed
@@ -19,15 +18,17 @@ tier-2 and ladder read counts, and the SHA-256 of the inputs.
 """
 from __future__ import annotations
 
-import argparse
 import hashlib
-import sys
 import tempfile
 from pathlib import Path
 
 import numpy as np
 
+from .. import dna
 from ..align.kalign import TIER2
+from ..index.sfx_index import SfxIndex
+from ..io.fasta import Genome
+from ..sim import simreads
 
 GOLDEN = Path(__file__).resolve().parent.parent / "data" / \
     "kalign_se_golden.npz"
@@ -41,11 +42,8 @@ E = TIER2[0]   # tier-2 read slots of the v5 pass
 
 
 def workload():
-    """(genome, index, reads as SeqRecords), seeded; no jax."""
-    from kit4b_tpu import dna
-    from kit4b_tpu.index.sfx_index import SfxIndex
-    from kit4b_tpu.io.fasta import Genome
-    from kit4b_tpu.sim import simreads
+    """(genome, index, reads as SeqRecords), seeded, through the port's
+    host modules."""
     rng = np.random.default_rng(SEED)
     seq = rng.integers(0, 4, GENOME_LEN).astype(np.uint8)
     unit = rng.integers(0, 4, 400).astype(np.uint8)
@@ -100,49 +98,3 @@ def compute(kalign, idx, recs, **aligner_kw) -> dict:
             "mm": raw["mm"].astype(np.int64),
             "sam_sha256": np.array(sam_sha),
             "n_ladder_reads": np.int64((rows[:, 0] == -3).sum())}
-
-
-def jax_golden() -> dict:
-    """The golden arrays through kit4b_tpu (imports jax)."""
-    import jax.numpy as jnp
-    from kit4b_tpu.align import kalign
-    from kit4b_tpu.ops import seed_extend_v5
-    g, idx, recs = workload()
-    out = compute(kalign, idx, recs)
-    # reads escalated to tier 2: class -3 after the v5 tier 1 alone
-    reads = np.stack([r.codes for r in recs])
-    al = kalign.KAligner(idx, batch_size=len(recs), use_v5=True)
-    gview, sa, _, lut2 = al._device_for(READ_LEN)
-    _, mtm = al.schedule_for(READ_LEN)
-    r2b, nlist, _ = kalign.pack_reads_2bit(reads)
-    rows = seed_extend_v5.fast_pass_packed_v5(
-        gview, sa, lut2, al._lut4_for(READ_LEN, sa), jnp.asarray(r2b),
-        jnp.asarray(nlist), genome_len=len(g.seq),
-        offsets=al._offsets_for(READ_LEN, mtm), lut_k=idx.lut_k,
-        read_len=READ_LEN, n_compact=al.n_compact, n_extend=al.n_extend,
-        max_tot_mm=mtm, mm_delta=al.mm_delta, tier2=None)
-    out["n_tier2_reads"] = np.int64((np.asarray(rows)[:, 0] == -3).sum())
-    out["inputs_sha256"] = np.array(inputs_sha256(g, recs))
-    return out
-
-
-def main(argv=None) -> int:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("-o", "--out", default=str(GOLDEN))
-    args = ap.parse_args(argv)
-    out = jax_golden()
-    if not out["n_tier2_reads"] > E or not out["n_ladder_reads"] > 0:
-        raise SystemExit(f"the workload must overflow tier 2: "
-                         f"{out['n_tier2_reads']} tier-2 reads, "
-                         f"{out['n_ladder_reads']} ladder reads")
-    Path(args.out).parent.mkdir(parents=True, exist_ok=True)
-    np.savez_compressed(args.out, **out)
-    print(f"{args.out}: {int(out['n_tier2_reads'])} tier-2 reads, "
-          f"{int(out['n_ladder_reads'])} ladder reads, accepted "
-          f"{int((out['nar'] == 0).sum())} of {len(out['nar'])}, SAM "
-          f"sha256 {out['sam_sha256']}")
-    return 0
-
-
-if __name__ == "__main__":
-    sys.exit(main())

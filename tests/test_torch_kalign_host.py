@@ -44,10 +44,22 @@ def test_native_signatures_declared_per_symbol(lib):
         P(ctypes.c_int64), P(ctypes.c_int32), P(ctypes.c_int32),
         P(ctypes.c_uint8), P(ctypes.c_uint8), ctypes.c_int64,
         ctypes.c_int64, ctypes.c_char_p, ctypes.c_int64]
-    # the port's own handle: nothing is shared with the JAX loader's
+    assert lib.sais_u8_i32.restype is ctypes.c_int
+    assert lib.sais_u8_i32.argtypes == [P(ctypes.c_uint8), P(ctypes.c_int32),
+                                        ctypes.c_int64]
+    assert lib.sais_u8_i64.argtypes == [P(ctypes.c_uint8), P(ctypes.c_int64),
+                                        ctypes.c_int64]
+    assert lib.bucket_index.restype is ctypes.c_int64
+    assert lib.bucket_index.argtypes == [
+        P(ctypes.c_uint8), ctypes.c_int64, ctypes.c_int64, P(ctypes.c_int32),
+        P(ctypes.c_int64)]
+    # the port's own build and handle: nothing is shared with the JAX
+    # loader's library in native/
     shared = sa_build._load_native()
     assert lib is not shared
     assert lib.pack2bit_u8 is not shared.pack2bit_u8
+    assert native.lib_path().parent == native.BUILD != \
+        native.SOURCES[0].parent
 
 
 def test_missing_symbol_raises(monkeypatch, lib):

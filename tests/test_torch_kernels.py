@@ -24,14 +24,21 @@ from kit4b_tpu_torch.kmer.hammings_mxu import build_w, hammings_exhaustive_mxu
 S = 128
 GP = 1024
 # (K, diag, span_lo, span_cnt, row_base, R): diag on and off, span_lo > 0,
-# non-zero row_base, own rows inside and outside the partner span, and a
-# width of two 128-byte blocks (K = 40)
+# non-zero row_base, own rows inside and outside the partner span, widths
+# of one, two, two and six 128-byte blocks (K = 25, 40, 51, 153: Cw 128,
+# 256, 256, 768), R = 384 (not a multiple of the kernel's 256 own rows)
+# and a span of one 128-column tile
 CASES = [
     (25, True, 0, 4, 0, 512),
     (25, True, 2, 3, 256, 384),
     (25, False, 1, 4, 128, 256),
     (40, True, 1, 6, 128, 896),
     (40, False, 0, 8, 0, 1024),
+    (51, True, 2, 1, 256, 384),
+    (51, False, 0, 3, 128, 384),
+    (153, True, 1, 1, 128, 384),
+    (153, False, 3, 2, 0, 384),
+    (153, True, 0, 8, 512, 512),
 ]
 
 
