@@ -11,7 +11,8 @@ result:
 
 1. The card's name and power limit (nvidia-smi), the CUDA version, and the
    build of the three kernels (csrc/minmm.cu, sweep.cu, take.cu; one nvcc
-   each, all at once) with ptxas's report; minmm must not spill.
+   each, all at once) with ptxas's report; none may spill, and sweep and
+   take may not keep a stack frame.
 2. The min-match kernel against its plain PyTorch version at the shapes
    of phase 4's run (Cw = 128, T = 2048, S = 1024, one row chunk of 2^21
    own rows against the node's partner spans), bit for bit, and at a
@@ -36,17 +37,30 @@ result:
    for bit, on a seeded synthetic genome of R64 chromosome IV's length
    (1,531,933 bp + EOG) with planted forward and reverse-complement
    near-copies and N runs: 4,096-offset slices of a sense, an antisense and
-   a reversed sweep at full length and the slice that ends at G - K; all
-   four sweeps in full on 3 kbp. The first slice timed with CUDA events.
+   a reversed sweep at full length and the slice that ends at G - K; sense
+   and antisense slices at K 7 and 13; all four sweeps in full on 3 kbp,
+   and the sense and antisense sweeps on 3 kbp at every K 1..25; 3 kbp cut
+   into contigs of 20-40 bp (K 7, 13) and of 10-30 bp (K 25), and 64 bp
+   whose few valid own and partner starts sit at different bits of a word
+   (what the kernel's skip of 32 offsets must keep). The first
+   slice timed with CUDA events in turns with the plain version, beside
+   its bound (int8 tensor operations, the card's fastest way to count
+   matches over window pairs) and the floors of the one-popcount-a-pair and
+   the bit-sliced methods; then the K 7, 13 and 25 slices of both strands
+   timed by `kit4b_tpu_torch.tools.time_sweep`.
 6. The sweep engine end to end: `hammings_exhaustive(legacy_sweep=True,
    use_kernel=True)` on that genome, both strands, equal at every position
    to the max-match engine, with exactly four sweep launches; and equal to
    the numpy oracles of phase 3 (K 7 and 25, antisense on and off).
 7. The gather kernel (csrc/take.cu): the profiler
    `python -m kit4b_tpu_torch.tools.profile_gather` (524,288 indices into
-   a 262,144-entry table), then the kernel against its plain version bit
-   for bit on the same inputs with indices counted from the end and out of
-   range.
+   a 262,144-entry table; CUDA events over host launches), then the
+   kernel's and the plain version's device time per call (`torch.profiler`
+   over 200 calls, and the replay of a CUDA graph of 200 calls) and the
+   kernel's device time over a range of sizes, then the kernel against its
+   plain version bit for bit on the same inputs with indices counted from
+   the end and out of range, on 524,291 and 9 indices (ragged tails) and
+   on views that start 4, 8 and 12 bytes past a 16-byte boundary.
 8. kalign, the single-end path (plain PyTorch passes on the card; no
    kernel of its own yet). (a) The port on the seeded workload of
    `kit4b_tpu_torch.tools.make_kalign_golden` (200 kbp with a planted
@@ -68,8 +82,8 @@ result:
 Each kernel's launch counter is set to 0 just before its path (phases 4,
 6, 7) and read just after it; phase 8 runs none of the three kernels. The
 line before the last is a JSON table of the kernels, each with its bound
-(the least time the card could take: int8 tensor operations for minmm,
-popcounts for sweep, bytes for take); the last line is
+(the least time the card could take: int8 tensor operations for minmm
+and sweep, bytes for take; take's `ms` is device time); the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 from __future__ import annotations
@@ -102,8 +116,6 @@ ECOLI_LEN, ECOLI_READS = 4_600_000, 100_000   # config #1, as bench.py
 ECOLI_BATCH, READ_LEN = 98_304, 100
 INT8_PEAK = 1979e12    # H100 SXM dense int8 tensor operations per second
 HBM_RATE = 3.35e12     # H100 SXM device memory bytes per second
-# popcounts per second: 16 per clock per SM, 132 SMs, 1.98 GHz
-POPC_RATE = 16 * 132 * 1.98e9
 WIDE_K = (51, 153)     # Cw 256 and 768, the widths past the main path's 128
 WIDE_GP = 262_144      # windows of the wide-row cases: a prefix of the genome
 ROMAN = ["I", "II", "III", "IV", "V", "VI", "VII", "VIII", "IX", "X", "XI",
@@ -222,9 +234,12 @@ def direct_node_min(torch, dev, seq, pos, c_lo, c_hi, Gp):
 
 def sweep_vs_plain(torch, dev, seq, card):
     """Phase 5: the sweep kernel against its plain version, bit for bit, at
-    full length on 4,096-offset slices and in full on 3 kbp; the first slice
-    timed in turns. Returns (max_abs_err, kernel ms, plain ms, bound ms)."""
+    full length on 4,096-offset slices (K 25, 7 and 13) and in full on 3 kbp
+    (every K 1..25); the first slice timed in turns, then the K 7, 13 and
+    25 slices of both strands. Returns (max_abs_err, kernel ms, plain ms,
+    bound ms)."""
     from kit4b_tpu_torch.kernels.sweep import sweep, sweep_plain
+    from kit4b_tpu_torch.tools import time_sweep
 
     def codes(a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
@@ -241,15 +256,40 @@ def sweep_vs_plain(torch, dev, seq, card):
     small = seq[:3000].copy()
     small[2000:2100] = small[100:200]          # a repeat
     small[1500], small[-1] = 7, 0x0F           # EOS, EOG
-    runs = [(label, own, part, lo, lo + SWEEP_SLICE, G)
+    runs = [(label, own, part, lo, lo + SWEEP_SLICE, G, K)
             for label, own, part, lo in full[:3]]
     runs.append(("sense forward, the slice that ends at G - K", full[0][1],
-                 full[0][2], G - K - SWEEP_SLICE, None, G))
-    runs += [(f"{label}, 3 kbp in full", own, part, lo, None, len(small))
+                 full[0][2], G - K - SWEEP_SLICE, None, G, K))
+    runs += [(f"{label}, K={k}", own, part, lo, lo + SWEEP_SLICE, G, k)
+             for k in (7, 13) for label, own, part, lo in full[:2]]
+    runs += [(f"{label}, 3 kbp in full", own, part, lo, None, len(small), K)
              for label, own, part, lo in cases_of(small)]
+    runs += [(f"{label}, 3 kbp in full, K={k}", own, part, lo, None,
+              len(small), k)
+             for k in range(1, 26) for label, own, part, lo
+             in cases_of(small)[:2]]
+    # few valid windows, at bit positions that do not line up: contigs cut
+    # by an EOS every 20-40 bp (own and partner cut apart), contigs under K
+    # with a few over, and 64 bp with own starts 0-3 and partner starts 10-14
+    rng = np.random.default_rng(5)
+
+    def contigs(g, lo, hi):
+        g = g.copy()
+        at = np.cumsum(rng.integers(lo, hi + 1, len(g) // lo))
+        g[at[at < len(g)]] = 7
+        return g
+    for k, lo, hi in ((7, 20, 40), (13, 20, 40), (25, 10, 30)):
+        own, part = contigs(small, lo, hi), contigs(_revcomp(small), lo, hi)
+        runs.append((f"contigs of {lo}-{hi} bp, K={k}", codes(own),
+                     codes(part), 0, None, len(small), k))
+    own, part = small[:64].copy(), small[:64].copy()
+    part[10:35] = own[:25]
+    own[28] = part[9] = part[39] = 7
+    runs.append(("64 bp, own starts 0-3 and 29-39, partner starts 10-14",
+                 codes(own), codes(part), 0, None, 64, K))
     max_err = 0
-    for label, own, part, lo, hi, gv in runs:
-        kw = dict(K=K, G_valid=gv, d_lo=lo, d_hi=hi)
+    for label, own, part, lo, hi, gv, k in runs:
+        kw = dict(K=k, G_valid=gv, d_lo=lo, d_hi=hi)
         got, want = sweep(own, part, **kw), sweep_plain(own, part, **kw)
         torch.cuda.synchronize()
         err = int((got.long() - want.long()).abs().max())
@@ -261,7 +301,7 @@ def sweep_vs_plain(torch, dev, seq, card):
         if not torch.equal(got, want):
             raise AssertionError(f"sweep kernel differs from plain: {label}")
     # the comparison of runs[0] above warmed both functions at this shape
-    _, own, part, lo, hi, gv = runs[0]
+    _, own, part, lo, hi, gv, _ = runs[0]
     kw = dict(K=K, G_valid=gv, d_lo=lo, d_hi=hi)
     turns = []
     for name in ("plain", "kernel", "kernel", "plain"):
@@ -270,15 +310,31 @@ def sweep_vs_plain(torch, dev, seq, card):
     k_ms = [ms for n, ms in turns if n == "kernel"]
     p_ms = [ms for n, ms in turns if n == "plain"]
     kernel_ms, plain_ms = sum(k_ms) / 2, sum(p_ms) / 2
-    pairs = SWEEP_SLICE * (G - K + 1) - SWEEP_SLICE * (SWEEP_SLICE + 1) // 2
+    pairs = time_sweep.pairs_of(G, K, lo, hi)
+    floors = time_sweep.floors_ms(pairs, K)
     out_bytes = got.numel() * got.element_size()
-    bound = max(pairs / POPC_RATE,
-                (own.numel() + part.numel() + out_bytes) / HBM_RATE) * 1e3
+    bound = max(floors["tensor_ms"],
+                (own.numel() + part.numel() + out_bytes) / HBM_RATE * 1e3)
     print(f"sweep at G={G} K={K} d in [{lo}, {hi}) on {card}: kernel {k_ms} "
           f"ms, plain {p_ms} ms (turns plain, kernel, kernel, plain); "
           f"kernel {pairs / kernel_ms * 1e3} window pairs/s, plain "
-          f"{pairs / plain_ms * 1e3} pairs/s; bound {bound} ms (one popcount "
-          f"a pair at {POPC_RATE:g}/s), kernel at {bound / kernel_ms} of it")
+          f"{pairs / plain_ms * 1e3} pairs/s; bound {bound} ms "
+          f"({time_sweep.tensor_ops_per_pair(K)} int8 tensor operations a pair "
+          f"at {INT8_PEAK / 1e12:g} TOP/s), kernel at {bound / kernel_ms} of "
+          f"it; floor of the one-popcount-a-pair method {floors['popc_ms']} "
+          f"ms; floor of the bit-sliced method "
+          f"({time_sweep.ops_per_step(K)} + {time_sweep.LOOP_OPS} integer "
+          f"instructions for {32 * time_sweep.LANE_WORDS} pairs) "
+          f"{floors['sliced_ms']} ms")
+    for row in time_sweep.time_slices(torch, sweep, seq):
+        best = min(row["ms"])
+        print(f"sweep slice timing on {card}: K={row['K']} {row['strand']}: "
+              f"kernel {row['ms']} ms; bound {row['tensor_ms']} ms (int8 "
+              f"tensor operations), least launch at "
+              f"{row['tensor_ms'] / best} of it "
+              f"({row['tensor_exact_ms'] / best} of the {row['tensor_exact_ms']} "
+              f"ms of one-hot rows without padding); bit-sliced floor "
+              f"{row['sliced_ms']} ms, popcount floor {row['popc_ms']} ms")
     return max_err, kernel_ms, plain_ms, bound
 
 
@@ -337,10 +393,11 @@ def sweep_engine(torch, dev, seq, oracle_genome, oracles, card):
 
 
 def gather(torch, dev):
-    """Phase 7: the gather profiler, then the kernel against its plain
-    version with indices counted from the end and out of range. Returns
-    (launches in the profiler run, max_abs_err, kernel ms, plain ms, bound
-    ms: the table, the indices and the output moved once)."""
+    """Phase 7: the gather profiler, the device times, then the kernel
+    against its plain version with indices counted from the end and out of
+    range, ragged tails and unaligned views. Returns (launches in the
+    profiler run, max_abs_err, kernel ms and plain ms of device time per
+    call, bound ms: the table, the indices and the output moved once)."""
     from kit4b_tpu_torch.kernels.take import FILL, take, take_plain
     from kit4b_tpu_torch.tools import profile_gather
     reset_launches()
@@ -350,22 +407,48 @@ def gather(torch, dev):
         raise AssertionError(f"the profiler launched the gather kernel "
                              f"{launches} times, not "
                              f"{profile_gather.CALLS + 1}")
+    print(f"gather by CUDA events over {profile_gather.CALLS} host launches "
+          f"(the host's launch rate, not device time): kernel "
+          f"{times['ms']} ms, plain {times['plain_ms']} ms a call")
+    dt = profile_gather.device_times(dev)
+    by, key = ("torch.profiler", "us") if dt["kernel_us"] and dt["plain_us"] \
+        else ("graph replay", "graph_us")   # a profiler without device time
+    kernel_us, plain_us = dt[f"kernel_{key}"], dt[f"plain_{key}"]
     table, idx = profile_gather.inputs(dev)
-    n = table.shape[0]
-    idx[:5] = torch.tensor([-1, -n, -n - 1, n, n + 5], dtype=torch.int32)
-    got, want = take(table, idx), take_plain(table, idx)
-    torch.cuda.synchronize()
-    err = int((got.long() - want.long()).abs().max())
-    edges = got[:5].tolist()
-    print(f"take vs plain with indices -1, -T, -T-1, T, T+5: "
-          f"equal={torch.equal(got, want)} max_abs_err={err}; "
-          f"they read {edges}")
-    if not torch.equal(got, want) or edges != [
-            int(table[-1]), int(table[0]), FILL, FILL, FILL]:
-        raise AssertionError("gather kernel differs from plain")
     bound = sum(t.numel() * t.element_size()
-                for t in (table, idx, got)) / HBM_RATE * 1e3
-    return launches, err, times["ms"], times["plain_ms"], bound
+                for t in (table, idx, idx)) / HBM_RATE * 1e3
+    print(f"gather device time per call over {profile_gather.LAUNCHES} "
+          f"calls: {dt} us; the kernels line takes {by}: kernel "
+          f"{kernel_us} us, plain {plain_us} us; bound {bound * 1e3} us "
+          f"(bytes), kernel at {bound * 1e3 / kernel_us} of it")
+    for row in profile_gather.scaling(dev):
+        print(f"gather device time by size: {row}")
+    n = table.shape[0]
+    edge = torch.tensor([-1, -n, -n - 1, n, n + 5], dtype=torch.int32,
+                        device=dev)
+    idx[:5] = edge
+    ragged = torch.cat([idx, edge[:3]])
+    cases = [("the profiler's indices", idx),
+             (f"{len(ragged)} indices (ragged tail)", ragged),
+             ("9 indices", torch.cat([edge, idx[5:9]]))]
+    cases += [(f"a view {4 * k} bytes past a 16-byte boundary", ragged[k:])
+              for k in (1, 2, 3)]
+    max_err = 0
+    for label, ix in cases:
+        got, want = take(table, ix), take_plain(table, ix)
+        torch.cuda.synchronize()
+        err = int((got.long() - want.long()).abs().max())
+        max_err = max(max_err, err)
+        print(f"take vs plain [{label}]: N={len(ix)} data_ptr % 16 = "
+              f"{ix.data_ptr() % 16}: equal={torch.equal(got, want)} "
+              f"max_abs_err={err}")
+        if not torch.equal(got, want):
+            raise AssertionError(f"gather kernel differs from plain: {label}")
+    edges = take(table, idx)[:5].tolist()
+    print(f"indices -1, -T, -T-1, T, T+5 read {edges}")
+    if edges != [int(table[-1]), int(table[0]), FILL, FILL, FILL]:
+        raise AssertionError("gather kernel misreads the edge indices")
+    return launches, max_err, kernel_us / 1e3, plain_us / 1e3, bound
 
 
 def kalign_escalations(torch, al, reads):
@@ -635,15 +718,22 @@ def main() -> int:
           f"{time.perf_counter() - t0} s"
           + (f" ({built} already built)" if built else ""))
     for k in kernels:
-        for line in build.paths(k)[2].read_text().splitlines():
-            if any(w in line for w in ("registers", "spill", "wgmma",
-                                       "warning")):
+        log = build.paths(k)[2].read_text()
+        regs = [int(r) for r in re.findall(r"Used (\d+) registers", log)]
+        print(f"  ptxas {k}: {len(regs)} entry functions, registers "
+              f"{sorted(set(regs))}")
+        for line in log.splitlines():
+            if any(w in line for w in ("wgmma", "warning")):
                 print(f"  ptxas {k}:", line.strip())
-    spills = [line.strip() for line in
-              build.paths("minmm")[2].read_text().splitlines()
-              if re.search(r"[1-9][0-9]* bytes spill (stores|loads)", line)]
-    if spills:
-        raise AssertionError(f"minmm spills: {spills}")
+        kinds = "spill stores|spill loads" if k == "minmm" \
+            else "stack frame|spill stores|spill loads"
+        spills = [line.strip() for line in log.splitlines()
+                  if re.search(rf"[1-9][0-9]* bytes ({kinds})", line)]
+        print(f"  ptxas {k}: lines with {kinds.replace('|', ', ')}: "
+              f"{spills or 'none'}")
+        if spills:
+            raise AssertionError(f"{k} spills or keeps a stack frame: "
+                                 f"{spills}")
 
     # --- the phase-4 genome and its node geometry ---------------------
     chroms, planted = synthetic_r64(rng)

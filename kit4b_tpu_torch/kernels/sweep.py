@@ -30,7 +30,7 @@ from . import build
 BIG = 9999        # no valid pair (the JAX package's BIG)
 PENALTY = 32      # a sentinel's weight; a pair counts while its sum is below it
 MAX_K = 25        # K < PENALTY keeps every sentinel-free sum below PENALTY
-MAX_G = 65535 * 1024   # own positions: the grid's y axis holds 65,535 tiles of 1,024
+MAX_G = 65535 * 1024   # own positions: the grid's y axis holds 65,535 tiles of >= 1,024
 BATCH = 256       # offsets per [D, L] block of the plain version
 
 

@@ -20,6 +20,7 @@ from kit4b_tpu_torch.kernels.sweep import BIG, sweep, sweep_plain
 from kit4b_tpu_torch.kernels.take import FILL, take, take_plain
 from kit4b_tpu_torch.kmer.hammings import hammings_oracle
 from kit4b_tpu_torch.kmer.hammings_mxu import build_w, hammings_exhaustive_mxu
+from test_torch_sweep_words import SPARSE, sparse_inputs
 
 S = 128
 GP = 1024
@@ -185,6 +186,10 @@ SWEEP_CARD_CASES = [
     (4500, 13, 4500, 3000, 100, 4000),
     (5000, 25, 5000, "self", 2040, 2056),
     (3000, 1, 3000, "self", 1, None),
+    (5000, 5, 5000, "self", 1, None),
+    (5000, 24, 4990, 5000, 0, None),
+    (9000, 24, 9000, "self", 4090, 6200),
+    (4100, 1, 4100, 3000, 0, 2049),
 ]
 
 
@@ -310,11 +315,43 @@ def test_sweep_kernel_matches_plain_on_card(cuda, G, K, G_valid, partner,
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("T,N", [(1000, 3000), (7, 64), (262_144, 524_288)])
+@pytest.mark.parametrize("label", [c[0] for c in SPARSE])
+def test_sweep_kernel_matches_plain_on_sparse_validity_on_card(cuda, label):
+    # few valid windows in a tile, at bit positions that do not line up:
+    # what the kernel's skip of 32 offsets must not drop
+    own, part, K, d_lo, _ = sparse_inputs(label)
+    own, part = torch.from_numpy(own).to(cuda), torch.from_numpy(part).to(cuda)
+    kw = dict(K=K, G_valid=len(own), d_lo=d_lo)
+    got, want = sweep(own, part, **kw), sweep_plain(own, part, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert bool((want < BIG).any()) and bool((want == BIG).any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,N", [(1000, 3000), (7, 64), (262_144, 524_288),
+                                 (1, 9), (262_144, 524_291), (1000, 3)])
 def test_take_kernel_matches_plain_on_card(cuda, T, N):
-    table, idx = _take_inputs(T, N, seed=T, device=cuda)
+    table, idx = _take_inputs(T, max(N, 8), seed=T, device=cuda)
+    idx = idx[:N].clone()
     before = take.launches
     got = take(table, idx)
     torch.cuda.synchronize()
     assert take.launches == before + 1
     assert torch.equal(got, take_plain(table, idx))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,N,skip", [(262_144, 524_288, 1), (1000, 3000, 2),
+                                      (7, 64, 3), (1000, 9, 1)])
+def test_take_kernel_takes_an_unaligned_view_on_card(cuda, T, N, skip):
+    # idx[skip:] starts 4 * skip bytes past a 16-byte boundary: the kernel
+    # gathers such a view one index at a time
+    table, idx = _take_inputs(T, N, seed=T + skip, device=cuda)
+    view = idx[skip:]
+    assert view.data_ptr() % 16 == 4 * skip and view.is_contiguous()
+    before = take.launches
+    got = take(table, view)
+    torch.cuda.synchronize()
+    assert take.launches == before + 1
+    assert torch.equal(got, take_plain(table, view))
