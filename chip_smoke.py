@@ -78,9 +78,40 @@ result:
    on both, which the CLI's SAM records of those reads agree with. Prints the CLI phases, reads/s, the median of 5 CUDA-event
    timings of `fast_pass_packed_v5` on a device-resident 98,304-read
    batch, its tier-2 and ladder read counts, and peak device memory.
+9. kmarkers (plain PyTorch pass on the card). (a) The port on the seeded
+   workload of `kit4b_tpu_torch.tools.make_kmarkers_golden` (three 36 kbp
+   cultivars with planted repeat families, duplicates, N runs and
+   neighbours) against the JAX package's committed golden: tier-1 pass
+   codes batch by batch, marker lists with and without extension and the
+   positions run in each tier, at min_hamming 1, 2 and 3, all equal.
+   (b) The planted 3 x 6 kbp set of tests/test_golden_kmarkers.py: the
+   accepted set equals the brute force of the documented contract.
+   (c) BASELINE config #3 at full size: the cultivars of
+   tools/config3_wheat.py (seed 33, 3 x 10 Mbp, 0.2 % SNPs, a private
+   50 kbp block each) written as FASTA, then the port's CLI `kmarkers -t
+   cult0 -K 50 -e 2 -m 1`. Checks: >= 99 % of the windows of cult0's
+   private block accepted; 128 accepted and 128 rejected positions agree
+   with a direct on-card minimum Hamming distance to every window of cult1
+   and cult2, both strands, and with the in-target duplicate rule; the
+   first two 49,152-position batches give the same codes on the card and
+   the CPU. Prints the CLI phases, K-mers/s, the median of 5 CUDA-event
+   timings of one pass on 49,152 resident positions, the positions of each
+   tier, peak device memory and the device's busy share of the markers
+   run by `torch.profiler`.
+10. Restricted hammings (`hammings -r`, plain PyTorch on the card). (a)
+   The golden's restricted outputs (the three genomes of
+   tests/test_hammings.py and one with N runs at the default lut_k), equal.
+   (b) On phase 6's chrIV-length genome against phase 6's max-match
+   minimum at every window of A/C/G/T only: `-r 1` equals min(true, 2);
+   `-r 3` equals the true minimum where it is at most W - 1 = 1 and lies in
+   [min(true, 4), 4] elsewhere. (c) The CLI `hammings -r 3 -K 25` on phase
+   4's 12.07 Mbp genome, 500 sampled A/C/G/T windows held to a direct
+   on-card minimum over every window by the same rule. Prints the phases,
+   K-mer rows/s and peak device memory.
 
 Each kernel's launch counter is set to 0 just before its path (phases 4,
-6, 7) and read just after it; phase 8 runs none of the three kernels. The
+6, 7) and read just after it; phases 8-10 run none of the three kernels.
+The script prints its seconds before the kernels line. The
 line before the last is a JSON table of the kernels, each with its bound
 (the least time the card could take: int8 tensor operations for minmm
 and sweep, bytes for take; take's `ms` is device time); the last line is
@@ -114,6 +145,8 @@ CHR4_LEN = R64_LENGTHS[3]   # chromosome IV, the sweep engine's genome
 SWEEP_SLICE = 4096     # offsets of each phase-5 slice
 ECOLI_LEN, ECOLI_READS = 4_600_000, 100_000   # config #1, as bench.py
 ECOLI_BATCH, READ_LEN = 98_304, 100
+CONFIG3_LEN = 10_000_000   # bases of each config #3 cultivar
+KM_BATCH = 49_152          # the kmarkers CLI's tier-1 batch
 INT8_PEAK = 1979e12    # H100 SXM dense int8 tensor operations per second
 HBM_RATE = 3.35e12     # H100 SXM device memory bytes per second
 WIDE_K = (51, 153)     # Cw 256 and 768, the widths past the main path's 128
@@ -204,12 +237,14 @@ def synthetic_chr4(rng) -> np.ndarray:
     return np.append(g, 0x0F).astype(np.uint8)
 
 
-def direct_node_min(torch, dev, seq, pos, c_lo, c_hi, Gp):
+def direct_node_min(torch, dev, seq, pos, c_lo, c_hi, Gp, batch=32):
     """Node partial minimum at concatenated positions `pos`, straight from
     the codes: min over the partner windows j in [c_lo, c_hi) of both
     strands (sense j != pos) of the Hamming distance, where a window that
     holds a sentinel (code >= 5) or starts past G - K counts as K, as the
-    engine's zero rows do; 0xFFFF where the window at pos is not valid."""
+    engine's zero rows do; 0xFFFF where the window at pos is not valid.
+    `batch` positions at a time: each holds an int32 [batch, c_hi - c_lo,
+    K] on the card."""
     G = len(seq)
     nk = G - K + 1
     pad = np.full(Gp + K - G, 0x0F, np.uint8)
@@ -223,12 +258,14 @@ def direct_node_min(torch, dev, seq, pos, c_lo, c_hi, Gp):
     for src, sense in ((fwd, True), (rc, False)):
         pw = src.unfold(0, K, 1)[c_lo:c_hi]
         pvalid = ~(pw >= 5).any(1) & (cols < nk)
-        for b in range(0, len(pos), 32):
-            d = (q[b:b + 32, None, :] != pw[None]).sum(2, dtype=torch.int32)
+        for b in range(0, len(pos), batch):
+            d = (q[b:b + batch, None, :] != pw[None]).sum(
+                2, dtype=torch.int32)
             d = torch.where(pvalid[None], d, K)
             if sense:
-                d = torch.where(p[b:b + 32, None] == cols[None], 1 << 20, d)
-            best[b:b + 32] = torch.minimum(best[b:b + 32], d.amin(1))
+                d = torch.where(p[b:b + batch, None] == cols[None], 1 << 20,
+                                d)
+            best[b:b + batch] = torch.minimum(best[b:b + batch], d.amin(1))
     return torch.where(qvalid, best, 0xFFFF).cpu().numpy()
 
 
@@ -341,7 +378,8 @@ def sweep_vs_plain(torch, dev, seq, card):
 def sweep_engine(torch, dev, seq, oracle_genome, oracles, card):
     """Phase 6: the sweep engine end to end on the chrIV-length genome,
     against the max-match engine and the numpy oracles. Returns the sweep
-    kernel's launches in the engine run."""
+    kernel's launches in the engine run and the max-match engine's
+    minimum at every position."""
     from kit4b_tpu_torch.kernels.sweep import sweep
     from kit4b_tpu_torch.kmer.hammings import hammings_exhaustive
     from kit4b_tpu_torch.kmer.hammings_mxu import hammings_exhaustive_mxu
@@ -364,7 +402,7 @@ def sweep_engine(torch, dev, seq, oracle_genome, oracles, card):
         raise AssertionError(f"the sweep engine launched the kernel "
                              f"{launches} times, not 4")
     t0 = time.perf_counter()
-    want = hammings_exhaustive_mxu(seq, K, device=dev)
+    want = want_mxu = hammings_exhaustive_mxu(seq, K, device=dev)
     mxu_wall = time.perf_counter() - t0
     bad = np.nonzero(got != want)[0]
     print(f"sweep engine vs max-match engine ({mxu_wall} s): {len(bad)} of "
@@ -389,7 +427,7 @@ def sweep_engine(torch, dev, seq, oracle_genome, oracles, card):
         if not ok or n != (4 if anti else 2):
             raise AssertionError(f"sweep engine vs oracle: K={k} "
                                  f"antisense={anti} equal={ok} launches={n}")
-    return launches
+    return launches, want_mxu
 
 
 def gather(torch, dev):
@@ -635,6 +673,355 @@ def kalign_full(torch, dev, card, tmp: Path):
         raise AssertionError("the timed aligner did not take v5")
 
 
+def max_matches(torch, dev, queries: np.ndarray, seq: np.ndarray, k: int,
+                before: np.ndarray | None = None, chunk: int = 1 << 21):
+    """For each query row (codes [n, k]), the most positions at which it
+    equals one window of `seq` (codes; N equals nothing): all windows, or
+    with `before` only those starting before before[i]. One-hot rows in
+    fp16 on the card, exact for counts up to 2048, over chunks of
+    windows."""
+    q = torch.from_numpy(np.ascontiguousarray(queries)).to(dev)
+    qh = torch.cat([q == b for b in range(4)], 1).half()
+    s = torch.from_numpy(np.ascontiguousarray(seq)).to(dev)
+    lim = None if before is None else torch.from_numpy(before).to(dev)
+    best = torch.full((len(q),), -1, dtype=torch.int32, device=dev)
+    for c0 in range(0, len(seq) - k + 1, chunk):
+        w = s[c0:c0 + chunk + k - 1].unfold(0, k, 1)
+        m = qh @ torch.cat([w == b for b in range(4)], 1).half().T
+        if lim is not None:
+            cols = torch.arange(c0, c0 + w.shape[0], device=dev)
+            m = torch.where(cols[None] < lim[:, None], m, -1)
+        best = torch.maximum(best, m.amax(1).int())
+    return best.cpu().numpy()
+
+
+def kmarkers_golden(torch, dev):
+    """Phase 9a: the port against the JAX package's kmarkers golden."""
+    from kit4b_tpu_torch.tools import make_kmarkers_golden as mg
+    gold = np.load(mg.GOLDEN)
+    if mg.inputs_sha256() != str(gold["inputs_sha256"]):
+        raise AssertionError("the kmarkers workload rebuilt here differs "
+                             "from the one the golden was made from")
+    find_markers, pass_codes, write_fa, _ = mg.port_fns(dev)
+    t0 = time.perf_counter()
+    out = mg.compute_kmarkers(find_markers, pass_codes, write_fa)
+    wall = time.perf_counter() - t0
+    bad = [k for k in out if not np.array_equal(out[k], gold[k])]
+    tiers = {mh: out[f"tiers_e{mh}"].tolist() for mh in mg.MIN_HAMMINGS}
+    counts = {mh: (len(out[f"markers_m0_e{mh}"]),
+                   len(out[f"markers_m1_e{mh}"])) for mh in mg.MIN_HAMMINGS}
+    print(f"kmarkers golden ({wall} s): positions of tiers 1, 2, 3 and "
+          f"dropped by min_hamming {tiers}, markers -m 0 / -m 1 {counts}; "
+          f"differs from the JAX golden in {bad or 'nothing'}")
+    if bad:
+        raise AssertionError(f"kmarkers differs from the JAX golden in {bad}")
+
+
+def kmarkers_brute(torch, dev):
+    """Phase 9b: the planted 3 x 6 kbp set of tests/test_golden_kmarkers.py
+    (seed 3), accepted set against the brute force of the documented
+    contract (numpy, by one-hot products)."""
+    from kit4b_tpu_torch import dna
+    from kit4b_tpu_torch.index.sfx_index import SfxIndex
+    from kit4b_tpu_torch.io.fasta import Genome, SeqRecord
+    from kit4b_tpu_torch.kmer import kmarkers
+    k, n = 50, 6000
+    rng = np.random.default_rng(3)
+    A, B, C = (rng.integers(0, 4, n).astype(np.uint8) for _ in range(3))
+
+    def mutate(win, offsets):
+        w = win.copy()
+        for o in offsets:
+            w[o] = (w[o] + rng.integers(1, 4)) % 4
+        return w
+    B[200:200 + k] = mutate(A[1000:1000 + k], [5])
+    B[400:400 + k] = mutate(A[2000:2000 + k], [30, 40])
+    g = Genome.from_records([SeqRecord(f"{c}.{c}", "", s) for c, s in
+                             (("cultA", A), ("cultB", B), ("cultC", C))])
+    markers = kmarkers.find_cultivar_markers(
+        SfxIndex.build(g), np.arange(3, dtype=np.int32), 0, kmer_len=k,
+        min_hamming=2, extend=False, batch=2048, device=dev)
+    got = {m.start for m in markers if m.chrom.startswith("cultA")}
+
+    def onehot(seq):
+        w = np.lib.stride_tricks.sliding_window_view(seq, k)
+        return np.concatenate([w == b for b in range(4)], 1) \
+            .astype(np.float32)
+    a1 = onehot(A)
+    best = np.zeros(len(a1))
+    for other in (B, C):
+        for seq in (other, dna.revcomp(other)):
+            best = np.maximum(best, (a1 @ onehot(seq).T).max(1))
+    truth = set(np.nonzero(k - best >= 2)[0].tolist())
+    print(f"kmarkers brute force (3 x {n} bp, K={k}, min_hamming 2): "
+          f"{len(got)} accepted, brute force {len(truth)}, equal "
+          f"{got == truth}; planted Hamming-1 at 1000 rejected "
+          f"{1000 not in got}, Hamming-2 at 2000 accepted {2000 in got}")
+    if got != truth or 1000 in got or 2000 not in got:
+        raise AssertionError("kmarkers differs from the brute force")
+
+
+def config3_cultivars(n=CONFIG3_LEN, cults=3):
+    """tools/config3_wheat.py's cultivars (seed 33): a random backbone;
+    each cultivar 0.2 % SNPs and a private 50 kbp block. Returns the codes
+    and the block starts."""
+    rng = np.random.default_rng(33)
+    backbone = rng.integers(0, 4, n).astype(np.uint8)
+    seqs, at = [], []
+    for _ in range(cults):
+        seq = backbone.copy()
+        snps = rng.integers(0, n, n // 500)
+        seq[snps] = (seq[snps] + rng.integers(1, 4, len(snps))) % 4
+        priv = rng.integers(0, 4, 50_000).astype(np.uint8)
+        a = int(rng.integers(0, n - 50_000))
+        seq[a:a + 50_000] = priv
+        seqs.append(seq)
+        at.append(a)
+    return seqs, at
+
+
+def kmarkers_full(torch, dev, card, tmp: Path):
+    """Phase 9c: config #3 at full size through the port's CLI."""
+    from kit4b_tpu_torch import cli, dna
+    from kit4b_tpu_torch.index.sfx_index import SfxIndex
+    from kit4b_tpu_torch.io.fasta import Genome, SeqRecord
+    from kit4b_tpu_torch.kmer import kmarkers
+    k, mh = 50, 2
+    seqs, at = config3_cultivars()
+    specs = []
+    for c, seq in enumerate(seqs):
+        write_fasta(tmp / f"cult{c}.fa", [f"cult{c}_chr1"], [seq])
+        specs.append(f"cult{c}={tmp / f'cult{c}.fa'}")
+    out = tmp / "markers.fa"
+    phases = _PhaseLog()
+    logging.getLogger("kit4b_tpu_torch").addHandler(phases)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    rc = cli.main(["kmarkers", "-c", *specs, "-t", "cult0", "-K", str(k),
+                   "-e", str(mh), "-m", "1", "-o", str(out)])
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    logging.getLogger("kit4b_tpu_torch").removeHandler(phases)
+    if rc != 0:
+        raise AssertionError(f"CLI kmarkers exited {rc}")
+    n_pos = CONFIG3_LEN - k + 1
+    print(f"CLI kmarkers -K {k} -e {mh} -m 1 on 3 x {CONFIG3_LEN} bp on "
+          f"{card}: wall {wall} s, phases {phases.seconds}; "
+          f"{n_pos / phases.seconds['markers']} K-mers/s in the markers "
+          f"phase; positions by tier {phases.tiers}; peak device memory "
+          f"{peak} bytes")
+
+    heads = [ln.split()[1].split("|") for ln in out.read_text().splitlines()
+             if ln.startswith(">")]
+    acc = np.zeros(n_pos, bool)
+    for chrom, start, length in heads:
+        if chrom != "cult0.cult0_chr1":
+            raise AssertionError(f"a marker on {chrom}")
+        acc[int(start):int(start) + int(length) - k + 1] = True
+    block = acc[at[0]:at[0] + 50_000 - k + 1].mean()
+    print(f"markers: {len(heads)} ({int(acc.sum())} accepted positions); "
+          f"cult0's private block at {at[0]}: {block} of its windows "
+          f"accepted")
+    if block < 0.99:
+        raise AssertionError(f"only {block} of the private block accepted")
+
+    # sampled positions against a direct on-card computation
+    rng = np.random.default_rng(SEED + 9)
+    pos = np.concatenate([rng.choice(np.nonzero(acc)[0], 128, replace=False),
+                          rng.choice(np.nonzero(~acc)[0], 128,
+                                     replace=False)])
+    q = np.lib.stride_tricks.sliding_window_view(seqs[0], k)[pos]
+    t0 = time.perf_counter()
+    near = k - np.max([max_matches(torch, dev, q, s, k) for c in (1, 2)
+                       for s in (seqs[c], dna.revcomp(seqs[c]))], axis=0)
+    dup = np.max([max_matches(torch, dev, w, seqs[0], k, before=pos)
+                  for w in (q, q[:, ::-1] ^ 3)], axis=0) == k
+    want = (near >= mh) & ~dup
+    print(f"sample check ({time.perf_counter() - t0} s): 128 accepted and "
+          f"128 rejected positions; direct minimum distance to cult1/cult2 "
+          f"of the accepted min {int(near[:128].min())}, of the rejected "
+          f"max {int(near[128:].max())}; rejected as an in-target duplicate "
+          f"{int((dup[128:] & (near[128:] >= mh)).sum())}; disagree "
+          f"{int((want != acc[pos]).sum())}")
+    if (want != acc[pos]).any():
+        bad = pos[want != acc[pos]]
+        raise AssertionError(f"kmarkers disagrees with the direct "
+                             f"computation at {bad[:5]}")
+
+    # the pass on the CLI's shapes: the first two batches on card and CPU,
+    # then timed; the whole marker run under torch.profiler
+    t0 = time.perf_counter()
+    g, cc, _ = kmarkers.build_pseudogenome(
+        {f"cult{c}": [tmp / f"cult{c}.fa"] for c in range(len(seqs))})
+    print(f"pseudo-genome from the FASTA files (the CLI's parse): "
+          f"{time.perf_counter() - t0} s")
+    if not np.array_equal(g.seq, Genome.from_records(
+            [SeqRecord("", "", s) for s in seqs]).seq):
+        raise AssertionError("the pseudo-genome differs from the cultivars")
+    t0 = time.perf_counter()
+    idx = SfxIndex.build_buckets(g)     # kmarkers reads no in-bucket order
+    print(f"bucket index of the pseudo-genome (native counting sort, lut_k "
+          f"{idx.lut_k}): {time.perf_counter() - t0} s")
+    kw = dict(K=k, genome_len=len(g.seq),
+              offsets=kmarkers.core_offsets(k, mh, idx.lut_k), lut_k=idx.lut_k,
+              n_compact=24, max_ml=48, min_hamming=mh, target=0)
+    got = []
+    for d in (dev, torch.device("cpu")):
+        tens = (*kmarkers._fast_device_arrays(idx, k, d),
+                torch.from_numpy(g.seq).to(d),
+                torch.from_numpy(g.starts.astype(np.int32)).to(d),
+                torch.from_numpy(cc).to(d))
+        t0 = time.perf_counter()
+        got.append([kmarkers.kmarkers_pass(*tens, torch.arange(
+            b * KM_BATCH, (b + 1) * KM_BATCH, dtype=torch.int32, device=d),
+            **kw).cpu().numpy() for b in (0, 1)])
+        print(f"first two {KM_BATCH}-position batches on {d}: "
+              f"{time.perf_counter() - t0} s")
+        if d == dev:
+            qp = torch.arange(KM_BATCH, dtype=torch.int32, device=d)
+            ms = sorted(_time_ms(torch, lambda: kmarkers.kmarkers_pass(
+                *tens, qp, **kw)) for _ in range(5))
+            del tens
+    same = all(np.array_equal(a, b) for a, b in zip(*got))
+    print(f"their codes equal on card and CPU: {same} (codes "
+          f"{np.unique(np.concatenate(got[0]), return_counts=True)})")
+    if not same:
+        raise AssertionError("the card and the CPU differ on config #3's "
+                             "first batches")
+    print(f"kmarkers_pass on {KM_BATCH} resident positions on {card}: "
+          f"median {ms[2]} ms of 5 (CUDA events: {ms}), "
+          f"{KM_BATCH / ms[2] * 1e3} K-mers/s")
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        kmarkers.marker_positions(idx, cc, 0, kmer_len=k, min_hamming=mh,
+                                  device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    device = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in device) / 1e6
+    print(f"marker run under torch.profiler on {card}: wall {wall} s, "
+          + (f"device busy {busy} s ({busy / wall} of the wall), "
+             f"{sum(e.count for e in device)} device operations" if busy
+             else "device busy not measured (the profiler showed no "
+                  "device time)"))
+
+
+def restricted_golden(torch, dev):
+    """Phase 10a: restricted hammings against the JAX package's golden."""
+    from kit4b_tpu_torch.tools import make_kmarkers_golden as mg
+    gold = np.load(mg.GOLDEN)
+    out = mg.compute_restricted(mg.port_fns(dev)[3])
+    bad = [k for k in out if not np.array_equal(out[k], gold[k])]
+    print(f"restricted golden: {len(out)} genomes, minima "
+          f"{ {k: int(v.min()) for k, v in out.items()} }; differs from the "
+          f"JAX golden in {bad or 'nothing'}")
+    if bad:
+        raise AssertionError(f"restricted hammings differs from the JAX "
+                             f"golden in {bad}")
+
+
+def restricted_rule(got, want, clean, mh, w):
+    """Positions of clean windows that break the restricted rule: equal to
+    the true minimum where it is at most w - 1, else in [min(true, mh + 1),
+    mh + 1]."""
+    got, want = got.astype(np.int64), want.astype(np.int64)
+    low = want <= w - 1
+    ok = np.where(low, got == want,
+                  (got >= np.minimum(want, mh + 1)) & (got <= mh + 1))
+    return np.nonzero(clean & ~ok)[0]
+
+
+def restricted_chr4(torch, dev, seq, want, card):
+    """Phase 10b: -r 1 and -r 3 on the chrIV-length genome against phase
+    6's max-match minimum at every window of A/C/G/T only."""
+    from kit4b_tpu_torch.index.sfx_index import SfxIndex
+    from kit4b_tpu_torch.io.fasta import Genome
+    from kit4b_tpu_torch.kmer.hammings import hammings_restricted
+    G = len(seq)
+    idx = SfxIndex.build(Genome(["chrIV"], np.array([0]),
+                                np.array([G - 1]), seq))
+    nk = G - K + 1
+    clean = np.zeros(G, bool)
+    clean[:nk] = ~(np.lib.stride_tricks.sliding_window_view(seq, K) >= 4) \
+        .any(1)
+    w = min(4, K // idx.lut_k)
+    for mh in (1, 3):
+        t0 = time.perf_counter()
+        got = hammings_restricted(idx, K, max_hamming=mh, device=dev)
+        wall = time.perf_counter() - t0
+        bad = restricted_rule(got, want, clean, mh, min(mh + 1, w))
+        exact = int((got[clean] == want[clean]).sum())
+        print(f"hammings_restricted -r {mh} on {G} bp (lut_k "
+              f"{idx.lut_k}, W {min(mh + 1, w)}) on {card}: {wall} s, "
+              f"{nk / wall} K-mer rows/s; {int(clean.sum())} A/C/G/T "
+              f"windows, {exact} equal to the true minimum, "
+              f"{len(bad)} break the rule")
+        if len(bad):
+            raise AssertionError(f"-r {mh} breaks the rule at {bad[:5]}: "
+                                 f"{got[bad[:5]]} vs {want[bad[:5]]}")
+        if mh == 1 and not np.array_equal(got[clean],
+                                          np.minimum(want[clean], 2)):
+            raise AssertionError("-r 1 differs from min(true, 2)")
+
+
+def restricted_full(torch, dev, card, tmp: Path, chroms, seq, Gp):
+    """Phase 10c: `hammings -r 3 -K 25` on the R64-length genome through
+    the CLI, 500 sampled A/C/G/T windows against a direct on-card
+    minimum."""
+    from kit4b_tpu_torch import cli
+    from kit4b_tpu_torch.kmer.hammings import read_hmg
+    from kit4b_tpu_torch.index.sfx_index import pick_lut_k
+    mh = 3
+    fa, out = tmp / "r64_synthetic.fa", tmp / "r3.hmg"
+    write_fasta(fa, [f"chr{r}" for r in ROMAN], chroms)
+    phases = _PhaseLog()
+    logging.getLogger("kit4b_tpu_torch").addHandler(phases)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    rc = cli.main(["hammings", "-i", str(fa), "-o", str(out), "-K", str(K),
+                   "-r", str(mh)])
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    logging.getLogger("kit4b_tpu_torch").removeHandler(phases)
+    if rc != 0:
+        raise AssertionError(f"CLI hammings -r exited {rc}")
+    G = len(seq)
+    nk = G - K + 1
+    print(f"CLI hammings -r {mh} -K {K} on {G - 16} bp on {card}: wall "
+          f"{wall} s, phases {phases.seconds}; {nk / phases.seconds['sweep']} "
+          f"K-mer rows/s in the sweep phase (index build included); peak "
+          f"device memory {peak} bytes")
+    names, dists = read_hmg(out)
+    starts = np.cumsum([0] + [len(c) + 1 for c in chroms[:-1]])
+    rng = np.random.default_rng(SEED + 10)
+    sel = []
+    while len(sel) < 500:
+        c = int(rng.choice(16, p=np.array(R64_LENGTHS) / sum(R64_LENGTHS)))
+        o = int(rng.integers(0, R64_LENGTHS[c] - K + 1))
+        if (chroms[c][o:o + K] < 4).all():
+            sel.append((c, o))
+    got = np.array([dists[c][o] for c, o in sel], np.uint16)
+    pos = np.array([starts[c] + o for c, o in sel], np.int64)
+    t0 = time.perf_counter()
+    want = direct_node_min(torch, dev, seq, pos, 0, Gp, Gp, batch=4)
+    print(f"direct minimum over all {Gp} columns of both strands: "
+          f"{time.perf_counter() - t0} s")
+    w = min(mh + 1, K // pick_lut_k(G))
+    bad = restricted_rule(got, want, np.ones(len(sel), bool), mh, w)
+    print(f"sample check: 500 A/C/G/T windows, W {w}: {len(bad)} break the "
+          f"rule; {int((got == want).sum())} equal to the true minimum; "
+          f"true minima at most {w - 1}: {int((want <= w - 1).sum())}")
+    if names != [f"chr{r}" for r in ROMAN] or len(bad):
+        raise AssertionError(f"hammings -r breaks the rule at {pos[bad[:5]]}"
+                             f": {got[bad[:5]]} vs {want[bad[:5]]}")
+
+
 def minmm_cases(torch, cases, minmm, minmm_plain) -> int:
     """Phase 2: the min-match kernel against its plain version, bit for
     bit, on (label, own rows, partner, diag, span_lo, span_cnt, row_base)
@@ -664,23 +1051,27 @@ def reset_launches() -> None:
 
 
 class _PhaseLog(logging.Handler):
-    """Keeps the unrounded seconds of the CLI's PhaseTimer phases, and
-    kalign's class counts and tier-1 pass by read length."""
+    """Keeps the unrounded seconds of the CLI's PhaseTimer phases,
+    kalign's class counts and tier-1 pass by read length, and kmarkers'
+    positions by tier."""
 
     def __init__(self):
         super().__init__()
         self.seconds = {}
-        self.stats = self.tier1 = None
+        self.stats = self.tier1 = self.tiers = None
 
     def emit(self, record):
         if record.msg == "phase %s: %.2fs":
             self.seconds[record.args[0]] = record.args[1]
         elif str(record.msg).startswith("kalign: %d reads"):
             self.stats, self.tier1 = record.args[1], record.args[2]
+        elif str(record.msg).startswith("kmarkers: positions by tier"):
+            self.tiers = record.args[0]
 
 
 def main() -> int:
     import torch
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this test needs an NVIDIA "
               "card", file=sys.stderr)
@@ -898,7 +1289,8 @@ def main() -> int:
     chr4 = synthetic_chr4(np.random.default_rng(SEED + 4))
     sweep_err, sweep_ms, sweep_plain_ms, sweep_bound = sweep_vs_plain(
         torch, dev, chr4, card)
-    sweep_launches = sweep_engine(torch, dev, chr4, g, oracle_results, card)
+    sweep_launches, chr4_min = sweep_engine(torch, dev, chr4, g,
+                                            oracle_results, card)
     take_launches, take_err, take_ms, take_plain_ms, take_bound = gather(
         torch, dev)
 
@@ -906,9 +1298,23 @@ def main() -> int:
     kalign_golden(torch, dev)
     with tempfile.TemporaryDirectory(prefix=".chip_smoke_", dir=root) as tmp:
         kalign_full(torch, dev, card, Path(tmp))
+
+    # --- 9. kmarkers: the JAX golden, the brute force, config #3 ------
+    kmarkers_golden(torch, dev)
+    kmarkers_brute(torch, dev)
+    with tempfile.TemporaryDirectory(prefix=".chip_smoke_", dir=root) as tmp:
+        kmarkers_full(torch, dev, card, Path(tmp))
+
+    # --- 10. hammings -r: the golden, chrIV, the R64-length CLI run ----
+    restricted_golden(torch, dev)
+    restricted_chr4(torch, dev, chr4, chr4_min, card)
+    with tempfile.TemporaryDirectory(prefix=".chip_smoke_", dir=root) as tmp:
+        restricted_full(torch, dev, card, Path(tmp), chroms, seq, Gp)
     if "jax" in sys.modules or "kit4b_tpu" in sys.modules:
         raise AssertionError("jax or the JAX package kit4b_tpu was imported")
 
+    print(f"chip_smoke: every phase passed in "
+          f"{time.perf_counter() - t_start} s")
     print(json.dumps({"kernels": [
         {"name": "minmm", "route": "cuda",
          "source": "kit4b_tpu_torch/csrc/minmm.cu",

@@ -1,10 +1,11 @@
 """Command-line entry of the PyTorch/CUDA port: `python -m kit4b_tpu_torch`.
 
-Port of kit4b_tpu/cli.py with the `index`, `kalign` and `hammings`
-subcommands, taking the same flags and writing the same files, plus
-`--device {cuda,cpu}` on the commands that use a device. The parsers are
-copies, as is all the port needs of the JAX package: it imports none of
-it. Flags of paths not ported yet parse as in kit4b_tpu and raise
+Port of kit4b_tpu/cli.py with the `index`, `kalign`, `hammings`,
+`pseudogenome`, `kmarkers` and `prekmarkers` subcommands, taking the same
+flags and writing the same files, plus `--device {cuda,cpu}` on the
+commands that use a device (`kalign`, `hammings`, `kmarkers`). The
+parsers are copies, as is all the port needs of the JAX package: it
+imports none of it. Flags of paths not ported yet parse as in kit4b_tpu and raise
 NotImplementedError naming their ROADMAP item.
 """
 from __future__ import annotations
@@ -141,10 +142,7 @@ def cmd_hammings(args) -> int:
         hammings.save_dists(args.outfile, names, dists)
         print(f"hammings trans: {infiles[0]} -> {args.outfile}")
         return 0
-    if args.restricted:
-        raise NotImplementedError("hammings -r (restricted mode) is not "
-                                  "ported yet: ROADMAP.md queue A item 11")
-    if args.ring or args.mesh:
+    if (args.ring or args.mesh) and not args.restricted:
         raise NotImplementedError("hammings -M/-R (multi-device) is not "
                                   "ported yet: ROADMAP.md queue A item 10")
     device = resolve(args.device)
@@ -152,9 +150,17 @@ def cmd_hammings(args) -> int:
     with t.phase("load genome"):
         g = Genome.load(infiles[0])
     with t.phase("sweep"):
-        hd = hammings.hammings_exhaustive(
-            g.seq, args.kmerlen, antisense=not args.watsononly,
-            node=args.node - 1, numnodes=args.numnodes, device=device)
+        if args.restricted:
+            # the lexicographic (SA-IS) index: restricted mode cuts
+            # buckets, so its answer depends on their order
+            idx = SfxIndex.build(g)
+            hd = hammings.hammings_restricted(
+                idx, args.kmerlen, max_hamming=args.restricted,
+                antisense=not args.watsononly, device=device)
+        else:
+            hd = hammings.hammings_exhaustive(
+                g.seq, args.kmerlen, antisense=not args.watsononly,
+                node=args.node - 1, numnodes=args.numnodes, device=device)
     with t.phase("write"):
         if args.outfile.endswith(".csv"):
             hammings.write_csv(args.outfile, g, hd, args.kmerlen)
@@ -166,6 +172,87 @@ def cmd_hammings(args) -> int:
     log.info("hammings: K=%d node %d/%d on %s -> %s (phases %s)",
              args.kmerlen, args.node, args.numnodes, device, args.outfile,
              json.dumps(t.phases))
+    return 0
+
+
+def _cultivars(specs) -> dict[str, list[str]]:
+    """`NAME=fa1,fa2` specs -> {name: [paths]}."""
+    cults = {}
+    for spec in specs:
+        name, paths = spec.split("=", 1)
+        cults[name] = paths.split(",")
+    return cults
+
+
+def cmd_pseudogenome(args) -> int:
+    """ngskit4b pseudogenome equivalent (genpseudogenome.cpp)."""
+    from .io.fasta import SeqRecord, write_fasta
+    from .kmer import kmarkers
+    g, cc, names = kmarkers.build_pseudogenome(_cultivars(args.cultivar))
+    write_fasta(args.outfile, [SeqRecord(g.names[i], "", g.chrom_codes(i))
+                               for i in range(g.nchroms())])
+    if args.bedfile:
+        kmarkers.write_pseudogenome_bed(args.bedfile, g, cc, names)
+    log.info("pseudogenome: %d cultivars, %d chroms, %d bp -> %s",
+             len(names), g.nchroms(), g.total_len, args.outfile)
+    return 0
+
+
+def cmd_kmarkers(args) -> int:
+    """ngskit4b kmarkers equivalent (CLocKMers)."""
+    from .kmer import kmarkers
+    device = resolve(args.device)
+    t = PhaseTimer()
+    with t.phase("pseudogenome+index"):
+        g, cc, names = kmarkers.build_pseudogenome(_cultivars(args.cultivar))
+        idx = SfxIndex.build(g)
+    if args.target not in names:
+        raise ValueError(f"target cultivar {args.target!r} not in {names}")
+    stats = {}
+    with t.phase("markers"):
+        markers = kmarkers.find_cultivar_markers(
+            idx, cc, names.index(args.target),
+            kmer_len=args.kmerlen, min_hamming=args.minhamming,
+            extend=(args.mode == 1) and not args.noextend, device=device,
+            stats=stats)
+    kmarkers.write_markers_fasta(args.outfile, markers)
+    log.info("kmarkers: %d markers (%d bp) for %s -> %s",
+             len(markers), sum(m.length for m in markers), args.target,
+             args.outfile)
+    log.info("kmarkers: positions by tier %s on %s", stats, device)
+    log.info("phases: %s", json.dumps(t.phases))
+    return 0
+
+
+def cmd_prekmarkers(args) -> int:
+    """ngskit4b prekmarkers equivalent (CMarkerKMers): host numpy only."""
+    from . import dna
+    from .kmer import kmarkers
+    t = PhaseTimer()
+    with t.phase("pseudogenome+index"):
+        g, cc, names = kmarkers.build_pseudogenome(_cultivars(args.cultivar))
+        idx = SfxIndex.build(g)
+    with t.phase("walk"):
+        if args.suffixlen:
+            # homozygotic-constraint mode (-s/-S): suffix region must
+            # discriminate the cultivars (GenKMerCultsCnts,
+            # SfxArray.cpp:2902)
+            out = kmarkers.shared_prefix_suffix_markers(
+                idx, cc, len(names), prefix_len=args.kmerlen,
+                suffix_len=args.suffixlen,
+                min_cultivars=args.mincultivars,
+                max_homozygotic=args.maxhomozygotic)
+        else:
+            out = kmarkers.shared_prefix_markers(
+                idx, cc, len(names), kmer_len=args.kmerlen,
+                min_cultivars=args.mincultivars,
+                max_per_cultivar=args.maxpercultivar)
+    with open(args.outfile, "w") as f:
+        f.write("\"KMer\"," + ",".join(f'"{n}"' for n in names) + "\n")
+        for codes, counts in out:
+            f.write(dna.decode(codes) + ","
+                    + ",".join(str(int(c)) for c in counts) + "\n")
+    log.info("prekmarkers: %d shared K-mers -> %s", len(out), args.outfile)
     return 0
 
 
@@ -295,13 +382,60 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-R", "--ring", action="store_true",
                    help="ring over all local devices (not ported yet)")
     p.add_argument("-r", "--restricted", type=int, default=0,
-                   help="pigeonhole mode bound (not ported yet); "
-                        "0 = exhaustive")
+                   help="pigeonhole mode bound; 0 = exhaustive")
     p.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
-                   help="cuda runs the hand kernels; cpu runs their plain "
-                        "PyTorch versions")
+                   help="cuda runs the hand kernels and passes on the card; "
+                        "cpu runs their plain PyTorch versions")
     _common(p)
     p.set_defaults(fn=cmd_hammings)
+
+    p = sub.add_parser("pseudogenome",
+                       help="concatenate cultivar fastas into pseudo-genome")
+    p.add_argument("-c", "--cultivar", nargs="+", required=True,
+                   metavar="NAME=fa1,fa2", help="cultivar fasta spec")
+    p.add_argument("-o", "--out", dest="outfile", required=True)
+    p.add_argument("-B", "--bed", dest="bedfile", default=None)
+    _common(p)
+    p.set_defaults(fn=cmd_pseudogenome)
+
+    p = sub.add_parser("kmarkers",
+                       help="K-mer markers unique to a target cultivar")
+    p.add_argument("-c", "--cultivar", nargs="+", required=True,
+                   metavar="NAME=fa1,fa2")
+    p.add_argument("-t", "--target", required=True)
+    p.add_argument("-o", "--out", dest="outfile", required=True)
+    p.add_argument("-K", "--kmerlen", type=int, default=50)
+    p.add_argument("-e", "--minhamming", type=int, default=2)
+    p.add_argument("-m", "--mode", type=int, default=0,
+                   help="0 report each accepted K-mer (matches the "
+                        "reference's -m0 behaviour — its extension branch "
+                        "only runs under -m1, LocKMers.cpp:1209), "
+                        "1 merge runs into maximal extended markers")
+    p.add_argument("-x", "--noextend", action="store_true",
+                   help="alias for -m0")
+    p.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
+                   help="cuda runs the pass on the card; cpu runs the same "
+                        "PyTorch code on the CPU")
+    _common(p)
+    p.set_defaults(fn=cmd_kmarkers)
+
+    p = sub.add_parser("prekmarkers",
+                       help="prefix K-mers shared across cultivars")
+    p.add_argument("-c", "--cultivar", nargs="+", required=True,
+                   metavar="NAME=fa1,fa2")
+    p.add_argument("-o", "--out", dest="outfile", required=True)
+    p.add_argument("-K", "--kmerlen", type=int, default=25,
+                   help="prefix K-mer length")
+    p.add_argument("-m", "--mincultivars", type=int, default=2)
+    p.add_argument("-M", "--maxpercultivar", type=int, default=0)
+    p.add_argument("-s", "--suffixlen", type=int, default=0,
+                   help="suffix region length: enables the homozygotic "
+                        "constraint (MarkerKMers.h:91)")
+    p.add_argument("-S", "--maxhomozygotic", type=int, default=1,
+                   help="report prefix only if every full-length variant "
+                        "is shared by at most this many cultivars")
+    _common(p)
+    p.set_defaults(fn=cmd_prekmarkers)
     return ap
 
 

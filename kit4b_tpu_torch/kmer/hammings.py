@@ -2,21 +2,27 @@
 
 Port of kit4b_tpu/kmer/hammings.py. `hammings_exhaustive` runs the
 max-match engine (hammings_mxu.py), or with `legacy_sweep` and
-`use_kernel` the offset-sweep engine (hammings_kernel.py). The naive
-oracle, the node merge and the .csv/.hmg/.npy readers and writers are
-numpy code re-homed here from kit4b_tpu/kmer/hammings.py, whose module
-imports jax; the tests hold them byte-identical to the originals.
+`use_kernel` the offset-sweep engine (hammings_kernel.py).
+`hammings_restricted` (`hammings -r`) probes the suffix index through the
+seed-and-extend pass `ops.seed_extend_fast.fast_pass`. The naive oracle,
+the node merge and the .csv/.hmg/.npy readers and writers are numpy code
+re-homed here from kit4b_tpu/kmer/hammings.py, whose module imports jax;
+the tests hold them byte-identical to the originals.
 """
 from __future__ import annotations
 
 import struct
+from collections import deque
 
 import numpy as np
 import torch
 
 from .. import dna
+from ..device import resolve
+from ..ops import seed_extend_fast as F
 from .hammings_kernel import hammings_exhaustive_kernel
 from .hammings_mxu import hammings_exhaustive_mxu
+from .kmarkers import _fast_device_arrays
 
 BIG = np.uint16(0xFFFF)
 
@@ -49,6 +55,140 @@ def hammings_exhaustive(genome_seq: np.ndarray, K: int,
         "hammings legacy XLA sweep (kit4b_tpu/kmer/hammings.py "
         "_sweep_range) is not ported; use_kernel=True runs the offset-sweep "
         "engine")
+
+
+def hammings_restricted(index, K: int, *, max_hamming: int = 3,
+                        batch: int = 16384, antisense: bool = True,
+                        n_compact: int = 64,
+                        device: str | torch.device = "cuda") -> np.ndarray:
+    """Restricted-mode hammings (ngskit4b hammings ePMrestrict;
+    CSfxArray::LocateSfxHammings SfxArray.cpp:4107): per K-mer position,
+    the minimum Hamming distance up to `max_hamming` (values above
+    report max_hamming + 1), found by pigeonhole suffix-array probes.
+
+    Core scheduling follows the reference's core-length-by-SA-search
+    compromise (hammings.cpp:399): W = min(max_hamming+1, K//lut_k)
+    disjoint seed windows guarantee discovery of every hit with
+    mm <= W-1; when K is too short for max_hamming+1 full-width cores,
+    hits in (W-1, max_hamming] are found best-effort exactly as the
+    reference's shortened cores are.
+
+    K-mers containing 1..4 indeterminate bases enumerate all canonical
+    substitutions and take the minimum over variants; >4 Ns score 0
+    (SfxArray.cpp:4152-4177).
+
+    The probes run `fast_pass` at n_compact with `max_per_bucket =
+    n_compact // (2W)` and ignore its overflow: a bucket is cut to its
+    first entries, so which hits are seen depends on the slot order
+    (strand, window, bucket rank) and on the order of the suffixes within
+    a bucket. `index` must therefore be the lexicographic suffix index of
+    `SfxIndex.build` (SA-IS), as the CLI builds it; `build_buckets`, whose
+    buckets are in position order, gives other answers wherever a bucket
+    is cut.
+
+    Windows gather on `device` from the resident genome, and two batches
+    are in flight. Returns uint16 [G]."""
+    dev = resolve(device)
+    g = index.genome
+    G = len(g.seq)
+    nk = G - K + 1
+    out = np.full(G, BIG, np.uint16)
+    if nk <= 0:
+        return out
+    gview_d, sa_d, lut_d = _fast_device_arrays(index, K, dev)
+    W = min(max_hamming + 1, max(1, K // index.lut_k))
+    cl = K // W
+    offsets = tuple(min(j * cl, K - index.lut_k) for j in range(W))
+
+    def run_batches(positions, reads_of, fold_min):
+        """positions int64 [N] (host); reads_of(s, e) -> device uint8
+        [e - s, K], the queries of positions[s:e]; fold_min(chunk,
+        best_mm) folds per-query minima into out."""
+        pending = deque()
+
+        def submit(s):
+            chunk = positions[s:s + batch]
+            nb = len(chunk)
+            reads = reads_of(s, s + nb)
+            if nb < batch:
+                reads = torch.cat([reads, reads[:1].expand(batch - nb, K)])
+            return chunk, nb, F.fast_pass(
+                gview_d, sa_d, lut_d, reads,
+                genome_len=G, offsets=offsets, lut_k=index.lut_k,
+                n_compact=n_compact, max_ml=8,
+                max_per_bucket=max(1, n_compact // (2 * W)))
+
+        def drain(chunk, nb, dev_out):
+            hid = dev_out["hit_id"][:nb].cpu().numpy()
+            hmm = dev_out["hit_mm"][:nb].cpu().numpy().astype(np.int64)
+            valid = hid != F.INT32_MAX
+            pos = np.where(valid, hid >> 1, -1)
+            strand = np.where(valid, hid & 1, 0)
+            use = valid & (hmm <= max_hamming)
+            # exclude the query's own sense locus
+            use &= ~((strand == 0) & (pos == chunk[:, None]))
+            if not antisense:
+                use &= strand == 0
+            mm = np.where(use, hmm, max_hamming + 1)
+            fold_min(chunk, mm.min(axis=1))
+
+        for s in range(0, len(positions), batch):
+            pending.append(submit(s))
+            if len(pending) >= 2:
+                drain(*pending.popleft())
+        while pending:
+            drain(*pending.popleft())
+
+    # classify windows by N content (vectorized)
+    isn = (g.seq >= 4).astype(np.int64)
+    cn = np.concatenate([[0], np.cumsum(isn)])
+    n_in_win = cn[K:nk + K] - cn[:nk]
+    clean_pos = np.nonzero(n_in_win == 0)[0].astype(np.int64)
+    some_n = np.nonzero((n_in_win >= 1) & (n_in_win <= 4))[0]
+    many_n = np.nonzero(n_in_win > 4)[0]
+
+    def fold_direct(chunk, best):
+        out[chunk] = np.minimum(out[chunk],
+                                best.astype(np.uint16))
+
+    if len(clean_pos):
+        genome_d = torch.from_numpy(g.seq).to(dev)
+        clean_d = torch.from_numpy(clean_pos).to(dev)      # one copy
+        lane = torch.arange(K, device=dev)
+        run_batches(clean_pos,
+                    lambda s, e: genome_d[clean_d[s:e, None] + lane],
+                    fold_direct)
+
+    # N-containing windows: enumerate 4^n canonical substitutions
+    # (SfxArray.cpp:4152-4177); each variant is one query, minima fold
+    # back to the source position
+    if len(some_n):
+        var_pos = []
+        var_reads = []
+        for p0 in some_n:
+            win = np.array(g.seq[p0:p0 + K])
+            nidx = np.nonzero(win >= 4)[0]
+            n = len(nidx)
+            for it in range(4 ** n):
+                v = win.copy()
+                for d, ix in enumerate(nidx):
+                    v[ix] = (it >> (2 * d)) & 3
+                var_pos.append(p0)
+                var_reads.append(v)
+        var_pos = np.asarray(var_pos, np.int64)
+        var_d = torch.from_numpy(np.stack(var_reads)).to(dev)
+
+        def fold_variant(chunk, best):
+            np.minimum.at(out, chunk, best.astype(np.uint16))
+
+        run_batches(np.arange(len(var_pos), dtype=np.int64),
+                    lambda s, e: var_d[s:e],
+                    lambda c, b: fold_variant(var_pos[c], b))
+
+    # >4 indeterminates: treated as Hamming 0 from anything (reference)
+    out[many_n] = 0
+    out[max(0, nk):] = BIG
+    return out
 
 
 def hammings_oracle(genome_seq: np.ndarray, K: int,

@@ -3,10 +3,13 @@
 
 Through `kernels/build.py`'s keyed build, `load()` compiles the two C++ sources with g++
 and the flags of `native/Makefile` at first use into
-`_build/libkit4b_native-<key>.so`, where the key is a hash of the sources
-and the flags, and loads it with ctypes. A library already built for the
-same key is loaded as it is; a changed source builds anew, so a stale
-library never reaches the port. Nothing is written into `native/`.
+`_build/libkit4b_native-<key>.so`, where the key is a hash of the sources,
+the flags and what `-march=native` resolves to on this CPU (`cpu_identity`),
+and loads it with ctypes. A library already built for the same key is
+loaded as it is; a changed source builds anew, so a stale library never
+reaches the port, and a `_build/` carried to a host with another CPU builds
+anew instead of loading code that CPU may not run. Nothing is written into
+`native/`.
 
 Every symbol the port calls is declared in SIGNATURES, one by one: the
 SA-IS and counting-sort builds of the index (`sais_u8_i32`, `sais_u8_i64`,
@@ -20,6 +23,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import shutil
+import subprocess
 from pathlib import Path
 
 from .kernels.build import compile_libs, source_key
@@ -62,10 +66,27 @@ class NativeUnavailable(RuntimeError):
     """The host library cannot be built or lacks a symbol the port needs."""
 
 
-def lib_path() -> Path:
-    """The library of the current sources and flags."""
+@functools.lru_cache(maxsize=1)
+def cpu_identity() -> str:
+    """What `-march=native` resolves to here: g++'s report of the target
+    options it enables, or without g++ the `flags` line of /proc/cpuinfo."""
+    cxx = shutil.which("g++")
+    if cxx is not None:
+        out = subprocess.run([cxx, "-march=native", "-Q", "--help=target"],
+                             capture_output=True, text=True)
+        if out.returncode == 0:
+            return out.stdout
     try:
-        key = source_key(SOURCES, CXXFLAGS)
+        with open("/proc/cpuinfo") as f:
+            return next((ln for ln in f if ln.startswith("flags")), "")
+    except OSError:
+        return ""
+
+
+def lib_path() -> Path:
+    """The library of the current sources, flags and CPU."""
+    try:
+        key = source_key(SOURCES, CXXFLAGS + (cpu_identity(),))
     except OSError as e:
         raise NativeUnavailable(f"host library source missing: {e}") from None
     return BUILD / f"libkit4b_native-{key}.so"

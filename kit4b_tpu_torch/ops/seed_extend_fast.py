@@ -9,11 +9,18 @@ which are re-homed here because the JAX module imports jax at module top.
 ids are int32 as in JAX. Bit-identical to the JAX pass on the same inputs
 (tests/test_torch_kalign_passes.py).
 
-Not ported: `single_strand`, `lut_base` and `digit_map` (the bisulfite and
-kmarkers callers, ROADMAP queue A items 14 and 17), `fast_pass_compact`
-and the window scans (PE, item 13).
+The constant tensors of a shape (seed offsets, digit weights, tail and
+window masks) are built on the device once (`_shape_constants`), so a pass
+copies nothing from host memory: such a copy would wait for the stream,
+and callers keep several batches in flight.
+
+Not ported: `single_strand`, `lut_base` and `digit_map` (the bisulfite
+caller, ROADMAP queue A item 17), `fast_pass_compact` and the window scans
+(PE, item 13).
 """
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
@@ -83,6 +90,23 @@ def _window_masks(offsets: tuple, lut_k: int, nw: int) -> np.ndarray:
     return out
 
 
+@functools.lru_cache(maxsize=64)
+def _shape_constants(offsets: tuple, lut_k: int, read_len: int,
+                     device: torch.device):
+    """(seed base offsets [W, k] int64, digit weights [k] int32, window
+    offsets [W] int32, tail mask [nw], window masks [W, nw]) of one pass
+    shape, on `device`."""
+    nw = (read_len + 15) // 16
+    offs = (torch.tensor(offsets, dtype=torch.int64)[:, None]
+            + torch.arange(lut_k)[None, :])
+    powb = torch.tensor([4 ** e for e in range(lut_k - 1, -1, -1)],
+                        dtype=torch.int32)
+    off_w = torch.tensor(offsets, dtype=torch.int32)
+    tmask = to_words(_tail_mask(read_len, nw))
+    wmask = to_words(_window_masks(offsets, lut_k, nw))
+    return tuple(t.to(device) for t in (offs, powb, off_w, tmask, wmask))
+
+
 def revcomp_device(reads: torch.Tensor) -> torch.Tensor:
     comp = torch.where(reads < 4, 3 - reads, reads)
     return comp.flip(-1)
@@ -113,13 +137,11 @@ def fast_candidates(gview: torch.Tensor,   # [Gv, 2*nw2] genome context rows
     Gv = gview.shape[0]
     seqs = torch.stack([reads, revcomp_device(reads)], dim=1)   # [B,2,L]
     D = 2 * W
+    offs, powb, off_w, tmask, wmask = _shape_constants(
+        tuple(offsets), k, L, dev)
 
     # --- seed lookup: bucket (lo, cnt) per (strand, window) ----------------
-    offs = (torch.tensor(offsets, dtype=torch.int64, device=dev)[:, None]
-            + torch.arange(k, device=dev)[None, :])              # [W, k]
     bases = seqs[:, :, offs]                                     # [B,S,W,k]
-    powb = torch.tensor([4 ** e for e in range(k - 1, -1, -1)],
-                        dtype=torch.int32, device=dev)
     digits = torch.where(bases < 4, bases, 0).to(torch.int32)
     keys = (digits * powb).sum(-1, dtype=torch.int32)            # [B,S,W]
     key_ok = (bases < 4).all(-1)
@@ -150,7 +172,7 @@ def fast_candidates(gview: torch.Tensor,   # [Gv, 2*nw2] genome context rows
 
     w_d = (b % W).to(torch.int32)
     strand = (b // W).to(torch.int32)
-    off_b = torch.tensor(offsets, dtype=torch.int32, device=dev)[w_d.long()]
+    off_b = off_w[w_d.long()]
     sa_pos = take_clamped(sa, sa_idx).to(torch.int32)
     pos = sa_pos - off_b
     valid = slot_ok & (pos >= 0) & (pos + L <= G)
@@ -179,12 +201,10 @@ def fast_candidates(gview: torch.Tensor,   # [Gv, 2*nw2] genome context rows
     x = ga ^ rp
     mism = (x | (x >> 1)) & MISM_BITS
     badb = (gba | rb) & MISM_BITS
-    tmask = to_words(_tail_mask(L, nw)).to(dev)
     bits = (mism | badb) & tmask                                 # [B,NC,nw]
     mm = popcount32(bits).sum(-1, dtype=torch.int32)
 
     # --- first-exact-window canonicalisation -------------------------------
-    wmask = to_words(_window_masks(offsets, k, nw)).to(dev)      # [W, nw]
     notexact = ((bits[:, :, None, :] & wmask[None, None]) != 0).any(-1)
     exact = ~notexact                                            # [B,NC,W]
     any_exact = exact.any(-1)

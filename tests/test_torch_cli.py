@@ -1,6 +1,7 @@
 """`python -m kit4b_tpu_torch hammings` against `python -m kit4b_tpu
 hammings` on a small FASTA: identical output files in every mode the port
-runs (1 compute, 3 merge, 4 trans to .hmg, 5 trans to CSV), a clear failure
+runs (1 compute, 3 merge, 4 trans to .hmg, 5 trans to CSV; restricted mode
+`-r` is in tests/test_torch_hammings_restricted.py), a clear failure
 without CUDA, and no jax in the port's process."""
 import subprocess
 import sys
@@ -102,8 +103,7 @@ def test_without_cuda_fails_with_a_clear_message(tmp_path, fasta, capsys,
     assert not (tmp_path / "x.hmg").exists()
 
 
-@pytest.mark.parametrize("flags,item", [(["-r", "3"], "item 11"),
-                                        (["-M"], "item 10"),
+@pytest.mark.parametrize("flags,item", [(["-M"], "item 10"),
                                         (["-R"], "item 10")])
 def test_unported_options_fail_naming_the_roadmap(tmp_path, fasta, capsys,
                                                   flags, item):

@@ -1,9 +1,10 @@
 """The host modules the port keeps its own copies of, each held equal to its
 original in the JAX package on the same seeded inputs: dna, io.fasta,
 io.sam's flags, index (SfxIndex, SA-IS), sim.simreads, align.snp,
-utils.runtime and utils.summaries; and the port's own build of the host
-library (native.py). Tests of the index skip when the library cannot be
-built."""
+utils.runtime, utils.summaries and the host functions of kmer.kmarkers
+(pseudogenome, marker FASTA, the prekmarkers walk); and the port's own
+build of the host library (native.py), keyed by its sources, flags and
+CPU. Tests of the index skip when the library cannot be built."""
 import gzip
 import logging
 import sqlite3
@@ -18,6 +19,7 @@ from kit4b_tpu.index import sa_build as jsa
 from kit4b_tpu.index import sfx_index as jsfx
 from kit4b_tpu.io import fasta as jfa
 from kit4b_tpu.io import sam as jsam
+from kit4b_tpu.kmer import kmarkers as jkm
 from kit4b_tpu.sim import simreads as jsim
 from kit4b_tpu.utils import runtime as jrt
 from kit4b_tpu.utils import summaries as jsum
@@ -28,6 +30,7 @@ from kit4b_tpu_torch.index import sa_build as psa
 from kit4b_tpu_torch.index import sfx_index as psfx
 from kit4b_tpu_torch.io import fasta as pfa
 from kit4b_tpu_torch.io import sam as psam
+from kit4b_tpu_torch.kmer import kmarkers as pkm
 from kit4b_tpu_torch.sim import simreads as psim
 from kit4b_tpu_torch.utils import runtime as prt
 from kit4b_tpu_torch.utils import summaries as psum
@@ -384,6 +387,30 @@ def test_host_library_key_follows_sources_and_flags(monkeypatch):
     assert native.lib_path() != key
 
 
+def test_host_library_key_follows_the_cpu(monkeypatch):
+    """A `_build/` carried to a host whose `-march=native` means another
+    CPU builds anew instead of loading the other host's library."""
+    monkeypatch.setattr(native, "cpu_identity", lambda: "-march= skylake")
+    skylake = native.lib_path()
+    assert native.lib_path() == skylake
+    monkeypatch.setattr(native, "cpu_identity",
+                        lambda: "-march= sapphirerapids")
+    assert native.lib_path() != skylake
+    monkeypatch.setattr(native, "cpu_identity",
+                        lambda: "flags\t: fpu sse2 avx2")
+    other = native.lib_path()
+    assert other != skylake and other.parent == skylake.parent
+
+
+def test_cpu_identity_is_what_march_native_resolves_to():
+    ident = native.cpu_identity()
+    assert ident and native.cpu_identity() is ident      # probed once
+    if native.shutil.which("g++"):
+        assert "-march=" in ident
+    else:
+        assert ident.startswith("flags")
+
+
 def test_host_library_without_compiler_or_source_raises(monkeypatch,
                                                         tmp_path):
     monkeypatch.setattr(native, "BUILD", tmp_path / "_build")
@@ -394,3 +421,110 @@ def test_host_library_without_compiler_or_source_raises(monkeypatch,
     with pytest.raises(native.NativeUnavailable, match="source missing"):
         native.build()
     assert not (tmp_path / "_build").exists()
+
+
+def _cultivar_fastas(tmp_path, seed):
+    """Three cultivars in FASTA files, one of two chromosomes, sharing
+    sequence, with N runs and lowercase bases."""
+    rng = np.random.default_rng(seed)
+    base = _random_bases(rng, 1500, lower=0.2, n_rate=0.01)
+    specs = {}
+    for c in range(3):
+        s = bytearray(base)
+        for p in rng.integers(0, 1500, 30):
+            s[p] = b"ACGT"[int(rng.integers(0, 4))]
+        paths = [tmp_path / f"c{c}.fa"]
+        recs = [(f"chr{c}", bytes(s))]
+        if c == 2:
+            paths.append(tmp_path / "c2b.fa")
+            recs.append(("chr2b", _random_bases(rng, 700)))
+        for path, (name, seq) in zip(paths, recs):
+            path.write_bytes(b">" + name.encode() + b"\n" + seq + b"\n")
+        specs[f"cult{c}"] = paths
+    return specs
+
+
+def _kmarkers_inputs(tmp_path, seed):
+    """(port (genome, index, chrom_cult, names), JAX the same) of the
+    cultivars' pseudo-genome, each through its own package."""
+    specs = _cultivar_fastas(tmp_path, seed)
+    pg, pcc, pnames = pkm.build_pseudogenome(specs)
+    jg, jcc, jnames = jkm.build_pseudogenome(specs)
+    return ((pg, psfx.SfxIndex.build(pg), pcc, pnames),
+            (jg, jsfx.SfxIndex.build(jg), jcc, jnames))
+
+
+def test_pseudogenome_and_bed_match(tmp_path):
+    specs = _cultivar_fastas(tmp_path, 41)
+    (pg, pcc, pn), (jg, jcc, jn) = (pkm.build_pseudogenome(specs),
+                                    jkm.build_pseudogenome(specs))
+    assert pn == jn == ["cult0", "cult1", "cult2"]
+    assert pg.names == jg.names and pg.names[-1] == "cult2.chr2b"
+    for key in ("starts", "lengths", "seq"):
+        np.testing.assert_array_equal(getattr(pg, key), getattr(jg, key))
+    np.testing.assert_array_equal(pcc, jcc)
+    assert pcc.dtype == jcc.dtype == np.int32
+    pkm.write_pseudogenome_bed(tmp_path / "p.bed", pg, pcc, pn)
+    jkm.write_pseudogenome_bed(tmp_path / "j.bed", jg, jcc, jn)
+    assert (tmp_path / "p.bed").read_bytes() == \
+        (tmp_path / "j.bed").read_bytes()
+
+
+def test_write_markers_fasta_matches(tmp_path):
+    rng = np.random.default_rng(43)
+    seqs = [rng.integers(0, 5, n).astype(np.uint8) for n in (50, 131, 71)]
+    pm = [pkm.Marker(f"c.chr{i}", 10 * i, len(s), s)
+          for i, s in enumerate(seqs)]
+    jm = [jkm.Marker(m.chrom, m.start, m.length, m.seq) for m in pm]
+    for prefix in ("Marker", "M"):
+        pkm.write_markers_fasta(tmp_path / "p.fa", pm, prefix)
+        jkm.write_markers_fasta(tmp_path / "j.fa", jm, prefix)
+        assert (tmp_path / "p.fa").read_bytes() == \
+            (tmp_path / "j.fa").read_bytes()
+
+
+@pytest.mark.parametrize("kmer_len,block", [(9, 1 << 18), (20, 1000)])
+def test_prefix_kmer_counts_and_antisense_match(lib, tmp_path, kmer_len,
+                                                block):
+    (pg, pi, pcc, pn), (jg, ji, jcc, jn) = _kmarkers_inputs(tmp_path, 47)
+    pr, pc = pkm.prefix_kmer_counts(pi, pcc, 3, kmer_len=kmer_len,
+                                    block=block)
+    jr, jc = jkm.prefix_kmer_counts(ji, jcc, 3, kmer_len=kmer_len,
+                                    block=block)
+    for a, b in ((pr, jr), (pc, jc)):
+        assert a.dtype == b.dtype
+        np.testing.assert_array_equal(a, b)
+    assert (pc.sum(1) > 1).any()
+    np.testing.assert_array_equal(
+        pkm.antisense_counts(pi, pr, pc, kmer_len),
+        jkm.antisense_counts(ji, jr, jc, kmer_len))
+    with pytest.raises(ValueError, match="K <= 31"):
+        pkm.antisense_counts(pi, pr, pc, 32)
+
+
+@pytest.mark.parametrize("kw", [dict(kmer_len=12), dict(kmer_len=16,
+                                min_cultivars=3, max_per_cultivar=1),
+                                dict(kmer_len=10, antisense=False)])
+def test_shared_prefix_markers_match(lib, tmp_path, kw):
+    (_, pi, pcc, _), (_, ji, jcc, _) = _kmarkers_inputs(tmp_path, 53)
+    got = pkm.shared_prefix_markers(pi, pcc, 3, **kw)
+    want = jkm.shared_prefix_markers(ji, jcc, 3, **kw)
+    assert len(got) == len(want) > 0
+    for (pc, pn), (jc, jn) in zip(got, want):
+        np.testing.assert_array_equal(pc, jc)
+        np.testing.assert_array_equal(pn, jn)
+
+
+@pytest.mark.parametrize("kw", [dict(prefix_len=10, suffix_len=4),
+                                dict(prefix_len=12, suffix_len=3,
+                                     min_cultivars=3, max_homozygotic=2),
+                                dict(prefix_len=9, suffix_len=5,
+                                     max_homozygotic=0, antisense=False)])
+def test_shared_prefix_suffix_markers_match(lib, tmp_path, kw):
+    (_, pi, pcc, _), (_, ji, jcc, _) = _kmarkers_inputs(tmp_path, 59)
+    got = pkm.shared_prefix_suffix_markers(pi, pcc, 3, **kw)
+    want = jkm.shared_prefix_suffix_markers(ji, jcc, 3, **kw)
+    assert len(got) == len(want) > 0
+    for (pc, pn), (jc, jn) in zip(got, want):
+        np.testing.assert_array_equal(pc, jc)
+        np.testing.assert_array_equal(pn, jn)

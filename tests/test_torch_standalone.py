@@ -2,9 +2,10 @@
 chip_smoke.py, imports the JAX package kit4b_tpu or jax. An `ast` scan of
 every file proves it line by line; subprocesses with both names blocked in
 `sys.modules` import every module of the port and run its CLI (`index`,
-`hammings`, `kalign`, all with `--device cpu`) on a small seeded genome.
-The index and kalign runs need the port's host library and skip without
-it. This file imports neither package either:
+`hammings` exhaustive and `-r`, `kalign`, `pseudogenome`, `kmarkers`,
+`prekmarkers`, with `--device cpu` where a command takes one) on a small
+seeded genome. The runs that build a suffix index need the port's host
+library and skip without it. This file imports neither package either:
 
     python -m pytest --noconftest tests/test_torch_standalone.py
 """
@@ -153,3 +154,48 @@ def test_cli_index_and_kalign_with_both_blocked(genome_fa, tmp_path,
     truth = sum(c[0].split("|")[2] == c[2] and
                 int(c[0].split("|")[3]) == int(c[3]) - 1 for c in body)
     assert truth == len(body)
+
+
+def test_cli_hammings_restricted_with_both_blocked(genome_fa, tmp_path,
+                                                  host_library):
+    out = tmp_path / "r.npy"
+    _run("from kit4b_tpu_torch import cli\n"
+         f"rc = cli.main(['hammings', '-i', {str(genome_fa)!r}, '-o', "
+         f"{str(out)!r}, '-K', '24', '-r', '2', '--device', 'cpu'])\n"
+         "assert rc == 0, rc\n"
+         "import numpy as np\n"
+         f"d = np.load({str(out)!r})\n"
+         "assert d.shape == (6002,) and int(d[:3977].max()) <= 3\n"
+         "assert (d[1000:1077] == 0).all() and (d[1100:3977] == 3).mean() "
+         "> 0.9\n", tmp_path)
+
+
+def test_cli_kmarkers_commands_with_both_blocked(genome_fa, tmp_path,
+                                                 host_library):
+    """chrA and chrB as two cultivars: pseudogenome, kmarkers and
+    prekmarkers; chrB's copy of chrA's bases 1000-1099 is no marker."""
+    a, b, pg, bed = (tmp_path / n for n in ("a.fa", "b.fa", "pg.fa",
+                                            "pg.bed"))
+    markers, pre = tmp_path / "m.fa", tmp_path / "p.csv"
+    _run("from kit4b_tpu_torch import cli\n"
+         "from kit4b_tpu_torch.io.fasta import read_seqs, write_fasta\n"
+         f"ra, rb = read_seqs({str(genome_fa)!r})\n"
+         f"write_fasta({str(a)!r}, [ra])\n"
+         f"write_fasta({str(b)!r}, [rb])\n"
+         f"c = ['A={a}', 'B={b}']\n"
+         f"assert cli.main(['pseudogenome', '-c', *c, '-o', {str(pg)!r}, "
+         f"'-B', {str(bed)!r}]) == 0\n"
+         f"assert cli.main(['kmarkers', '-c', *c, '-t', 'A', '-o', "
+         f"{str(markers)!r}, '-K', '30', '-m', '1', '--device', 'cpu']) == 0\n"
+         f"assert cli.main(['prekmarkers', '-c', *c, '-o', {str(pre)!r}, "
+         "'-K', '20']) == 0\n", tmp_path)
+    assert pg.read_text().split("\n")[0] == ">A.chrA"
+    assert bed.read_text().splitlines() == ["A.chrA\t0\t4000\tA\t0\t+",
+                                            "B.chrB\t0\t2000\tB\t0\t+"]
+    heads = [ln.split()[1].split("|") for ln in markers.read_text()
+             .splitlines() if ln.startswith(">")]
+    spans = [(int(s), int(s) + int(n)) for _, s, n in heads]
+    assert spans and all(c == "A.chrA" for c, _, _ in heads)
+    assert not any(s <= 1010 and 1090 <= e for s, e in spans)
+    rows = pre.read_text().splitlines()
+    assert rows[0] == '"KMer","A","B"' and len(rows) > 70
