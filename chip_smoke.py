@@ -108,9 +108,32 @@ result:
    4's 12.07 Mbp genome, 500 sampled A/C/G/T windows held to a direct
    on-card minimum over every window by the same rule. Prints the phases,
    K-mer rows/s and peak device memory.
+11. Paired-end kalign (plain PyTorch passes on the card). (a) The port on
+   the seeded workload of `kit4b_tpu_torch.tools.make_kalign_pe_golden`
+   (two chromosomes of 200 kbp in all with repeat families, a tandem array,
+   a duplicated block, a reverse-complemented copy and N runs; 2 x 100 and
+   2 x 150 pairs, -b 1024, pe modes 1 and 2) against the JAX package's
+   committed golden: tier-1 rows with and without tier 2, the pair rows
+   each escalation stage took, the PePair stream and the SAM and VCF
+   SHA-256, all equal. (b) BASELINE config #4 at full size through the
+   CLI: `make_chr21_like(40.0)` (seed 21) as FASTA, `index`, `simreads -p
+   -n 65536 -l 150 -j 250 -J 600 -e illumina -z 0.01 -N 1000 -S 9 -u` (SNPs
+   planted by the CLI at 0.001 with seed 9), `kalign -u -U 1 -d 200 -D 700
+   -b 16384 -S out.vcf`. Checks: >= 80 % of pairs accepted and >= 98 % of
+   their mates at the QNAME truth locus; the first two batches' PePair
+   streams equal on the card and the CPU; pinned and pageable uploads give
+   the same stream. Prints the CLI phases, reads/s, SNP sensitivity and
+   precision against the planted BED, pair rows by tier and stage, peak
+   device memory, the align run's wall with pageable and pinned uploads
+   (in turns: pageable, pinned, pinned, pageable),
+   its device busy share and device operations by `torch.profiler`, that a
+   warm pass with its uploads calls nothing that waits for the device
+   (`torch.cuda.set_sync_debug_mode("error")`), and the ms of one
+   `pe_pass_packed` on 16,384 resident pairs, one `deep_pe_pass_planes` at
+   E 4,096 and one `window_scan_pe` at R 16,384 (CUDA events, median of 5).
 
 Each kernel's launch counter is set to 0 just before its path (phases 4,
-6, 7) and read just after it; phases 8-10 run none of the three kernels.
+6, 7) and read just after it; phases 8-11 run none of the three kernels.
 The script prints its seconds before the kernels line. The
 line before the last is a JSON table of the kernels, each with its bound
 (the least time the card could take: int8 tensor operations for minmm
@@ -147,6 +170,8 @@ ECOLI_LEN, ECOLI_READS = 4_600_000, 100_000   # config #1, as bench.py
 ECOLI_BATCH, READ_LEN = 98_304, 100
 CONFIG3_LEN = 10_000_000   # bases of each config #3 cultivar
 KM_BATCH = 49_152          # the kmarkers CLI's tier-1 batch
+CONFIG4_MBP = 40.0         # config #4's chr21-like genome, Mbp
+PE_PAIRS, PE_LEN, PE_BATCH = 65_536, 150, 16_384   # its 2 x 150 pairs
 INT8_PEAK = 1979e12    # H100 SXM dense int8 tensor operations per second
 HBM_RATE = 3.35e12     # H100 SXM device memory bytes per second
 WIDE_K = (51, 153)     # Cw 256 and 768, the widths past the main path's 128
@@ -1022,6 +1047,275 @@ def restricted_full(torch, dev, card, tmp: Path, chroms, seq, Gp):
                              f": {got[bad[:5]]} vs {want[bad[:5]]}")
 
 
+def pe_golden(torch, dev):
+    """Phase 11a: paired-end kalign against the JAX package's golden."""
+    from kit4b_tpu_torch.tools import make_kalign_pe_golden as mg
+    gold = np.load(mg.GOLDEN)
+    g, idx, reads = mg.workload()
+    if mg.inputs_sha256(g, reads) != str(gold["inputs_sha256"]):
+        raise AssertionError("the PE golden workload rebuilt here differs "
+                             "from the one the golden was made from")
+    t0 = time.perf_counter()
+    out = mg.compute(mg.port_fns(dev), g, idx, reads)
+    wall = time.perf_counter() - t0
+    bad = [k for k in gold.files
+           if k != "inputs_sha256" and not np.array_equal(out[k], gold[k])]
+    stages = {f"{L} bp, -U {m}": dict(zip(mg.STAGE_KEYS,
+                                          out[f"stages_{L}_{m}"].tolist()))
+              for L in mg.READS for m in mg.MODES}
+    print(f"PE golden ({wall} s; pairs {dict(mg.READS)}, -b {mg.BATCH}): "
+          f"pair rows by stage {stages}; differs from the JAX golden in "
+          f"{bad or 'nothing'} (tier-1 rows, stage counts, PePair stream, "
+          f"SAM and VCF SHA-256)")
+    if bad or mg.check_reach(out):
+        raise AssertionError(f"PE kalign differs from the JAX golden in "
+                             f"{bad}; reach {mg.check_reach(out)}")
+
+
+def _profiled(torch, fn):
+    """(wall s, device busy s or None, device operations) of fn() under
+    torch.profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    device = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in device) / 1e6
+    return wall, busy or None, sum(e.count for e in device)
+
+
+def _vcf_calls(path: Path):
+    """{(chrom, 0-based locus): first ALT code} of a VCF."""
+    calls = {}
+    for line in path.read_text().splitlines():
+        if line.startswith("#"):
+            continue
+        c = line.split("\t")
+        calls[c[0], int(c[1]) - 1] = "ACGT".find(c[4][0])
+    return calls
+
+
+def pe_full(torch, dev, card, tmp: Path):
+    """Phase 11b: BASELINE config #4 at full size through the port's CLI
+    (index, simreads -p, kalign -u), then its passes timed."""
+    from kit4b_tpu_torch import cli
+    from kit4b_tpu_torch.align import kalign, pe
+    from kit4b_tpu_torch.index.sfx_index import SfxIndex
+    from kit4b_tpu_torch.io.fasta import read_seqs
+    from kit4b_tpu_torch.ops import pe_packed, seed_extend_fast
+    from kit4b_tpu_torch.ops.seed_extend_deep import deep_pe_pass_planes
+    from kit4b_tpu_torch.sim import simreads
+    from kit4b_tpu_torch.tools.config4 import make_chr21_like
+    t0 = time.perf_counter()
+    seq, n = make_chr21_like(CONFIG4_MBP)
+    fa, kix = tmp / "chr21s.fa", tmp / "chr21s.kix"
+    write_fasta(fa, ["chr21s"], [seq[:n]])
+    r1, r2, bed = tmp / "r1.fa", tmp / "r2.fa", tmp / "snps.bed"
+    sam, vcf = tmp / "pe.sam", tmp / "pe.vcf"
+    print(f"config #4 genome (make_chr21_like({CONFIG4_MBP}), seed 21, "
+          f"{n} bp, {int((seq == 4).sum())} N) written: "
+          f"{time.perf_counter() - t0} s")
+    phases = _PhaseLog()
+    logging.getLogger("kit4b_tpu_torch").addHandler(phases)
+    walls = {}
+    for name, argv in (
+            ("index", ["index", "-i", str(fa), "-o", str(kix)]),
+            ("simreads", ["simreads", "-i", str(fa), "-o", str(r1), "-O",
+                          str(r2), "-p", "-n", str(PE_PAIRS), "-l",
+                          str(PE_LEN), "-j", "250", "-J", "600", "-e",
+                          "illumina", "-z", "0.01", "-N", "1000", "-u",
+                          str(bed), "-S", "9"]),
+            ("kalign", ["kalign", "-i", str(r1), "-I", str(kix), "-o",
+                        str(sam), "-u", str(r2), "-U", "1", "-d", "200",
+                        "-D", "700", "-b", str(PE_BATCH), "-S", str(vcf)])):
+        if name == "kalign":
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        rc = cli.main(argv)
+        walls[name] = time.perf_counter() - t0
+        if rc != 0:
+            raise AssertionError(f"CLI {name} exited {rc}")
+        if name == "kalign":
+            peak = torch.cuda.max_memory_allocated()
+        else:
+            print(f"CLI {name}: {walls[name]} s, phases {phases.seconds}")
+    logging.getLogger("kit4b_tpu_torch").removeHandler(phases)
+    align = phases.seconds["align"]
+    print(f"CLI kalign -u -U 1 -d 200 -D 700 -b {PE_BATCH} -S on {card}: "
+          f"wall {walls['kalign']} s, phases {phases.seconds}; "
+          f"{2 * PE_PAIRS / align} reads/s in the align phase, "
+          f"{2 * PE_PAIRS / walls['kalign']} reads/s of the wall; pairs "
+          f"{phases.pe_stats}; pair rows by stage {phases.pe_stages}; peak "
+          f"device memory {peak} bytes")
+
+    # the SAM against the reads' truth, the VCF against the planted SNPs
+    qn, flag, rname, pos, _, _ = _sam_body(sam)
+    proper = (flag & 2) != 0
+    at_truth = 0
+    for i in np.nonzero(proper)[0]:
+        t = simreads.parse_truth(qn[i])
+        at_truth += rname[i] == t["chrom"] and pos[i] - 1 == t["start"]
+    truth = {}
+    for line in bed.read_text().splitlines():
+        c = line.split("\t")
+        truth[c[0], int(c[1])] = "ACGT".index(c[3][2])
+    calls = _vcf_calls(vcf)
+    hit = sum(truth.get(k) == a for k, a in calls.items())
+    n_acc = phases.pe_stats["accepted"]
+    print(f"SAM check: {len(qn)} records, {int(proper.sum())} mates of "
+          f"{n_acc} accepted pairs, {at_truth / max(int(proper.sum()), 1)} "
+          f"of them at their truth locus; SNPs: {len(truth)} planted, "
+          f"{len(calls)} called, {hit} true: sensitivity "
+          f"{hit / max(len(truth), 1)}, precision {hit / max(len(calls), 1)}")
+    if n_acc < 0.8 * PE_PAIRS or at_truth < 0.98 * int(proper.sum()):
+        raise AssertionError(f"{n_acc} pairs accepted, {at_truth} of "
+                             f"{int(proper.sum())} mates at their truth")
+
+    idx = SfxIndex.load(kix)
+    recs1, recs2 = list(read_seqs(r1)), list(read_seqs(r2))
+    c1 = np.stack([r.codes for r in recs1])
+    c2 = np.stack([r.codes for r in recs2])
+    names = [r.name for r in recs1]
+
+    def pal_on(d):
+        return pe.PeAligner(kalign.KAligner(idx, batch_size=PE_BATCH,
+                                            device=d),
+                            pair_min_len=200, pair_max_len=700, pe_mode=1)
+
+    def keys(stream):
+        return [(a.name, b.name, pp.nar,
+                 *((r.strand, r.pos, r.mm) if r else () for r in
+                   (pp.r1, pp.r2)), pp.tlen, pp.rescued)
+                for a, b, pp in stream]
+
+    # the first two batches (one superbatch group) on the card and the CPU
+    n2 = 2 * PE_BATCH
+    got = []
+    for d in (dev, torch.device("cpu")):
+        t0 = time.perf_counter()
+        got.append(keys(pal_on(d).align_pairs_arrays(c1[:n2], c2[:n2],
+                                                     names[:n2])))
+        print(f"first {n2} pairs on {d}: {time.perf_counter() - t0} s")
+    if got[0] != got[1]:
+        bad = next(i for i, (a, b) in enumerate(zip(*got)) if a != b)
+        raise AssertionError(f"card and CPU differ at pair {bad}: "
+                             f"{got[0][bad]} vs {got[1][bad]}")
+    print(f"their PePair streams equal on card and CPU: True "
+          f"({sum(k[2] == 'accepted' for k in got[0])} accepted)")
+
+    # pinned against pageable uploads in turns, then the align phase
+    # profiled
+    def run(pal):
+        return keys(pal.align_pairs_arrays(c1, c2, names))
+    pinned_upload = pe._upload
+
+    def pageable_upload(a, d):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(d)
+    secs = {"pageable": [], "pinned": []}
+    streams = []
+    try:
+        for kind in ("pageable", "pinned", "pinned", "pageable"):
+            pe._upload = pinned_upload if kind == "pinned" else \
+                pageable_upload
+            t0 = time.perf_counter()
+            streams.append(run(pal_on(dev)))
+            secs[kind].append(time.perf_counter() - t0)
+    finally:
+        pe._upload = pinned_upload
+    pal = pal_on(dev)
+    wall, busy, n_ops = _profiled(torch, lambda: run(pal))
+    n_batches = -(-PE_PAIRS // PE_BATCH)
+    same = all(s == streams[0] for s in streams)
+    print(f"align_pairs on all {PE_PAIRS} pairs on {card}, in turns "
+          f"pageable, pinned, pinned, pageable: pageable uploads "
+          f"{secs['pageable']} s, pinned non-blocking uploads "
+          f"{secs['pinned']} s (streams equal: {same}); under "
+          f"torch.profiler wall {wall} s, "
+          + (f"device busy {busy} s ({busy / wall} of the wall), "
+             if busy else "device busy not measured (the profiler showed "
+                          "no device time), ")
+          + f"{n_ops} device operations ({n_ops / n_batches} a batch)")
+    if not same:
+        raise AssertionError("pinned uploads changed the output")
+
+    # the three passes timed on the first batch's resident data
+    al = pal.al
+    ctx = pal._pctx
+    L = PE_LEN
+    a1, a2 = c1[:PE_BATCH], c2[:PE_BATCH]
+    up = [pe._upload(x, dev) for a in (a1, a2)
+          for x in kalign.pack_reads_2bit(a)]
+    kw = dict(genome_len=len(idx.genome.seq), offsets=ctx["offsets"],
+              lut_k=idx.lut_k, read_len=L, n_compact=al.n_compact,
+              n_extend=al.n_extend, max_ml=al.max_ml, max_tot=ctx["max_tot"],
+              mm_delta=al.mm_delta, min_ins=200, max_ins=700)
+    args = (ctx["gview"], ctx["sa"], ctx["lut2"], ctx["starts_d"])
+
+    def tier1(tier2):
+        return pe_packed.pe_pass_packed(*args, *up, tier2=tier2, tier3=None,
+                                        **kw)
+    t2 = (min(PE_BATCH, pal.tier2[0]),) + pal.tier2[1:]
+    n_t2 = n_past = 0
+    for b0 in range(0, PE_PAIRS, PE_BATCH):     # tier counts of every batch
+        ub = [pe._upload(x, dev) for a in (c1[b0:b0 + PE_BATCH],
+                                           c2[b0:b0 + PE_BATCH])
+              for x in kalign.pack_reads_2bit(a)]
+        for tier, cnt in ((None, "t1"), (t2, "t2")):
+            rows = pe_packed.unpack_rows12(pe_packed.pe_pass_packed(
+                *args, *ub, tier2=tier, tier3=None, **kw).cpu().numpy())
+            k = int((rows[:, 5] == pe_packed.PAIR_OVERFLOW).sum())
+            n_t2 += k if cnt == "t1" else 0
+            n_past += k if cnt == "t2" else 0
+    print(f"pair rows by tier over the {n_batches} batches: tier 1 "
+          f"{PE_PAIRS}, to tier 2 {n_t2}, past tier 2 {n_past}")
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        tier1(t2)
+        up2 = [pe._upload(x, dev) for x in kalign.pack_reads_2bit(a1)]
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    del up2
+    print("pe_pass_packed and its pinned uploads, once warm, under "
+          "torch.cuda.set_sync_debug_mode('error'): no call waited for the "
+          "device")
+    ms_pass = sorted(_time_ms(torch, lambda: tier1(t2)) for _ in range(5))
+    from kit4b_tpu_torch.ops.seed_extend_v4 import words_from_2bit
+    planes = (words_from_2bit(up[0], up[1], L),
+              words_from_2bit(up[2], up[3], L))
+    rows = pe_packed.unpack_rows12(tier1(t2).cpu().numpy())
+    ovf = np.nonzero(rows[:, 5] == pe_packed.PAIR_OVERFLOW)[0]
+    rng = np.random.default_rng(SEED + 11)
+    sel = np.concatenate([ovf, rng.integers(0, PE_BATCH, 4096)])[:4096]
+    idxs = torch.from_numpy(sel.astype(np.int32)).to(dev)
+    dkw = pal._deep_kw()
+    deep_ms = {}
+    for d1, d2 in ((True, False), (True, True)):
+        deep_ms[d1, d2] = sorted(_time_ms(torch, lambda: deep_pe_pass_planes(
+            *args, *planes, idxs, deep1=d1, deep2=d2, **dkw))
+            for _ in range(5))
+    R = PE_BATCH
+    win = [torch.from_numpy(a.astype(np.int32)).to(dev) for a in (
+        rng.integers(0, PE_BATCH, R), rng.integers(1, 3, R),
+        rng.integers(0, 2, R), rng.integers(0, n - 1000, R))]
+    scan = sorted(_time_ms(torch, lambda: seed_extend_fast.window_scan_pe(
+        ctx["gview"], *planes, *win, genome_len=len(idx.genome.seq),
+        scan_len=700 - 200 + 1, read_len=L)) for _ in range(5))
+    print(f"passes on {card} (CUDA events, median of 5): pe_pass_packed on "
+          f"{PE_BATCH} resident pairs {ms_pass[2]} ms {ms_pass} "
+          f"({len(ovf)} rows past its tier 2); deep_pe_pass_planes at E "
+          f"4096, budget {pal._DEEP_BLOCKS} rarest {pal._DEEP_N_SEL}: deep "
+          f"mate 1 {deep_ms[True, False][2]} ms {deep_ms[True, False]}, "
+          f"both mates {deep_ms[True, True][2]} ms {deep_ms[True, True]}; "
+          f"window_scan_pe at R {R}, 501 positions {scan[2]} ms {scan}")
+
+
 def minmm_cases(torch, cases, minmm, minmm_plain) -> int:
     """Phase 2: the min-match kernel against its plain version, bit for
     bit, on (label, own rows, partner, diag, span_lo, span_cnt, row_base)
@@ -1052,19 +1346,23 @@ def reset_launches() -> None:
 
 class _PhaseLog(logging.Handler):
     """Keeps the unrounded seconds of the CLI's PhaseTimer phases,
-    kalign's class counts and tier-1 pass by read length, and kmarkers'
-    positions by tier."""
+    kalign's class counts and tier-1 pass by read length, paired-end
+    kalign's pair counts and pair rows by stage, and kmarkers' positions by
+    tier."""
 
     def __init__(self):
         super().__init__()
         self.seconds = {}
         self.stats = self.tier1 = self.tiers = None
+        self.pe_stats = self.pe_stages = None
 
     def emit(self, record):
         if record.msg == "phase %s: %.2fs":
             self.seconds[record.args[0]] = record.args[1]
         elif str(record.msg).startswith("kalign: %d reads"):
             self.stats, self.tier1 = record.args[1], record.args[2]
+        elif str(record.msg).startswith("kalign PE: %s"):
+            self.pe_stats, self.pe_stages = record.args[0], record.args[1]
         elif str(record.msg).startswith("kmarkers: positions by tier"):
             self.tiers = record.args[0]
 
@@ -1310,6 +1608,11 @@ def main() -> int:
     restricted_chr4(torch, dev, chr4, chr4_min, card)
     with tempfile.TemporaryDirectory(prefix=".chip_smoke_", dir=root) as tmp:
         restricted_full(torch, dev, card, Path(tmp), chroms, seq, Gp)
+
+    # --- 11. paired-end kalign: the JAX golden, config #4 at full size --
+    pe_golden(torch, dev)
+    with tempfile.TemporaryDirectory(prefix=".chip_smoke_", dir=root) as tmp:
+        pe_full(torch, dev, card, Path(tmp))
     if "jax" in sys.modules or "kit4b_tpu" in sys.modules:
         raise AssertionError("jax or the JAX package kit4b_tpu was imported")
 

@@ -21,8 +21,9 @@ Not ported (ROADMAP queue A): the full-stats tier 1 `fast_pass_v3` and the
 microInDel, splice and chimeric rescues that need its hit lists (item 12),
 the `fast_pass_compact_v3` / `fast_pass_compact` branches for genomes with
 2*G+1 >= 2^31 or more than 2^31 clean suffixes (item 12), `align_batch`'s
-raw hit lists for PE (item 13), and `filter_alignments` and BAM output
-(item 20).
+raw hit lists, which paired ends of unequal length need (item 12), and
+`filter_alignments` and BAM output (item 20). Paired ends are
+`align.pe`.
 """
 from __future__ import annotations
 
@@ -146,6 +147,18 @@ def build_pass_schedule(read_len: int, max_subs_per100: int, mm_delta: int,
 # the SAM writer's class counts, in the order of the nar codes 0-3:
 # accepted, no hit, multialign, excess Ns
 NAR_NAMES = ("accepted", "nohit", "multi", "ns")
+NAR_ACCEPTED = NAR_NAMES[0]
+
+
+@dataclass
+class AlignResult:
+    """One read's placement: the fields of kit4b_tpu's AlignResult that
+    the paired-end path sets."""
+    nar: str
+    strand: int = 0        # 0 = '+', 1 = '-'
+    pos: int = -1          # concatenated-genome start
+    mm: int = -1
+    n_low: int = 0
 
 
 class KAligner:

@@ -1,9 +1,10 @@
 """Command-line entry of the PyTorch/CUDA port: `python -m kit4b_tpu_torch`.
 
-Port of kit4b_tpu/cli.py with the `index`, `kalign`, `hammings`,
-`pseudogenome`, `kmarkers` and `prekmarkers` subcommands, taking the same
-flags and writing the same files, plus `--device {cuda,cpu}` on the
-commands that use a device (`kalign`, `hammings`, `kmarkers`). The
+Port of kit4b_tpu/cli.py with the `index`, `simreads`, `kalign` (single
+and paired ends), `hammings`, `pseudogenome`, `kmarkers` and `prekmarkers`
+subcommands, taking the same flags and writing the same files, plus
+`--device {cuda,cpu}` on the commands that use a device (`kalign`,
+`hammings`, `kmarkers`). The
 parsers are copies, as is all the port needs of the JAX package: it
 imports none of it. Flags of paths not ported yet parse as in kit4b_tpu and raise
 NotImplementedError naming their ROADMAP item.
@@ -60,7 +61,6 @@ def cmd_index(args) -> int:
 # kalign flags of paths not ported yet, each off by default:
 # dest -> (flag, ROADMAP queue A item)
 _KALIGN_UNPORTED = {
-    "pairfile": ("-u (paired ends)", 13), "pemode": ("-U", 13),
     "microindellen": ("-y", 12), "splicemax": ("-l", 12),
     "chimeric": ("-C", 12), "mlmode": ("--mlmode", 20),
     "bisulfite": ("--bisulfite", 17), "csindex": ("--csindex (BAM)", 20),
@@ -74,9 +74,56 @@ _KALIGN_UNPORTED = {
 }
 
 
+def cmd_simreads(args) -> int:
+    """ngskit4b simreads equivalent (libkit4b/SimReads.cpp: GenSimReads
+    :1805, SimSeqErrors :272, SimInDels :137, SimArtefacts :174,
+    SimulateSNPs :1222; flags ngskit4b/SimReads.cpp:149-200). Host only."""
+    from .sim import simreads
+    g = Genome.load(args.infile)
+    regions = None
+    if args.featfile:
+        from .io.bed import BedFile
+        bed = BedFile.load(args.featfile)
+        regions = [(f.chrom, f.start, f.end) for f in bed.features]
+    if args.snprate:
+        g, snp_truth = simreads.simulate_snps(
+            g, rate=args.snprate / 1e6, seed=args.seed)
+        if args.outsnp:
+            simreads.write_snp_bed(args.outsnp, snp_truth)
+    params = simreads.SimParams(
+        n_reads=args.nreads, read_len=args.length,
+        pe=args.pe is not None,
+        pe_insert_min=args.insertmin, pe_insert_max=args.insertmax,
+        error_mode=args.errmode, subs_rate=args.subsrate,
+        uniform_profile=args.seqerrprofile,
+        strand=("watson" if args.strand == "+" else "both"),
+        seed=args.seed,
+        indel_rate=args.indelrate, indel_size=args.indelsize,
+        artef5_rate=args.artif5rate, artef3_rate=args.artif3rate,
+        artef5_seqs=tuple(args.artif5str) if args.artif5str
+        else (simreads.DEFAULT_ARTEF5,),
+        artef3_seqs=tuple(args.artif3str) if args.artif3str
+        else (simreads.DEFAULT_ARTEF3,),
+        rand_reads=args.randreads, regions=regions,
+        dedupe=args.dedupe)
+    out = simreads.sim_reads(g, params)
+    fmt = "fastq" if args.fastq else "fasta"
+    if params.pe:
+        r1, r2 = out
+        simreads.write_reads(args.outfile, r1, fmt)
+        simreads.write_reads(args.outpe, r2, fmt)
+        print(f"simreads: wrote {len(r1)} pairs")
+    else:
+        simreads.write_reads(args.outfile, out, fmt)
+        print(f"simreads: wrote {len(out)} reads")
+    return 0
+
+
 def cmd_kalign(args) -> int:
-    """ngskit4b kalign equivalent (KAlignerCL.cpp / KAligner.cpp): SE,
-    substitutions only, SAM through the native formatter."""
+    """ngskit4b kalign equivalent (KAlignerCL.cpp / KAligner.cpp):
+    substitutions only, single ends, or paired ends with -u (pairing, the
+    deep tier and the insert-window rescue, align.pe), SAM through the
+    native formatters."""
     from .align import kalign
     for dest, (flag, item) in _KALIGN_UNPORTED.items():
         if getattr(args, dest):
@@ -104,16 +151,32 @@ def cmd_kalign(args) -> int:
         for path in paths:
             yield from read_seqs(path)
 
-    src = args.infile[0] if len(args.infile) == 1 else stream(args.infile)
-    with t.phase("align"):
-        stats = kalign.write_sam_fast(
-            args.outfile, idx, al, src, cmdline=" ".join(sys.argv),
-            emit_unmapped=(args.format == 1), snp_caller=caller,
-            stats_path=args.statsfile)
-    log.info("kalign: %d reads, %s; tier 1 by read length %s on %s",
-             sum(stats.values()), stats,
-             {L: "v5" if v5 else "v4"
-              for L, v5 in al._lut4_decided.items()}, device)
+    if args.pairfile:  # paired-end mode (-U/-u/-d/-D)
+        from .align import pe
+        pal = pe.PeAligner(al, pair_min_len=args.pairminlen,
+                           pair_max_len=args.pairmaxlen,
+                           pe_mode=args.pemode or 2)
+        with t.phase("align"):
+            stats = pal.write_sam_fast(
+                args.outfile,
+                pal.align_pairs(list(stream(args.infile)),
+                                list(stream(args.pairfile))),
+                cmdline=" ".join(sys.argv),
+                emit_unmapped=(args.format == 1), snp_caller=caller)
+        log.info("kalign PE: %s; pair rows by stage %s on %s", stats,
+                 pal.stage_rows, device)
+    else:
+        src = args.infile[0] if len(args.infile) == 1 \
+            else stream(args.infile)
+        with t.phase("align"):
+            stats = kalign.write_sam_fast(
+                args.outfile, idx, al, src, cmdline=" ".join(sys.argv),
+                emit_unmapped=(args.format == 1), snp_caller=caller,
+                stats_path=args.statsfile)
+        log.info("kalign: %d reads, %s; tier 1 by read length %s on %s",
+                 sum(stats.values()), stats,
+                 {L: "v5" if v5 else "v4"
+                  for L, v5 in al._lut4_decided.items()}, device)
     if caller is not None:
         with t.phase("snp call"):
             calls = caller.call()
@@ -332,9 +395,10 @@ def _kalign_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("-b", "--batchsize", type=int, default=16384)
     p.add_argument("-T", "--threads", type=int, default=0)
     p.add_argument("-u", "--pair", dest="pairfile", nargs="+", default=None,
-                   help="PE mate-2 input files (not ported yet)")
+                   help="PE mate-2 input files")
     p.add_argument("-U", "--pemode", type=int, default=0,
-                   help="PE mode (not ported yet)")
+                   help="0 none, 1 PE w/ orphan recovery, 2 PE no recovery, "
+                        "3/4 as 1/2 but orphans processed as SE")
     p.add_argument("-d", "--pairminlen", type=int, default=100)
     p.add_argument("-D", "--pairmaxlen", type=int, default=1000)
     p.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
@@ -357,6 +421,53 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-T", "--threads", type=int, default=0)
     _common(p)
     p.set_defaults(fn=cmd_index)
+
+    p = sub.add_parser("simreads", help="generate simulated readsets")
+    p.add_argument("-i", "--in", dest="infile", required=True)
+    p.add_argument("-o", "--out", dest="outfile", required=True)
+    p.add_argument("-O", "--outpe", dest="outpe", default=None)
+    p.add_argument("-n", "--nreads", type=int, default=10000)
+    p.add_argument("-l", "--length", type=int, default=100)
+    p.add_argument("-p", "--pe", dest="pe", action="store_const", const=True,
+                   default=None, help="generate paired ends")
+    p.add_argument("-j", "--insertmin", type=int, default=200)
+    p.add_argument("-J", "--insertmax", type=int, default=500)
+    p.add_argument("-e", "--errmode", default="none",
+                   choices=["none", "uniform", "illumina", "static",
+                            "fixed"],
+                   help="sequencer error mode (-g generrmode: illumina = "
+                        "dynamic composite, static = Poisson(1) profile)")
+    p.add_argument("-z", "--subsrate", type=float, default=0.01)
+    p.add_argument("-Z", "--seqerrprofile", action="store_true",
+                   help="uniform error positions (default Illumina "
+                        "3'-skewed)")
+    p.add_argument("-x", "--indelsize", type=int, default=3,
+                   help="micro-InDel max size 1..9 (SimReads.cpp:137)")
+    p.add_argument("-X", "--indelrate", type=float, default=0.0,
+                   help="fraction of reads with a micro-InDel")
+    p.add_argument("-a", "--artif5rate", type=float, default=0.0,
+                   help="5' adapter artefact rate (SimReads.cpp:174)")
+    p.add_argument("-A", "--artif5str", nargs="+", default=None,
+                   help="5' artefact sequence(s)")
+    p.add_argument("-b", "--artif3rate", type=float, default=0.0,
+                   help="3' adapter artefact rate")
+    p.add_argument("--artif3str", nargs="+", default=None,
+                   help="3' artefact sequence(s)")
+    p.add_argument("-R", "--randreads", type=float, default=0.0,
+                   help="proportion of random unalignable (lcr) reads")
+    p.add_argument("-N", "--snprate", type=int, default=0,
+                   help="plant SNPs at this rate per Mbp")
+    p.add_argument("-u", "--outsnp", default=None,
+                   help="write truth SNP loci BED")
+    p.add_argument("-t", "--featfile", default=None,
+                   help="restrict fragments to features in this BED")
+    p.add_argument("-d", "--dedupe", action="store_true",
+                   help="generate unique read sequences only")
+    p.add_argument("-s", "--strand", default="both", choices=["both", "+"])
+    p.add_argument("-Q", "--fastq", action="store_true")
+    p.add_argument("-S", "--seed", type=int, default=1)
+    _common(p)
+    p.set_defaults(fn=cmd_simreads)
 
     p = sub.add_parser("kalign", help="align reads to indexed genome")
     _kalign_args(p)

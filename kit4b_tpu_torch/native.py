@@ -13,8 +13,9 @@ anew instead of loading code that CPU may not run. Nothing is written into
 
 Every symbol the port calls is declared in SIGNATURES, one by one: the
 SA-IS and counting-sort builds of the index (`sais_u8_i32`, `sais_u8_i64`,
-`bucket_index`), and the 2-bit read packing and bulk SAM formatter of the
-kalign path (`pack2bit_u8`, `format_sam_se`). A missing compiler or
+`bucket_index`), and the 2-bit read packing and bulk SAM formatters of the
+kalign path (`pack2bit_u8`, `format_sam_se`, and `format_sam_pe` for
+paired ends). A missing compiler or
 source, a failed build or a missing symbol raises `NativeUnavailable`:
 neither path has a numpy fallback.
 """
@@ -59,6 +60,14 @@ SIGNATURES = {
                        _i32p, _i32p, _i64p, _i32p, _i32p, _u8p, _u8p,
                        ctypes.c_int64, ctypes.c_int64, ctypes.c_char_p,
                        ctypes.c_int64]),
+    # (qnames, qname offsets, chrom names, chrom offsets, flag, chrom
+    # index, 1-based pos, mapq, rnext, pnext, tlen, NM, seq, qual, n, L,
+    # out, cap) -> bytes written, or -1 when cap is too small
+    "format_sam_pe": (ctypes.c_int64,
+                      [ctypes.c_char_p, _i64p, ctypes.c_char_p, _i64p,
+                       _i32p, _i32p, _i64p, _i32p, _i32p, _i64p, _i64p,
+                       _i32p, _u8p, _u8p, ctypes.c_int64, ctypes.c_int64,
+                       ctypes.c_char_p, ctypes.c_int64]),
 }
 
 

@@ -81,8 +81,8 @@ def _drop_index(idx: torch.Tensor, n: int) -> torch.Tensor:
 
 def scatter_set_drop(dst: torch.Tensor, idx: torch.Tensor,
                      vals: torch.Tensor) -> torch.Tensor:
-    """`dst.at[idx].set(vals, mode="drop")` for a 1-D dst whose in-range
-    targets are distinct; returns a new tensor."""
+    """`dst.at[idx].set(vals, mode="drop")` along dim 0 (rows of a 2-D
+    dst) for distinct in-range targets; returns a new tensor."""
     n = dst.shape[0]
     ext = torch.cat([dst, dst[:1]])
     ext[_drop_index(idx, n)] = vals.to(dst.dtype)
@@ -99,5 +99,7 @@ def scatter_add_drop_2d(dst: torch.Tensor, i0: torch.Tensor, i1: torch.Tensor,
     flat = torch.where((a < n0) & (b < n1), a * n1 + b,
                        torch.full_like(a, n0 * n1))
     ext = torch.cat([dst.reshape(-1), dst.new_zeros(1)])
-    ext.index_put_((flat,), vals.to(dst.dtype), accumulate=True)
+    # scatter_add_, not index_put_(accumulate=True): on CUDA the latter
+    # sorts its indices and may wait for the device
+    ext.scatter_add_(0, flat, vals.to(dst.dtype))
     return ext[:n0 * n1].reshape(n0, n1)

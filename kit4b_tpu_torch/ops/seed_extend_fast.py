@@ -2,7 +2,8 @@
 tiers of kalign.
 
 Port of kit4b_tpu/ops/seed_extend_fast.py (`fast_candidates`,
-`finalize_fast`, `fast_pass`) for both strands of plain DNA reads, plus its
+`finalize_fast`, `fast_pass`) for both strands of plain DNA reads, the
+paired-end orphan rescue scan (`window_scan_pe`, `_phase_scan`), plus its
 host helpers (`fast_offsets`, `_tail_mask`, `_window_masks`),
 which are re-homed here because the JAX module imports jax at module top.
 32-bit words ride the int64 carrier of `ops.bits`; counts, positions and
@@ -10,17 +11,20 @@ ids are int32 as in JAX. Bit-identical to the JAX pass on the same inputs
 (tests/test_torch_kalign_passes.py).
 
 The constant tensors of a shape (seed offsets, digit weights, tail and
-window masks) are built on the device once (`_shape_constants`), so a pass
-copies nothing from host memory: such a copy would wait for the stream,
+window masks) are built on the device once (`_shape_constants`, which the
+v4/v5 cores, the deep pass and `words_from_2bit` share), so a pass copies
+nothing from host memory: such a copy would wait for the stream,
 and callers keep several batches in flight.
 
 Not ported: `single_strand`, `lut_base` and `digit_map` (the bisulfite
-caller, ROADMAP queue A item 17), `fast_pass_compact` and the window scans
-(PE, item 13).
+caller, ROADMAP queue A item 17), `fast_pass_compact` and the host-probe
+window scans `window_scan` and `window_scan_packed`, which the paired-end
+path reaches only for mates of unequal length (item 12).
 """
 from __future__ import annotations
 
 import functools
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -90,21 +94,32 @@ def _window_masks(offsets: tuple, lut_k: int, nw: int) -> np.ndarray:
     return out
 
 
+class ShapeConstants(NamedTuple):
+    """The constant tensors of one pass shape, on the pass's device."""
+    offs: torch.Tensor     # [W, k] int64 seed base offsets
+    powb: torch.Tensor     # [k] int32 digit weights
+    off_w: torch.Tensor    # [W] int32 window offsets
+    tmask: torch.Tensor    # [nw] tail mask, flag bit of each base
+    wmask: torch.Tensor    # [W, nw] window masks
+    tail2: torch.Tensor    # [nw] tail mask, both bits of each base
+
+
 @functools.lru_cache(maxsize=64)
 def _shape_constants(offsets: tuple, lut_k: int, read_len: int,
-                     device: torch.device):
-    """(seed base offsets [W, k] int64, digit weights [k] int32, window
-    offsets [W] int32, tail mask [nw], window masks [W, nw]) of one pass
-    shape, on `device`."""
+                     device: torch.device) -> ShapeConstants:
+    """The ShapeConstants of (offsets, lut_k, read_len) on `device`, built
+    once; offsets () and lut_k 0 give a read length's tail masks alone."""
     nw = (read_len + 15) // 16
     offs = (torch.tensor(offsets, dtype=torch.int64)[:, None]
             + torch.arange(lut_k)[None, :])
     powb = torch.tensor([4 ** e for e in range(lut_k - 1, -1, -1)],
                         dtype=torch.int32)
     off_w = torch.tensor(offsets, dtype=torch.int32)
-    tmask = to_words(_tail_mask(read_len, nw))
-    wmask = to_words(_window_masks(offsets, lut_k, nw))
-    return tuple(t.to(device) for t in (offs, powb, off_w, tmask, wmask))
+    tm = _tail_mask(read_len, nw)
+    wmask = _window_masks(offsets, lut_k, nw)
+    return ShapeConstants(*(t.to(device) for t in (
+        offs, powb, off_w, to_words(tm), to_words(wmask),
+        to_words(tm | (tm << 1)))))
 
 
 def revcomp_device(reads: torch.Tensor) -> torch.Tensor:
@@ -137,7 +152,7 @@ def fast_candidates(gview: torch.Tensor,   # [Gv, 2*nw2] genome context rows
     Gv = gview.shape[0]
     seqs = torch.stack([reads, revcomp_device(reads)], dim=1)   # [B,2,L]
     D = 2 * W
-    offs, powb, off_w, tmask, wmask = _shape_constants(
+    offs, powb, off_w, tmask, wmask, _ = _shape_constants(
         tuple(offsets), k, L, dev)
 
     # --- seed lookup: bucket (lo, cnt) per (strand, window) ----------------
@@ -259,3 +274,84 @@ def fast_pass(gview: torch.Tensor, sa: torch.Tensor, lut: torch.Tensor,
     out = finalize_fast(ids, mm, max_ml=max_ml)
     out["overflow"] = overflow
     return out
+
+
+def window_scan_pe(gview: torch.Tensor, planes1, planes2,
+                   idxs: torch.Tensor, which: torch.Tensor,
+                   want_strand: torch.Tensor, starts: torch.Tensor,
+                   *, genome_len: int, scan_len: int, read_len: int):
+    """PE orphan rescue scan (the reference's AlignPartnerRead,
+    KAligner.cpp:3333) with the probe gathered on the device: the orphan
+    mate's words come from the group-resident word planes (the
+    (rw, rb, rcw, rcb) [nw, N] tuples of `words_from_2bit`), so only
+    idxs/which/want_strand/starts [R] int32 cross from the host. which[r]
+    = 1 rescues mate 1, 2 mate 2; want_strand 0 scans the forward words, 1
+    the reverse complement's. Returns (best_mm, best_pos, n_best) [R]
+    int32 over the genome positions [start, start + scan_len)."""
+    sel_i = idxs.clamp(0, planes1[0].shape[1] - 1).long()
+    two = (which == 2)[None, :]
+
+    def sel(k):
+        return torch.where(two, planes2[k][:, sel_i], planes1[k][:, sel_i])
+    fwd = (want_strand == 0)[None, :]
+    pw = torch.where(fwd, sel(0), sel(2)).T        # [R, nw]
+    pb = torch.where(fwd, sel(1), sel(3)).T
+    return _phase_scan(gview, pw, pb, starts, genome_len=genome_len,
+                       scan_len=scan_len, read_len=read_len)
+
+
+def _phase_scan(gview, pw, pb, starts, *, genome_len: int, scan_len: int,
+                read_len: int):
+    """The phase-sliced scan body: probe words pw/pb [R, nw]. One
+    contiguous run of genome words per probe (the first word of each
+    gview row), pre-aligned to `starts` by a per-probe funnel shift; then
+    16 static phase-shifted word streams turn every scan position
+    p = 16t + s into a slice: words [t, t + nw) of phase s."""
+    dev = pw.device
+    R = pw.shape[0]
+    L = read_len
+    P = scan_len
+    nw = (L + 15) // 16
+    nw2g = gview.shape[1] // 2
+    Gv = gview.shape[0]
+    T = (P + 15) // 16
+    nwblk = T + nw + 1
+
+    base_w = starts >> 4
+    idx = (base_w[:, None] + torch.arange(nwblk + 1, dtype=torch.int32,
+                                          device=dev)[None, :]
+           ).clamp(0, Gv - 1).long()
+    gw = gview[idx, 0]                                   # [R, nwblk+1]
+    gb = gview[idx, nw2g]
+    # pre-align the streams to `starts` (sub-word funnel, per probe)
+    sh0 = (2 * (starts & 15)).to(torch.int64)[:, None]
+    aw = torch.where(sh0 == 0, gw[:, :-1],
+                     (gw[:, :-1] >> sh0) | shl32(gw[:, 1:], 32 - sh0))
+    ab = torch.where(sh0 == 0, gb[:, :-1],
+                     (gb[:, :-1] >> sh0) | shl32(gb[:, 1:], 32 - sh0))
+    tmask = _tail_mask(L, nw)
+    # phase s: bases starting at start + 16t + s live in words [t, t+nw)
+    mm_st = []
+    for s in range(16):
+        if s == 0:
+            ws, bs = aw, ab
+        else:
+            ws = (aw[:, :-1] >> 2 * s) | shl32(aw[:, 1:], 32 - 2 * s)
+            bs = (ab[:, :-1] >> 2 * s) | shl32(ab[:, 1:], 32 - 2 * s)
+        acc = torch.zeros((R, T), dtype=torch.int32, device=dev)
+        for j in range(nw):
+            x = ws[:, j:j + T] ^ pw[:, j:j + 1]
+            mism = (x | (x >> 1)) & MISM_BITS
+            badb = (bs[:, j:j + T] | pb[:, j:j + 1]) & MISM_BITS
+            acc = acc + popcount32((mism | badb) & int(tmask[j]))
+        mm_st.append(acc)
+    mm = torch.stack(mm_st, dim=2).reshape(R, T * 16)    # p = 16t + s
+    p = torch.arange(T * 16, dtype=torch.int32, device=dev)[None, :]
+    pos = starts[:, None] + p
+    valid = (p < P) & (pos >= 0) & (pos + L <= genome_len)
+    mm = torch.where(valid, mm, INT32_MAX)
+    best = mm.amin(1)
+    n_best = (mm == best[:, None]).sum(1, dtype=torch.int32)
+    prel = torch.where(mm == best[:, None], p, 2 ** 30).amin(1)
+    best_pos = (starts + prel).clamp(0, genome_len - L)
+    return best, best_pos, n_best

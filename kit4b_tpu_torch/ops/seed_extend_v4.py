@@ -20,8 +20,8 @@ from __future__ import annotations
 import torch
 
 from .bits import bitrev2, not32, popcount32, scatter_add_drop_2d, \
-    scatter_set_drop, shl32, take_clamped, to_words
-from .seed_extend_fast import INT32_MAX, MISM_BITS, _tail_mask, \
+    scatter_set_drop, shl32, take_clamped
+from .seed_extend_fast import INT32_MAX, MISM_BITS, _shape_constants, \
     _window_masks
 from .seed_extend_v3 import _classify_compact, pack_result2
 
@@ -40,8 +40,7 @@ def words_from_2bit(reads2b: torch.Tensor, nlist: torch.Tensor,
     ext[:, :L4] = reads2b
     e = ext.reshape(B, nw, 4).to(torch.int64)
     w = e[..., 0] | (e[..., 1] << 8) | (e[..., 2] << 16) | (e[..., 3] << 24)
-    tm = _tail_mask(L, nw)
-    tail = to_words(tm | (tm << 1)).to(dev)
+    tail = _shape_constants((), 0, L, dev).tail2
     w = w & tail[None, :]
     slot = (2 * (nlist[:, 1] & 15)).to(torch.int64)
     bit = torch.ones_like(slot) << slot
@@ -129,14 +128,13 @@ def _compact(cnt_d: torch.Tensor, NC: int):
     return total, b, rank, slot_ok
 
 
-def _slot_meta(b: torch.Tensor, offsets: tuple):
+def _slot_meta(b: torch.Tensor, off_w: torch.Tensor):
     """(window, strand, window offset) of each slot's bucket b = strand*W +
-    window, each [NC, B] int32."""
-    W = len(offsets)
+    window, each [NC, B] int32; off_w [W] int32 the window offsets."""
+    W = off_w.shape[0]
     w_d = (b % W).to(torch.int32)
     strand = (b // W).to(torch.int32)
-    off_t = torch.tensor(offsets, dtype=torch.int32, device=b.device)
-    return w_d, strand, off_t[w_d.long()]
+    return w_d, strand, off_w[w_d.long()]
 
 
 def _dedup_extend(gview, planes, pos, strand, w_d, valid, overflow, *,
@@ -192,7 +190,8 @@ def _dedup_extend(gview, planes, pos, strand, w_d, valid, overflow, *,
     x = ga ^ rp
     mism = (x | (x >> 1)) & MISM_BITS
     badb = (gba | rbad) & MISM_BITS
-    tmask = to_words(_tail_mask(read_len, nw)).to(dev)[None, :, None]
+    tmask = _shape_constants(tuple(offsets), lut_k, read_len,
+                             dev).tmask[None, :, None]
     bits = (mism | badb) & tmask
     mm = popcount32(bits).sum(1, dtype=torch.int32)         # [NS, B]
 
@@ -236,7 +235,8 @@ def _cands_core_v4(gview, sa, lut2, planes, *, genome_len, offsets, lut_k,
 
     total, b, rank, slot_ok = _compact(cnt_d, NC)
     overflow = total > NC
-    w_d, strand, off_b = _slot_meta(b, offsets)
+    off_w = _shape_constants(tuple(offsets), lut_k, L, b.device).off_w
+    w_d, strand, off_b = _slot_meta(b, off_w)
     sa_idx = lo_d.gather(0, b) + rank
     sa_pos = take_clamped(sa, sa_idx).to(torch.int32)
     pos = sa_pos - off_b

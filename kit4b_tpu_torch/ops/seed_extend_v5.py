@@ -13,6 +13,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .seed_extend_fast import _shape_constants
 from .seed_extend_v3 import _classify_compact, pack_result2
 from .seed_extend_v4 import _compact, _dedup_extend, _seed_keys, \
     _slot_meta, _tier2, words_from_2bit
@@ -69,7 +70,8 @@ def _cands_core_v5(gview, lut4, planes, *, genome_len, offsets, lut_k,
 
     total, b, rank, slot_ok = _compact(cnt_d, NC)
     overflow = (total > NC) | high.reshape(D, B).any(0)
-    w_d, strand, off_b = _slot_meta(b, offsets)
+    off_w = _shape_constants(tuple(offsets), lut_k, L, b.device).off_w
+    w_d, strand, off_b = _slot_meta(b, off_w)
     # suffix position per slot without an SA gather: the slot's bucket row
     # of inline positions, then the entry at the slot's rank (0 past 7)
     sel = posP.gather(0, b[:, :, None].expand(-1, -1, P_POS))  # [NC, B, 7]

@@ -2,7 +2,9 @@
 hammings` on a small FASTA: identical output files in every mode the port
 runs (1 compute, 3 merge, 4 trans to .hmg, 5 trans to CSV; restricted mode
 `-r` is in tests/test_torch_hammings_restricted.py), a clear failure
-without CUDA, and no jax in the port's process."""
+without CUDA, and no jax in the port's process, also through `simreads`
+and paired-end `kalign` with kit4b_tpu and jax blocked (their outputs
+against the JAX package's are in tests/test_torch_pe_sam.py)."""
 import subprocess
 import sys
 from pathlib import Path
@@ -138,3 +140,41 @@ print("no jax")
                        capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stderr[-3000:]
     assert r.stdout.strip().endswith("no jax")
+
+
+def test_simreads_and_pe_kalign_run_with_the_jax_package_blocked(tmp_path):
+    try:
+        from kit4b_tpu_torch import native
+        native.load()
+    except native.NativeUnavailable as e:
+        pytest.skip(f"native library unavailable: {e}")
+    fa, kix, sam = (tmp_path / n for n in ("g.fa", "g.kix", "o.sam"))
+    r1, r2 = tmp_path / "r1.fa", tmp_path / "r2.fa"
+    code = f"""
+import sys
+sys.modules["kit4b_tpu"] = None
+sys.modules["jax"] = None
+import numpy as np
+from kit4b_tpu_torch import cli
+from kit4b_tpu_torch.io.fasta import SeqRecord, write_fasta
+g = np.random.default_rng(3).integers(0, 4, 30_000).astype(np.uint8)
+write_fasta({str(fa)!r}, [SeqRecord("c", "", g)])
+assert cli.main(["index", "-i", {str(fa)!r}, "-o", {str(kix)!r}]) == 0
+assert cli.main(["simreads", "-i", {str(fa)!r}, "-o", {str(r1)!r}, "-O",
+                 {str(r2)!r}, "-p", "-n", "100", "-S", "2"]) == 0
+assert cli.main(["kalign", "-i", {str(r1)!r}, "-I", {str(kix)!r}, "-o",
+                 {str(sam)!r}, "-u", {str(r2)!r}, "-d", "150", "-D", "550",
+                 "-b", "128", "--device", "cpu"]) == 0
+jax = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib",
+                                                          "kit4b_tpu")
+             and sys.modules[m] is not None)
+assert not jax, jax
+print("no jax")
+"""
+    r = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr[-3000:]
+    assert r.stdout.strip().endswith("no jax")
+    body = [ln.split("\t") for ln in sam.read_text().splitlines()
+            if not ln.startswith("@")]
+    assert len(body) == 200 and all(int(c[1]) & 2 for c in body)

@@ -1,6 +1,8 @@
 """The host modules the port keeps its own copies of, each held equal to its
 original in the JAX package on the same seeded inputs: dna, io.fasta,
-io.sam's flags, index (SfxIndex, SA-IS), sim.simreads, align.snp,
+io.sam's flags and SEQ/QUAL helper, io.bed's reader, index (SfxIndex,
+SA-IS), sim.simreads (every mode, SNP planting and its BED), align.snp,
+tools.config4's genome,
 utils.runtime, utils.summaries and the host functions of kmer.kmarkers
 (pseudogenome, marker FASTA, the prekmarkers walk); and the port's own
 build of the host library (native.py), keyed by its sources, flags and
@@ -92,8 +94,72 @@ def test_dna_tables_and_codecs_match():
 
 
 def test_sam_flags_match():
-    assert psam.FLAG_UNMAPPED == jsam.FLAG_UNMAPPED
-    assert psam.FLAG_REVERSE == jsam.FLAG_REVERSE
+    for name in ("FLAG_PAIRED", "FLAG_PROPER_PAIR", "FLAG_UNMAPPED",
+                 "FLAG_MATE_UNMAPPED", "FLAG_REVERSE", "FLAG_MATE_REVERSE",
+                 "FLAG_FIRST", "FLAG_SECOND"):
+        assert getattr(psam, name) == getattr(jsam, name), name
+    rng = np.random.default_rng(2)
+    codes = rng.integers(0, 5, 37).astype(np.uint8)
+    qual = rng.integers(0, 41, 37).astype(np.uint8)
+    for q in (qual, None):
+        for rev in (False, True):
+            assert psam.seq_qual_for_strand(codes, q, rev) == \
+                jsam.seq_qual_for_strand(codes, q, rev)
+
+
+def test_bed_reader_matches(tmp_path):
+    from kit4b_tpu.io import bed as jbed
+    from kit4b_tpu_torch.io import bed as pbed
+    path = tmp_path / "f.bed"
+    path.write_text("track name=x\n# a comment\nbrowser position c1\n\n"
+                    "c1\t10\t200\tg1\t5\t-\nc2 0 50\nc1\t300\t400\tg2\t.\n"
+                    "c3\t7\t9\tg3\t2.5\t+\textra\n")
+    got = pbed.BedFile.load(path)
+    want = jbed.BedFile.load(path)
+    assert len(got) == len(want) == 4
+    assert [vars(f) for f in got.features] == \
+        [vars(f) for f in want.features]
+
+
+def test_format_sam_pe_binding_on_a_fixed_input(lib):
+    """Three records (a proper pair and an unmapped mate) through the
+    port's binding of format_sam_pe, against the JAX package's library
+    and the text they must make."""
+    import ctypes
+    jlib = jsa._load_native()
+    i32, i64 = np.int32, np.int64
+    qn = [b"r1", b"r1", b"r2"]
+    qn_ofs = np.array([0, 2, 4, 6], i64)
+    chrom_cat, chrom_ofs = b"chrAchrB", np.array([0, 4, 8], i64)
+    arrays = [np.array(a, t) for a, t in (
+        ([99, 147, 77], i32), ([0, 0, -1], i32), ([11, 201, 0], i64),
+        ([254, 254, 254], i32), ([-1, -1, -2], i32), ([201, 11, 0], i64),
+        ([290, -290, 0], i64), ([2, 0, -1], i32))]
+    seq = np.frombuffer(b"ACGTNACGTN" * 3, np.uint8).copy()
+    qual = np.zeros(30, np.uint8)
+    qual[10:20] = ord("I")     # phred+33 bytes, as the writers pass them
+    outs = []
+    for lib_ in (lib, jlib):
+        cap = 1024
+        buf = ctypes.create_string_buffer(cap)
+        ptrs = [a.ctypes.data_as(ctypes.POINTER(
+            ctypes.c_int32 if a.dtype == i32 else ctypes.c_int64))
+            for a in arrays]
+        u8 = ctypes.POINTER(ctypes.c_uint8)
+        nb = lib_.format_sam_pe(
+            b"".join(qn), qn_ofs.ctypes.data_as(ctypes.POINTER(
+                ctypes.c_int64)), chrom_cat,
+            chrom_ofs.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)), *ptrs,
+            seq.ctypes.data_as(u8), qual.ctypes.data_as(u8), 3, 10, buf, cap)
+        outs.append(buf.raw[:nb])
+    assert outs[0] == outs[1]
+    assert outs[0].decode().splitlines() == [
+        "r1\t99\tchrA\t11\t254\t10M\t=\t201\t290\tACGTNACGTN\t*\t"
+        "NM:i:2",
+        "r1\t147\tchrA\t201\t254\t10M\t=\t11\t-290\tACGTNACGTN\t"
+        "IIIIIIIIII\tNM:i:0",
+        "r2\t77\t*\t0\t0\t*\t*\t0\t0\tACGTNACGTN\t*"]
+    assert native.SIGNATURES["format_sam_pe"][0] is ctypes.c_int64
 
 
 def _write_reads(path, rng, fmt, n=40, L=None, gz=False):
@@ -237,6 +303,78 @@ def test_sim_reads_match(kw):
     assert {rec.name.split("|")[6] for rec in got} == {"+", "-"}
     for rec in got[:20]:
         assert psim.parse_truth(rec.name) == jsim.parse_truth(rec.name)
+
+
+SIM_MODES = [
+    dict(pe=True, pe_insert_min=150, pe_insert_max=400,
+         error_mode="illumina", subs_rate=0.02),
+    dict(pe=True, read_len=50, error_mode="static", uniform_profile=True),
+    dict(error_mode="fixed", subs_rate=3, strand="watson"),
+    dict(pe=True, error_mode="uniform", indel_rate=0.3, indel_size=4),
+    dict(error_mode="illumina", artef5_rate=0.2, artef3_rate=0.2,
+         artef5_seqs=("ACGTACGTAC", "GGGCCC"), rand_reads=0.1),
+    dict(pe=True, pe_insert_min=100, pe_insert_max=200, rand_reads=0.2,
+         indel_rate=0.1, artef3_rate=0.1, error_mode="fixed", subs_rate=2),
+    dict(regions=[("chr1", 100, 1500), ("chr2", 0, 1700),
+                  ("nochr", 0, 900)], error_mode="uniform"),
+    dict(pe=True, pe_insert_min=120, pe_insert_max=300,
+         regions=[("chr3", 0, 900)]),
+    dict(dedupe=True, read_len=12, n_reads=3000),
+    dict(dedupe=True, pe=True, read_len=14, pe_insert_min=20,
+         pe_insert_max=40, n_reads=2000),
+]
+
+
+@pytest.mark.parametrize("kw", SIM_MODES)
+def test_sim_reads_every_mode_matches(kw):
+    """Paired ends, the error modes, InDels, artefacts, random (lcr)
+    reads, regions and dedupe draw the JAX package's stream."""
+    pg, jg = _genomes(17)
+    params = dict(n_reads=400, read_len=60, seed=41) | kw
+    got = psim.sim_reads(pg, psim.SimParams(**params))
+    want = jsim.sim_reads(jg, jsim.SimParams(**params))
+    if kw.get("pe"):
+        assert isinstance(got, tuple) and len(got) == 2
+        for g_, w_ in zip(got, want):
+            _assert_records_equal(g_, w_)
+        got = got[0]
+    else:
+        _assert_records_equal(got, want)
+    assert len(got) > 100
+    tags = {r.name.split("|")[0] for r in got}
+    assert tags == ({"lcl", "lcr"} if kw.get("rand_reads") else {"lcl"})
+    if kw.get("indel_rate"):
+        assert any(r.name.split("|")[8] != "0" for r in got)
+
+
+def test_simulate_snps_and_their_bed_match(tmp_path):
+    pg, jg = _genomes(5)
+    g2, truth = psim.simulate_snps(pg, rate=0.01, seed=3)
+    jg2, jtruth = jsim.simulate_snps(jg, rate=0.01, seed=3)
+    assert truth == jtruth and len(truth) > 30
+    np.testing.assert_array_equal(g2.seq, jg2.seq)
+    assert (g2.names, g2.starts.tolist(), g2.lengths.tolist()) == \
+        (jg2.names, jg2.starts.tolist(), jg2.lengths.tolist())
+    psim.write_snp_bed(tmp_path / "p.bed", truth)
+    jsim.write_snp_bed(tmp_path / "j.bed", jtruth)
+    assert (tmp_path / "p.bed").read_bytes() == \
+        (tmp_path / "j.bed").read_bytes()
+
+
+def test_config4_genome_matches_the_tools_script():
+    import importlib.util
+    from pathlib import Path
+
+    from kit4b_tpu_torch.tools.config4 import make_chr21_like
+    path = Path(__file__).resolve().parents[1] / "tools" / "config4_chr21.py"
+    spec = importlib.util.spec_from_file_location("_config4_chr21", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    seq, n = make_chr21_like(0.5)
+    want, wn = mod.make_chr21_like(0.5)
+    assert n == wn == 500_000
+    np.testing.assert_array_equal(seq, want)
+    assert (seq == pdna.BASE_N).sum() > 5000
 
 
 def test_write_reads_match(tmp_path):

@@ -2,8 +2,9 @@
 chip_smoke.py, imports the JAX package kit4b_tpu or jax. An `ast` scan of
 every file proves it line by line; subprocesses with both names blocked in
 `sys.modules` import every module of the port and run its CLI (`index`,
-`hammings` exhaustive and `-r`, `kalign`, `pseudogenome`, `kmarkers`,
-`prekmarkers`, with `--device cpu` where a command takes one) on a small
+`simreads`, `hammings` exhaustive and `-r`, `kalign` single and paired
+ends, `pseudogenome`, `kmarkers`, `prekmarkers`, with `--device cpu` where
+a command takes one) on a small
 seeded genome. The runs that build a suffix index need the port's host
 library and skip without it. This file imports neither package either:
 
@@ -199,3 +200,30 @@ def test_cli_kmarkers_commands_with_both_blocked(genome_fa, tmp_path,
     assert not any(s <= 1010 and 1090 <= e for s, e in spans)
     rows = pre.read_text().splitlines()
     assert rows[0] == '"KMer","A","B"' and len(rows) > 70
+
+
+def test_cli_simreads_and_pe_kalign_with_both_blocked(genome_fa, tmp_path,
+                                                      host_library):
+    """simreads -p with SNPs planted, then kalign -u -U 1 with a VCF: most
+    pairs proper, at their truth loci."""
+    kix, sam, vcf = tmp_path / "g.kix", tmp_path / "o.sam", tmp_path / "o.vcf"
+    r1, r2 = tmp_path / "r1.fa", tmp_path / "r2.fa"
+    _run("from kit4b_tpu_torch import cli\n"
+         f"assert cli.main(['index', '-i', {str(genome_fa)!r}, '-o', "
+         f"{str(kix)!r}]) == 0\n"
+         f"assert cli.main(['simreads', '-i', {str(genome_fa)!r}, '-o', "
+         f"{str(r1)!r}, '-O', {str(r2)!r}, '-p', '-n', '150', '-l', '80', "
+         "'-j', '200', '-J', '400', '-e', 'illumina', '-z', '0.01', '-N', "
+         "'2000', '-S', '4']) == 0\n"
+         f"assert cli.main(['kalign', '-i', {str(r1)!r}, '-I', {str(kix)!r},"
+         f" '-o', {str(sam)!r}, '-u', {str(r2)!r}, '-U', '1', '-d', '150', "
+         f"'-D', '450', '-S', {str(vcf)!r}, '-p', '2', '-b', '256', "
+         "'-M', '1', '--device', 'cpu']) == 0\n", tmp_path)
+    body = [ln.split("\t") for ln in sam.read_text().splitlines()
+            if not ln.startswith("@")]
+    proper = [c for c in body if int(c[1]) & 2]
+    assert len(body) == 300 and len(proper) > 250
+    truth = sum(c[0].split("|")[2] == c[2] and
+                int(c[0].split("|")[3]) == int(c[3]) - 1 for c in proper)
+    assert truth > 0.95 * len(proper)
+    assert vcf.read_text().startswith("##fileformat=VCF")
