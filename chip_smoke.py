@@ -131,9 +131,33 @@ result:
    (`torch.cuda.set_sync_debug_mode("error")`), and the ms of one
    `pe_pass_packed` on 16,384 resident pairs, one `deep_pe_pass_planes` at
    E 4,096 and one `window_scan_pe` at R 16,384 (CUDA events, median of 5).
+12. Full-stats kalign (plain PyTorch passes on the card, rescues on the
+   host). (a) The port on the seeded workload of
+   `kit4b_tpu_torch.tools.make_kalign_full_golden` (two chromosomes of
+   200 kbp in all with repeat islands, introns and N runs; InDel, artefact,
+   spliced and chimeric reads of 100 and 75 bp; pairs whose mate 2 is cut
+   to 72-100 bp) against the JAX package's committed golden: per rescue mode
+   (-y, -l, -C, all three) nar/pos/strand/mm, CIGARs, orphan demotions and
+   the SAM's SHA-256, the ladder's tier counts, the raw hit lists, and the
+   PePair stream and SAM of pe modes 1-4, all equal. (b) Config #1's
+   genome, 100,000 reads from the CLI `simreads -e illumina -z 0.02 -X
+   0.05 -x 3 -a 0.02 -S 7`, through `kalign -y 20 -C 50 -b 98304 -M 1`
+   under torch.profiler, its align phase split by the functions that take
+   the time (device passes with their collect, the three rescues, the
+   results, the orphan removal, write_sam). Checks: >= 99.9 % of accepted
+   reads at their truth locus (chromosome, strand, aligned span over the
+   truth). Prints the InDel reads placed with their I/D CIGAR before and
+   after the orphan removal, and `fast_pass_v3` on 98,304 resident reads
+   beside `fast_pass_packed_v5` (CUDA events, median of 5). (c) The same
+   genome with 2,000 introns planted and 20,000 spliced reads (both
+   strands, 10 a junction) through `kalign -l 10000`: the same figures and
+   the spliced reads accepted with their N CIGAR at the truth junction.
+   (d) Phase 11b's index and pairs, mate 2 cut to a seeded length in
+   100-150 bp, through `kalign -u -U 2`: reads/s, accepted pairs, mates at
+   their truth locus (>= 98 %).
 
 Each kernel's launch counter is set to 0 just before its path (phases 4,
-6, 7) and read just after it; phases 8-11 run none of the three kernels.
+6, 7) and read just after it; phases 8-12 run none of the three kernels.
 The script prints its seconds before the kernels line. The
 line before the last is a JSON table of the kernels, each with its bound
 (the least time the card could take: int8 tensor operations for minmm
@@ -142,6 +166,7 @@ and sweep, bytes for take; take's `ms` is device time); the last line is
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import logging
 import re
@@ -172,6 +197,7 @@ CONFIG3_LEN = 10_000_000   # bases of each config #3 cultivar
 KM_BATCH = 49_152          # the kmarkers CLI's tier-1 batch
 CONFIG4_MBP = 40.0         # config #4's chr21-like genome, Mbp
 PE_PAIRS, PE_LEN, PE_BATCH = 65_536, 150, 16_384   # its 2 x 150 pairs
+SPLICE_INTRONS, SPLICE_READS = 2_000, 20_000   # phase 12c, 10 reads each
 INT8_PEAK = 1979e12    # H100 SXM dense int8 tensor operations per second
 HBM_RATE = 3.35e12     # H100 SXM device memory bytes per second
 WIDE_K = (51, 153)     # Cw 256 and 768, the widths past the main path's 128
@@ -1316,6 +1342,338 @@ def pe_full(torch, dev, card, tmp: Path):
           f"window_scan_pe at R {R}, 501 positions {scan[2]} ms {scan}")
 
 
+def kalign_full_golden(torch, dev):
+    """Phase 12a: the full-stats path against the JAX package's golden."""
+    from kit4b_tpu_torch.tools import make_kalign_full_golden as mg
+    gold = np.load(mg.GOLDEN)
+    g, idx, se, pairs = mg.workload()
+    if mg.inputs_sha256(g, se, pairs) != str(gold["inputs_sha256"]):
+        raise AssertionError("the full-stats golden workload rebuilt here "
+                             "differs from the one the golden was made from")
+    t0 = time.perf_counter()
+    out = mg.compute(mg.port_fns(dev), g, idx, se, pairs)
+    wall = time.perf_counter() - t0
+    bad = [k for k in gold.files
+           if k != "inputs_sha256" and not np.array_equal(out[k], gold[k])]
+    print(f"full-stats golden ({wall} s; {len(se)} reads, "
+          f"{len(pairs[0])} pairs of unequal mates, -b {mg.BATCH}): "
+          f"accepted by mode "
+          f"{ {m: int((out[f'nar_{m}'] == 0).sum()) for m in mg.MODES} }, "
+          f"CIGARs with I, D, N, S "
+          f"{ {m: out[f'n_cigar_{m}'].tolist() for m in mg.MODES} }, "
+          f"tiers {out['tiers'].tolist()}; differs from the JAX golden in "
+          f"{bad or 'nothing'} (nar/pos/strand/mm, CIGARs, orphans, SAM, "
+          f"tier counts, raw hit lists, PePair streams and PE SAM)")
+    if bad or mg.check_reach(out):
+        raise AssertionError(f"the full-stats path differs from the JAX "
+                             f"golden in {bad}; reach {mg.check_reach(out)}")
+
+
+@contextlib.contextmanager
+def _timed(targets):
+    """Seconds spent in each (label, owner, attribute) function for the
+    run inside; a call made while another timed call runs counts in the
+    outer one only."""
+    secs = {label: 0.0 for label, _, _ in targets}
+    depth = [0]
+    saved = [(owner, name, getattr(owner, name))
+             for _, owner, name in targets]
+
+    def wrap(label, fn):
+        def timed(*a, **kw):
+            if depth[0]:
+                return fn(*a, **kw)
+            depth[0] += 1
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                secs[label] += time.perf_counter() - t0
+                depth[0] -= 1
+        return timed
+    for (label, owner, name), (_, _, fn) in zip(targets, saved):
+        setattr(owner, name, wrap(label, fn))
+    try:
+        yield secs
+    finally:
+        for owner, name, fn in saved:
+            setattr(owner, name, fn)
+
+
+def _sam_records(path: Path):
+    """(qname, flag, rname, 0-based pos, CIGAR, read length) of a SAM's
+    records."""
+    out = []
+    with open(path) as f:
+        for line in f:
+            if not line.startswith("@"):
+                c = line.split("\t", 10)
+                out.append((c[0], int(c[1]), c[2], int(c[3]) - 1, c[5],
+                            len(c[9])))
+    return out
+
+
+def _ref_span(cigar: str) -> int:
+    return sum(int(n) for n, op in re.findall(r"(\d+)([MDN])", cigar))
+
+
+def _rescue_cli(torch, dev, card, argv, n_reads, label):
+    """One CLI kalign run with a rescue on, under torch.profiler, its align
+    phase split by the functions that take the time. Returns the run's
+    (_PhaseLog, wall s, orphan removal's snapshots by kind)."""
+    from kit4b_tpu_torch import cli
+    from kit4b_tpu_torch.align import kalign, phases
+    al = kalign.KAligner
+    before = {}
+    remove = phases.remove_orphan_junctions
+
+    def remove_spy(aligned, kind):
+        before[kind] = [(rec.name, res.pos, res.strand, res.cigar)
+                        for rec, res in aligned
+                        if res.nar == "accepted" and res.cigar]
+        return remove(aligned, kind)
+    targets = [("device passes and their collect", al, "_submit"),
+               ("device passes and their collect", al, "_collect_raw"),
+               ("results", al, "_to_results"),
+               ("indel rescue", al, "_indel_rescue"),
+               ("splice rescue", al, "_splice_rescue"),
+               ("chimeric rescue", al, "_chimeric_rescue"),
+               ("orphan removal", phases, "remove_orphan_junctions"),
+               ("write_sam", kalign, "write_sam")]
+    log = _PhaseLog()
+    logging.getLogger("kit4b_tpu_torch").addHandler(log)
+    phases.remove_orphan_junctions = remove_spy
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    rc = []
+    try:
+        with _timed(targets) as secs:
+            wall, busy, n_ops = _profiled(
+                torch, lambda: rc.append(cli.main(argv)))
+    finally:
+        phases.remove_orphan_junctions = remove
+        logging.getLogger("kit4b_tpu_torch").removeHandler(log)
+    peak = torch.cuda.max_memory_allocated()
+    if rc != [0]:
+        raise AssertionError(f"CLI {label} exited {rc}")
+    align = log.seconds["align"]
+    print(f"CLI {label} on {card}: wall {wall} s ({n_reads / wall} reads/s), "
+          f"phases {log.seconds}; align phase {n_reads / align} reads/s, "
+          f"split {secs}, the rest of it (parsing on its thread, lists) "
+          f"{align - sum(secs.values())} s; "
+          + (f"device busy {busy} s ({busy / wall} of the wall), "
+             if busy else "device busy not measured (the profiler showed "
+                          "no device time), ")
+          + f"{n_ops} device operations; peak device memory {peak} bytes; "
+          f"classes {log.stats}; tier 1 {log.tier1}")
+    return log, wall, before
+
+
+def _truth_share(records, truth_of):
+    """(accepted, at their truth locus): same chromosome and strand, the
+    aligned reference span overlapping the truth span."""
+    acc = at = 0
+    for qn, flag, rname, pos, cigar, _ in records:
+        if flag & 4:
+            continue
+        acc += 1
+        chrom, t0, t1, strand = truth_of(qn)
+        at += (rname == chrom and (flag & 16 != 0) == (strand == "-")
+               and pos <= t1 and pos + _ref_span(cigar) > t0)
+    return acc, at
+
+
+def rescue_full(torch, dev, card, tmp: Path):
+    """Phases 12b and 12c: config #1's genome with InDel and artefact reads
+    through `kalign -y 20 -C 50`, then with introns planted and spliced
+    reads through `kalign -l 10000`; the full-stats pass timed beside v5."""
+    from kit4b_tpu_torch import cli, dna
+    from kit4b_tpu_torch.align import kalign
+    from kit4b_tpu_torch.index.sfx_index import SfxIndex
+    from kit4b_tpu_torch.io.fasta import read_seqs
+    from kit4b_tpu_torch.ops import seed_extend_v3
+    from kit4b_tpu_torch.sim import simreads
+    rng = np.random.default_rng(12345)
+    codes = rng.integers(0, 4, ECOLI_LEN).astype(np.uint8)
+    fa, kix = tmp / "ecoli_sim.fa", tmp / "ecoli_sim.kix"
+    reads_fa, sam = tmp / "reads.fa", tmp / "out.sam"
+    write_fasta(fa, ["ecoli_sim"], [codes])
+    t0 = time.perf_counter()
+    for name, argv in (
+            ("index", ["index", "-i", str(fa), "-o", str(kix)]),
+            ("simreads", ["simreads", "-i", str(fa), "-o", str(reads_fa),
+                          "-n", str(ECOLI_READS), "-l", str(READ_LEN), "-e",
+                          "illumina", "-z", "0.02", "-X", "0.05", "-x", "3",
+                          "-a", "0.02", "-S", "7"])):
+        if cli.main(argv) != 0:
+            raise AssertionError(f"CLI {name} exited non-zero")
+    print(f"config #1 genome (4.6 Mbp, default_rng(12345)) indexed and "
+          f"{ECOLI_READS} reads simulated (-X 0.05 -x 3 -a 0.02): "
+          f"{time.perf_counter() - t0} s")
+
+    # --- 12b: -y 20 -C 50 --------------------------------------------
+    argv = ["kalign", "-i", str(reads_fa), "-I", str(kix), "-o", str(sam),
+            "-y", "20", "-C", "50", "-b", str(ECOLI_BATCH), "-M", "1"]
+    _, _, before = _rescue_cli(torch, dev, card, argv, ECOLI_READS,
+                               f"kalign -y 20 -C 50 -b {ECOLI_BATCH} -M 1")
+    recs = _sam_records(sam)
+    truth = {r[0]: simreads.parse_truth(r[0]) for r in recs}
+
+    def truth_of(qn):
+        t = truth[qn]
+        return t["chrom"], t["start"], t["end"], t["strand"]
+    acc, at = _truth_share(recs, truth_of)
+    indel = {qn for qn, t in truth.items() if t["indel"]}
+
+    def indel_ok(qn, pos, cigar):
+        t = truth[qn]
+        ops = re.findall(r"(\d+)([ID])", cigar or "")
+        return (len(ops) == 1 and pos == t["start"]
+                and ops[0] == (str(abs(t["indel"])),
+                               "D" if t["indel"] > 0 else "I"))
+    pre = sum(indel_ok(qn, pos, cig) for qn, pos, _, cig in before["indel"])
+    post = sum(qn in indel and indel_ok(qn, pos, cigar)
+               for qn, flag, _, pos, cigar, _ in recs if not flag & 4)
+    n_cig = {op: sum(op in r[4] for r in recs if not r[1] & 4)
+             for op in "IDS"}
+    print(f"SAM check: {len(recs)} records, {acc} accepted ({acc / len(recs)}"
+          f"), {at / acc} of them at their truth locus (same chromosome and "
+          f"strand, aligned span overlapping the truth); CIGARs with I, D, "
+          f"S {n_cig}; of the {len(indel)} InDel reads, "
+          f"{pre / len(indel)} accepted with their I/D CIGAR at the truth "
+          f"offset by the rescue, {post / len(indel)} in the SAM after the "
+          f"orphan removal (a microInDel seen by one read only is demoted)")
+    if len(recs) != ECOLI_READS or at < 0.999 * acc:
+        raise AssertionError(f"{at} of {acc} accepted reads at their truth "
+                             "locus")
+
+    # the full-stats pass on its own, beside v5, on the first batch
+    idx = SfxIndex.load(kix)
+    batch = np.stack([r.codes for _, r in zip(range(ECOLI_BATCH),
+                                               read_seqs(reads_fa))])
+    al = kalign.KAligner(idx, batch_size=ECOLI_BATCH, device=dev)
+    gview, sa, _, lut2 = al._device_for(READ_LEN)
+    _, mtm = al.schedule_for(READ_LEN)
+    r2b, nlist = (torch.from_numpy(a).to(dev)
+                  for a in kalign.pack_reads_2bit(batch))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    def v3():
+        return seed_extend_v3.fast_pass_v3(
+            gview, sa, lut2, r2b, nlist, genome_len=len(idx.genome.seq),
+            offsets=al._offsets_for(READ_LEN, mtm), lut_k=idx.lut_k,
+            read_len=READ_LEN, n_compact=al.n_compact, max_ml=al.max_ml,
+            n_extend=al.n_extend)
+    n_ovf = int(v3()["overflow"].sum())
+    ms_v3 = sorted(_time_ms(torch, v3) for _ in range(5))
+    peak_v3 = torch.cuda.max_memory_allocated()
+    _, _, run_v5 = kalign_escalations(torch, al, batch)
+    ms_v5 = sorted(_time_ms(torch, run_v5) for _ in range(5))
+    print(f"fast_pass_v3 on {ECOLI_BATCH} device-resident reads on {card}: "
+          f"median {ms_v3[2]} ms of 5 (CUDA events: {ms_v3}), "
+          f"{ECOLI_BATCH / ms_v3[2] * 1e3} reads/s, {n_ovf} reads overflow "
+          f"to the host ladder, peak device memory {peak_v3} bytes; "
+          f"fast_pass_packed_v5 on the same reads {ms_v5[2]} ms {ms_v5}")
+
+    # --- 12c: introns planted, spliced reads, -l 10000 -----------------
+    spl = codes.copy()
+    dons = 10_000 + 2_250 * np.arange(SPLICE_INTRONS)
+    gaps = 200 + (37 * np.arange(SPLICE_INTRONS)) % 1_800
+    spl[dons] = 2                                   # GT donor
+    spl[dons + 1] = 3
+    spl[dons + gaps - 2] = 0                        # AG acceptor
+    spl[dons + gaps - 1] = 2
+    fa2, kix2 = tmp / "ecoli_introns.fa", tmp / "ecoli_introns.kix"
+    reads2, sam2 = tmp / "spliced.fa", tmp / "spliced.sam"
+    write_fasta(fa2, ["ecoli_sim"], [spl])
+    names, rows = [], []
+    for i, (don, gap) in enumerate(zip(dons.tolist(), gaps.tolist())):
+        for k in range(SPLICE_READS // SPLICE_INTRONS):
+            split = 30 + (7 * i + 9 * k) % 41
+            r = np.concatenate([spl[don - split:don],
+                                spl[don + gap:don + gap + READ_LEN - split]])
+            strand = "-+"[k % 2]
+            rows.append(r if strand == "+" else dna.revcomp(r))
+            names.append(f"sj|{don - split}|{split}|{gap}|{strand}")
+    write_fasta(reads2, names, rows)
+    if cli.main(["index", "-i", str(fa2), "-o", str(kix2)]) != 0:
+        raise AssertionError("CLI index of the intron genome exited "
+                             "non-zero")
+    argv = ["kalign", "-i", str(reads2), "-I", str(kix2), "-o", str(sam2),
+            "-l", "10000", "-b", str(ECOLI_BATCH), "-M", "1"]
+    _rescue_cli(torch, dev, card, argv, len(rows),
+                f"kalign -l 10000 -b {ECOLI_BATCH} -M 1 ({len(rows)} spliced "
+                f"reads on {SPLICE_INTRONS} introns)")
+    recs = _sam_records(sam2)
+
+    def sj_truth(qn):
+        _, s, split, gap, strand = qn.split("|")
+        return ("ecoli_sim", int(s), int(s) + READ_LEN + int(gap) - 1,
+                strand)
+    acc, at = _truth_share(recs, sj_truth)
+    n_sj = 0
+    for qn, flag, _, pos, cigar, _ in recs:
+        _, s, split, gap, _ = qn.split("|")
+        m = re.fullmatch(r"(\d+)M(\d+)N(\d+)M", cigar)
+        n_sj += bool(m and not flag & 4 and pos == int(s)
+                     and m.group(2) == gap)
+    print(f"SAM check: {len(recs)} records, {acc} accepted, {at / max(acc, 1)}"
+          f" of them at their truth locus; {n_sj / len(recs)} of the spliced "
+          f"reads accepted with an N CIGAR at their truth junction")
+    if len(recs) != len(rows) or at < 0.999 * acc or not n_sj:
+        raise AssertionError(f"spliced reads: {at} of {acc} accepted at "
+                             f"their truth, {n_sj} with their junction")
+
+
+def pe_unequal_full(torch, dev, card, tmp: Path):
+    """Phase 12d: phase 11b's index and pairs with mate 2 cut to a seeded
+    length in 100-150 bp, through `kalign -u -U 2`."""
+    from kit4b_tpu_torch import cli
+    from kit4b_tpu_torch.io.fasta import read_seqs, write_fasta as wf
+    from kit4b_tpu_torch.sim import simreads
+    r2 = list(read_seqs(tmp / "r2.fa"))
+    cut = np.random.default_rng(SEED + 12).integers(100, PE_LEN + 1, len(r2))
+    for rec, n in zip(r2, cut.tolist()):
+        rec.codes = rec.codes[:n]
+    r2u, sam = tmp / "r2_cut.fa", tmp / "pe_cut.sam"
+    wf(r2u, r2)
+    log = _PhaseLog()
+    logging.getLogger("kit4b_tpu_torch").addHandler(log)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    try:
+        rc = cli.main(["kalign", "-i", str(tmp / "r1.fa"), "-I",
+                       str(tmp / "chr21s.kix"), "-o", str(sam), "-u",
+                       str(r2u), "-U", "2", "-d", "200", "-D", "700", "-b",
+                       str(PE_BATCH)])
+    finally:
+        logging.getLogger("kit4b_tpu_torch").removeHandler(log)
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    if rc != 0:
+        raise AssertionError(f"CLI kalign -u of unequal mates exited {rc}")
+    recs = _sam_records(sam)
+    proper = [r for r in recs if r[1] & 2]
+    at = 0
+    for qn, flag, rname, pos, _, n in proper:
+        t = simreads.parse_truth(qn)
+        want = t["start"] + (t["len"] - n if t["strand"] == "-" else 0)
+        at += rname == t["chrom"] and pos == want
+    n_acc = log.pe_stats["accepted"]
+    print(f"CLI kalign -u -U 2 -d 200 -D 700 -b {PE_BATCH} on {PE_PAIRS} "
+          f"pairs, mate 2 cut to 100-{PE_LEN} bp, on {card}: wall {wall} s, "
+          f"phases {log.seconds}; {2 * PE_PAIRS / log.seconds['align']} "
+          f"reads/s in the align phase, {2 * PE_PAIRS / wall} of the wall; "
+          f"pairs {log.pe_stats}; {len(proper)} mates of accepted pairs, "
+          f"{at / max(len(proper), 1)} of them at their truth locus; peak "
+          f"device memory {peak} bytes")
+    if n_acc < 0.8 * PE_PAIRS or at < 0.98 * len(proper):
+        raise AssertionError(f"{n_acc} pairs accepted, {at} of "
+                             f"{len(proper)} mates at their truth")
+
+
 def minmm_cases(torch, cases, minmm, minmm_plain) -> int:
     """Phase 2: the min-match kernel against its plain version, bit for
     bit, on (label, own rows, partner, diag, span_lo, span_cnt, row_base)
@@ -1610,9 +1968,15 @@ def main() -> int:
         restricted_full(torch, dev, card, Path(tmp), chroms, seq, Gp)
 
     # --- 11. paired-end kalign: the JAX golden, config #4 at full size --
+    # --- 12. full-stats kalign: the golden, -y -C, -l, unequal mates ----
     pe_golden(torch, dev)
     with tempfile.TemporaryDirectory(prefix=".chip_smoke_", dir=root) as tmp:
         pe_full(torch, dev, card, Path(tmp))
+        kalign_full_golden(torch, dev)
+        with tempfile.TemporaryDirectory(prefix=".chip_smoke_",
+                                         dir=root) as tmp12:
+            rescue_full(torch, dev, card, Path(tmp12))
+        pe_unequal_full(torch, dev, card, Path(tmp))
     if "jax" in sys.modules or "kit4b_tpu" in sys.modules:
         raise AssertionError("jax or the JAX package kit4b_tpu was imported")
 

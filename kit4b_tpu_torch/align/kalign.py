@@ -1,15 +1,25 @@
-"""kalign: seed-and-extend short-read aligner, single-end,
-substitutions only, on PyTorch.
+"""kalign: seed-and-extend short-read aligner, single-end, on PyTorch.
 
-Port of kit4b_tpu/align/kalign.py's compact path. A read batch is packed
-2 bits a base on the host (native `pack2bit_u8`), uploaded, and aligned on
-the device by one tier-1 pass (`seed_extend_v5.fast_pass_packed_v5` when
-the index's bucket histogram predicts few escalations, else
-`seed_extend_v4.fast_pass_packed_v4`), which returns one [B, 2] int32 row
-per read with the in-graph tier 2 applied. Rows still marked -3 climb the
-host escalation ladder `((512, 512), (64, 8192))` through
-`seed_extend_fast.fast_pass`, the last tier capped per bucket. SAM text is
-formatted by the native `format_sam_se`.
+Port of kit4b_tpu/align/kalign.py. A read batch is packed 2 bits a base on
+the host (native `pack2bit_u8`), uploaded, and aligned on the device by
+one tier-1 pass:
+
+  - the compact path (no rescue asked for): `seed_extend_v5.
+    fast_pass_packed_v5` when the index's bucket histogram predicts few
+    escalations, else `seed_extend_v4.fast_pass_packed_v4`; one [B, 2]
+    int32 row per read with the in-graph tier 2 applied. SAM text comes
+    from the native `format_sam_se` (`write_sam_fast`);
+  - the full-stats path (`micro_indel`, `splice_max` or `chimeric_pct`
+    set, or `align_batch(return_raw=True)`): `seed_extend_v3.fast_pass_v3`,
+    which returns each read's best loci (`hit_id`, `hit_mm`). Reads the
+    substitutions-only classification leaves NOHIT go through the
+    microInDel, splice and chimeric rescues (host numpy, `ops.indel`,
+    `ops.splice`, `ops.chimeric`), in that order, and SAM records with
+    their CIGARs come from the per-record `write_sam`.
+
+Reads still overflowing climb the host escalation ladder
+`((512, 512), (64, 8192))` through `seed_extend_fast.fast_pass`, the last
+tier capped per bucket.
 
 The host helpers of the JAX module (`pack_reads_2bit`, the pass schedule)
 are re-homed here because that module imports jax at module top; tests hold
@@ -17,21 +27,21 @@ them byte-identical to their originals. Every device tensor lives on the
 aligner's explicit `device` (CUDA by default; `device.resolve` raises when
 it is absent).
 
-Not ported (ROADMAP queue A): the full-stats tier 1 `fast_pass_v3` and the
-microInDel, splice and chimeric rescues that need its hit lists (item 12),
-the `fast_pass_compact_v3` / `fast_pass_compact` branches for genomes with
-2*G+1 >= 2^31 or more than 2^31 clean suffixes (item 12), `align_batch`'s
-raw hit lists, which paired ends of unequal length need (item 12), and
-`filter_alignments` and BAM output (item 20). Paired ends are
-`align.pe`.
+Not ported: genomes with 2*G+1 >= 2^31 or 2^31 clean suffixes, whose int32
+locus ids pos*2+strand wrap (ROADMAP queue A item 18: JAX's per-shard
+offsets), and `--mlmode`'s forced hit lists, `filter_alignments` and BAM
+output (item 20). Paired ends are `align.pe`.
 """
 from __future__ import annotations
 
+import bisect
 import ctypes
 import os
 import queue
+import re
 import threading
 import warnings
+from collections import defaultdict
 from collections import deque
 from dataclasses import dataclass
 from typing import Iterable
@@ -43,10 +53,17 @@ from .. import dna, native
 from ..device import resolve
 from ..index.sfx_index import SfxIndex
 from ..io.fasta import SeqRecord, read_seq_blocks, read_seqs
-from ..io.sam import FLAG_REVERSE, FLAG_UNMAPPED
-from ..ops import seed_extend_fast, seed_extend_v4, seed_extend_v5
+from ..io.sam import (FLAG_REVERSE, FLAG_UNMAPPED, SamAlignment, SamWriter,
+                      seq_qual_for_strand)
+from ..ops import seed_extend_fast, seed_extend_v3, seed_extend_v4, \
+    seed_extend_v5
+from ..ops.chimeric import find_chimeric
 from ..ops.extend_packed import pack_genome
+from ..ops.indel import find_indels
 from ..ops.seed_extend_v3 import make_lut2_device, unpack_result2
+from ..ops.splice import find_splices
+
+INT32_MAX = seed_extend_fast.INT32_MAX
 
 TIER2 = (512, 192, 96)      # v5's in-graph tier 2: (E, NC2, NS2)
 TIER2_V4 = (128, 192, 96)   # v4's: fast_pass_packed_v4's default
@@ -147,18 +164,23 @@ def build_pass_schedule(read_len: int, max_subs_per100: int, mm_delta: int,
 # the SAM writer's class counts, in the order of the nar codes 0-3:
 # accepted, no hit, multialign, excess Ns
 NAR_NAMES = ("accepted", "nohit", "multi", "ns")
-NAR_ACCEPTED = NAR_NAMES[0]
+NAR_ACCEPTED, NAR_NOHIT, NAR_MULTI, NAR_NS = NAR_NAMES
 
 
 @dataclass
 class AlignResult:
     """One read's placement: the fields of kit4b_tpu's AlignResult that
-    the paired-end path sets."""
+    the ported paths set (the flank-trim fields wait for `-x`, ROADMAP
+    queue A item 20)."""
     nar: str
     strand: int = 0        # 0 = '+', 1 = '-'
     pos: int = -1          # concatenated-genome start
     mm: int = -1
     n_low: int = 0
+    nxt_mm: int = INT32_MAX
+    multi_ids: np.ndarray | None = None  # pos*2+strand of multiloci hits
+    cigar: str | None = None             # set by the rescues
+    secondary: bool = False              # SAM 0x100
 
 
 class KAligner:
@@ -167,7 +189,9 @@ class KAligner:
     Reads whose candidate total exceeds the tier capacity are escalated
     through `escalation` (batch, capacity) tiers (the reference's MaxIter
     ladder, ngskit4b/KAligner.h:53-56); reads still overflowing the last
-    tier are classified multi."""
+    tier are classified multi. `micro_indel` (-y), `splice_max` (-l) and
+    `chimeric_pct` (-C) turn on the rescues of NOHIT reads, which read the
+    full-stats tier 1's hit lists."""
 
     def __init__(self, index: SfxIndex, *,
                  max_subs: int = 5,          # per 100bp (-s)
@@ -179,6 +203,9 @@ class KAligner:
                  batch_size: int = 16384,
                  sens: str = "default",
                  escalation: tuple = ((512, 512), (64, 8192)),
+                 micro_indel: int = 0,   # microInDel max length (-y), 0=off
+                 splice_max: int = 0,    # splice junction max gap (-l), 0=off
+                 chimeric_pct: int = 0,  # min chimeric len % (-C), 0=off
                  use_v5: bool | None = None,  # None = auto by histogram
                  device: str | torch.device = "cuda"):
         self.index = index
@@ -191,6 +218,9 @@ class KAligner:
         self.batch_size = batch_size
         self.sens = sens
         self.escalation = escalation
+        self.micro_indel = micro_indel
+        self.splice_max = splice_max
+        self.chimeric_pct = chimeric_pct
         self.use_v5 = use_v5
         self.device = resolve(device)
         self._schedules: dict[int, tuple[list[PassSpec], int]] = {}
@@ -214,9 +244,10 @@ class KAligner:
             if (2 * len(self.index.genome.seq) + 1 >= 2 ** 31
                     or int(self.index.lut[-1]) >= 2 ** 31):
                 raise NotImplementedError(
-                    "genomes with 2*G+1 >= 2^31 or 2^31 clean suffixes "
-                    "need the fast_pass_compact_v3 / fast_pass_compact "
-                    "branches, not ported yet: ROADMAP.md queue A item 12")
+                    "genomes with 2*G+1 >= 2^31 or 2^31 clean suffixes: "
+                    "the int32 locus id pos*2+strand wraps past 2^30 "
+                    "bases, so they need the per-shard offsets of "
+                    "ROADMAP.md queue A item 18")
             if self._host_packed is None:
                 self._host_packed = pack_genome(self.index.genome.seq, 65)
             gpack, gbad = self._host_packed
@@ -263,13 +294,20 @@ class KAligner:
             read_len, self.index.lut_k,
             max_tot_mm + max(self.mm_delta - 1, 0))
 
+    def _use_compact(self) -> bool:
+        """Compact device classification unless the rescues need the hit
+        lists on the host."""
+        return not (self.micro_indel or self.splice_max
+                    or self.chimeric_pct)
+
     # --- device pass (submit / collect split for pipelining) ---------------
     def _submit(self, reads: np.ndarray, n_compact: int | None = None,
-                compact: bool = True, capped: bool = False):
-        """Starts a batch on the device. compact: the tier-1 pass, returning
-        ("packed", [B, 2] rows); else a full-stats escalation tier at
-        n_compact, returning fast_pass's dict. Nothing here waits for the
-        device."""
+                compact: bool | None = None, capped: bool = False):
+        """Starts a batch on the device. Tier 1 (n_compact None): compact,
+        returning ("packed", [B, 2] rows), or full-stats (`fast_pass_v3`),
+        returning its dict; compact None follows `_use_compact`. With
+        n_compact, a full-stats escalation tier at that capacity
+        (`fast_pass`). Nothing here waits for the device."""
         B, L = reads.shape
         _, max_tot_mm = self.schedule_for(L)
         gview, sa, lut, lut2 = self._device_for(L)
@@ -281,17 +319,24 @@ class KAligner:
         cap = max(1, nc // (2 * len(offsets))) if capped else None
         kw = dict(genome_len=len(self.index.genome.seq), offsets=offsets,
                   lut_k=self.index.lut_k, n_compact=nc)
-        if not compact:
+        if compact is None:
+            compact = self._use_compact()
+        if n_compact is not None:
+            if compact:
+                raise NotImplementedError(
+                    "a compact pass at another capacity "
+                    "(fast_pass_compact) serves only genomes whose int32 "
+                    "locus ids wrap: ROADMAP.md queue A item 18")
             return seed_extend_fast.fast_pass(
                 gview, sa, lut, torch.from_numpy(reads).to(self.device),
                 max_ml=self.max_ml, max_per_bucket=cap, **kw)
-        if n_compact is not None:
-            raise NotImplementedError(
-                "a compact pass at another capacity (fast_pass_compact) is "
-                "not ported: ROADMAP.md queue A item 12")
         reads2b, nlist = pack_reads_2bit(reads)
         r2b = torch.from_numpy(reads2b).to(self.device)
         nl = torch.from_numpy(nlist).to(self.device)
+        if not compact:
+            return seed_extend_v3.fast_pass_v3(
+                gview, sa, lut2, r2b, nl, read_len=L, max_ml=self.max_ml,
+                n_extend=self.n_extend, max_per_bucket=cap, **kw)
         common = dict(read_len=L, max_tot_mm=max_tot_mm,
                       mm_delta=self.mm_delta, n_extend=self.n_extend, **kw)
         lut4 = self._lut4_for(L, sa)
@@ -301,6 +346,32 @@ class KAligner:
         return ("packed", seed_extend_v4.fast_pass_packed_v4(
             gview, sa, lut2, r2b, nl, max_per_bucket=cap, tier2=TIER2_V4,
             **common))
+
+    def _escalate(self, reads: np.ndarray, todo: np.ndarray, merge,
+                  n: int | None = None) -> None:
+        """The host ladder: rows `todo` (bool [B]) rerun through the
+        escalation tiers, each chunk padded to the tier's batch; merge(
+        chunk, out) takes a tier's host dict for the read indices `chunk`
+        and returns the rows still overflowing. With n, only the first n
+        rows climb: the rest pad a batch, and each row's answer is its
+        own, so leaving them out changes no real row."""
+        if n is not None:
+            todo[n:] = False
+        for ti, (bt, nct) in enumerate(self.escalation):
+            idxs = np.nonzero(todo)[0]
+            if len(idxs) == 0:
+                break
+            final = ti == len(self.escalation) - 1
+            for s in range(0, len(idxs), bt):
+                chunk = idxs[s:s + bt]
+                sub = reads[chunk]
+                if len(chunk) < bt:
+                    sub = np.concatenate(
+                        [sub, np.repeat(sub[:1], bt - len(chunk), axis=0)])
+                out = self._submit(sub, n_compact=nct, compact=False,
+                                   capped=final)
+                todo[chunk] = merge(chunk, {
+                    k: v.cpu().numpy()[:len(chunk)] for k, v in out.items()})
 
     def _code_from_full(self, host: dict, max_tot_mm: int) -> np.ndarray:
         """Classify full-stats rows into compact codes (escalation merge)."""
@@ -314,35 +385,29 @@ class KAligner:
                         np.where(unique, best,
                                  np.where(aligned, -2, -1))).astype(np.int64)
 
-    def _collect_compact(self, devout, reads: np.ndarray) -> dict:
-        """Fetch [B, 2] compact rows (waits for the device); escalate -3
-        rows through the host ladder; return the classification dict."""
-        code, low, n_low = unpack_result2(devout[1].cpu().numpy())
-        B, L = reads.shape
-        _, max_tot_mm = self.schedule_for(L)
-        for ti, (bt, nct) in enumerate(self.escalation):
-            idxs = np.nonzero(code == -3)[0]
-            if len(idxs) == 0:
-                break
-            final = ti == len(self.escalation) - 1
-            for s in range(0, len(idxs), bt):
-                chunk = idxs[s:s + bt]
-                sub = reads[chunk]
-                if len(chunk) < bt:
-                    sub = np.concatenate(
-                        [sub, np.repeat(sub[:1], bt - len(chunk), axis=0)])
-                out2 = {k: v.cpu().numpy() for k, v in self._submit(
-                    sub, n_compact=nct, compact=False,
-                    capped=final).items()}
-                code[chunk] = self._code_from_full(
-                    {k: v[:len(chunk)] for k, v in out2.items()}, max_tot_mm)
-                low[chunk] = out2["low_mm"][:len(chunk)]
-                n_low[chunk] = out2["n_low"][:len(chunk)]
+    def _ns_bad(self, reads: np.ndarray) -> np.ndarray:
+        """Reads with more Ns than max_ns per 100 bases (at least max_ns)."""
+        L = reads.shape[1]
         max_ns_seq = max(L * self.max_ns // 100, self.max_ns)
-        ns_bad = (reads == dna.BASE_N).sum(axis=1) > max_ns_seq
+        return (reads == dna.BASE_N).sum(axis=1) > max_ns_seq
+
+    def _collect_compact(self, devout, reads: np.ndarray,
+                         n: int | None = None) -> dict:
+        """Fetch [B, 2] compact rows (waits for the device); escalate -3
+        rows (of the first n) through the host ladder; return the
+        classification dict."""
+        code, low, n_low = unpack_result2(devout[1].cpu().numpy())
+        _, max_tot_mm = self.schedule_for(reads.shape[1])
+
+        def merge(chunk, out2):
+            code[chunk] = self._code_from_full(out2, max_tot_mm)
+            low[chunk] = out2["low_mm"]
+            n_low[chunk] = out2["n_low"]
+            return code[chunk] == -3
+        self._escalate(reads, code == -3, merge, n)
         # final-tier overflow (-3) is classified multi, as the reference
         # classifies MaxIter-truncated reads
-        nar = np.where(ns_bad, 3,
+        nar = np.where(self._ns_bad(reads), 3,
                        np.where(code >= 0, 0,
                                 np.where(code == -1, 1, 2))).astype(np.uint8)
         pos = np.where(code >= 0, code >> 1, -1)
@@ -352,11 +417,172 @@ class KAligner:
                 "hit_id": None, "hit_mm": None,
                 "overflow": code == -3, "max_tot_mm": max_tot_mm}
 
+    def _collect(self, devout: dict, reads: np.ndarray,
+                 n: int | None = None) -> dict:
+        """Fetch full-stats tier-1 results (waits for the device); rerun
+        overflowed reads (of the first n) through the host ladder.
+        `overflow` is True after it only where the final tier overflowed."""
+        host = {k: v.cpu().numpy().copy() for k, v in devout.items()}
+
+        def merge(chunk, out2):
+            for key in ("low_mm", "n_low", "nxt_mm", "hit_id", "hit_mm"):
+                host[key][chunk] = out2[key]
+            return out2["overflow"]
+        trunc = host["overflow"].copy()
+        self._escalate(reads, trunc, merge, n)
+        host["overflow"] = trunc
+        return host
+
+    def _classify(self, reads: np.ndarray, host: dict) -> dict:
+        """Full-stats host dict -> the classification dict, hit lists
+        included."""
+        _, max_tot_mm = self.schedule_for(reads.shape[1])
+        low = host["low_mm"].astype(np.int64)
+        n_low = host["n_low"].astype(np.int64)
+        nxt = host["nxt_mm"].astype(np.int64)
+        trunc = host["overflow"]
+        aligned = low <= max_tot_mm
+        unique = (aligned & ~trunc & (n_low == 1)
+                  & ((nxt - low) >= self.mm_delta))
+        nar = np.where(self._ns_bad(reads), 3,
+                       np.where(unique, 0, np.where(aligned, 2, 1))
+                       ).astype(np.uint8)
+        hid = host["hit_id"][:, 0].astype(np.int64)
+        return {"nar": nar, "pos": hid >> 1, "strand": (hid & 1),
+                "mm": low, "low_mm": low, "n_low": n_low, "nxt_mm": nxt,
+                "hit_id": host["hit_id"].astype(np.int64),
+                "hit_mm": host["hit_mm"].astype(np.int64),
+                "overflow": trunc, "max_tot_mm": max_tot_mm}
+
+    def _collect_raw(self, devout, reads: np.ndarray,
+                     n: int | None = None) -> dict:
+        """The classification dict of either tier 1's device output; with
+        n, rows past the first n are padding and skip the ladder."""
+        if isinstance(devout, dict):
+            return self._classify(reads, self._collect(devout, reads, n))
+        return self._collect_compact(devout, reads, n)
+
     def align_batch_raw(self, reads: np.ndarray) -> dict:
         """Vectorized alignment of a [B, L] uint8 code batch: numpy arrays
         nar [B] uint8 (0=accepted 1=nohit 2=multi 3=excess-Ns),
-        pos/strand/mm [B] (valid where accepted), low_mm, n_low, overflow."""
-        return self._collect_compact(self._submit(reads), reads)
+        pos/strand/mm [B] (valid where accepted), low_mm, n_low, overflow,
+        and the full-stats keys (None on the compact path)."""
+        return self._collect_raw(self._submit(reads), reads)
+
+    def align_batch(self, reads: np.ndarray, return_raw: bool = False):
+        """Align a [B, L] uint8 code batch; returns one AlignResult per read
+        (and, with return_raw, the raw per-read stat arrays, hit lists
+        included, for pairing)."""
+        compact = None if not return_raw else False
+        return self._finalize(reads, self._submit(reads, compact=compact),
+                              return_raw)
+
+    def _finalize(self, reads, devout, return_raw: bool = False,
+                  n: int | None = None):
+        """Results of a submitted batch, the rescues applied. With n, the
+        batch's rows past the first n are padding: they skip the ladder
+        and the rescues, and no result is made for them."""
+        raw = self._collect_raw(devout, reads, n)
+        if n is not None:
+            reads = reads[:n]
+            raw = {k: v[:n] if isinstance(v, np.ndarray) else v
+                   for k, v in raw.items()}
+        results = self._to_results(raw)
+        hit_id, hit_mm = raw["hit_id"], raw["hit_mm"]
+        # JAX's order: indel, then splice, then chimeric, each on the reads
+        # the ones before it left NOHIT
+        if self.micro_indel:
+            self._indel_rescue(reads, results, hit_id, hit_mm,
+                               raw["max_tot_mm"])
+        if self.splice_max:
+            self._splice_rescue(reads, results, hit_id, hit_mm)
+        if self.chimeric_pct:
+            self._chimeric_rescue(reads, results, hit_id, hit_mm)
+        if return_raw:
+            return results, {"low_mm": raw["low_mm"], "n_low": raw["n_low"],
+                             "nxt_mm": raw["nxt_mm"], "hit_id": hit_id,
+                             "hit_mm": hit_mm, "overflow": raw["overflow"]}
+        return results
+
+    def _to_results(self, raw: dict) -> list:
+        nar = raw["nar"]
+        pos = raw["pos"]
+        strand = raw["strand"]
+        low = raw["low_mm"]
+        n_low = raw["n_low"]
+        nxt = raw["nxt_mm"]
+        has_hits = raw["hit_id"] is not None
+        at_low = (raw["hit_mm"] == low[:, None]) if has_hits else None
+        results: list[AlignResult] = []
+        for i in range(len(nar)):
+            c = nar[i]
+            if c == 0:
+                results.append(AlignResult(
+                    NAR_ACCEPTED, strand=int(strand[i]), pos=int(pos[i]),
+                    mm=int(low[i]), n_low=1,
+                    nxt_mm=int(nxt[i]) if nxt is not None else INT32_MAX))
+            elif c == 2:
+                results.append(AlignResult(
+                    NAR_MULTI, mm=int(low[i]), n_low=int(n_low[i]),
+                    nxt_mm=int(nxt[i]) if nxt is not None else INT32_MAX,
+                    multi_ids=(raw["hit_id"][i][at_low[i]]
+                               if has_hits else None)))
+            else:
+                results.append(AlignResult(NAR_NAMES[c]))
+        return results
+
+    def _rescue(self, finder, reads, results, hit_id, hit_mm, **kw):
+        """One rescue over the reads still NOHIT that have a hit: each read
+        oriented by its best hit's strand, its candidates the hits on that
+        strand; a read the finder places becomes accepted with the finder's
+        CIGAR."""
+        todo = [i for i, r in enumerate(results)
+                if r.nar == NAR_NOHIT and hit_mm[i][0] < INT32_MAX]
+        if not todo:
+            return
+        C = hit_id.shape[1]
+        L = reads.shape[1]
+        B = len(todo)
+        oriented = np.zeros((B, L), np.uint8)
+        pos = np.full((B, C), INT32_MAX, np.int64)
+        strand = np.zeros((B, C), np.int64)
+        for j, i in enumerate(todo):
+            top_strand = int(hit_id[i][0]) & 1
+            r = reads[i]
+            oriented[j] = dna.revcomp(r) if top_strand else r
+            for c in range(C):
+                hid = int(hit_id[i][c])
+                if hid == INT32_MAX or (hid & 1) != top_strand:
+                    continue
+                pos[j, c] = hid >> 1
+                strand[j, c] = top_strand
+        hits = finder(self.index.genome.seq, oriented, pos, strand, **kw)
+        for j, i in enumerate(todo):
+            h = hits[j]
+            if h is None:
+                continue
+            results[i] = AlignResult(
+                NAR_ACCEPTED, strand=h.strand, pos=h.pos, mm=h.mm,
+                n_low=1, cigar=h.cigar(L))
+
+    def _indel_rescue(self, reads, results, hit_id, hit_mm, max_tot_mm):
+        """Second-chance microInDel pass (LocateInDels equivalent): the
+        over-budget candidate loci anchor a single-indel split search
+        (ops/indel.py)."""
+        self._rescue(find_indels, reads, results, hit_id, hit_mm,
+                     max_indel=self.micro_indel)
+
+    def _splice_rescue(self, reads, results, hit_id, hit_mm):
+        """Splice-junction pass (LocateSpliceJuncts equivalent): candidate
+        locus pairs from the multiloci hits anchor a two-segment search."""
+        self._rescue(find_splices, reads, results, hit_id, hit_mm,
+                     max_gap=self.splice_max)
+
+    def _chimeric_rescue(self, reads, results, hit_id, hit_mm):
+        """Chimeric flank-trim pass (SfxArray.cpp:7925 adaptive trim)."""
+        self._rescue(find_chimeric, reads, results, hit_id, hit_mm,
+                     min_chimeric_pct=self.chimeric_pct,
+                     subs_per_100=self.max_subs)
 
     def _pad_batch(self, recs: list[SeqRecord]) -> np.ndarray:
         arr = np.stack([r.codes for r in recs])
@@ -381,19 +607,34 @@ class KAligner:
             if bl:
                 yield bl
 
-    def _in_flight(self, batches):
-        """(meta, padded [B, L] batch) pairs -> (meta, batch, classification
-        dict), with two device batches in flight: batch k+1 is submitted
-        before batch k is collected."""
+    def _in_flight(self, batches, collect=None):
+        """(meta, [B, L] batch, its real rows n) -> (meta, batch,
+        collect(device output, batch, n)), with two device batches in
+        flight: batch k+1 is submitted before batch k is collected.
+        collect defaults to the classification dict (`_collect_raw`)."""
+        collect = collect or self._collect_raw
         pending: deque = deque()
-        for meta, arr in batches:
-            pending.append((meta, arr, self._submit(arr)))
+        for meta, arr, n in batches:
+            pending.append((meta, arr, n, self._submit(arr)))
             if len(pending) >= 2:
-                meta0, arr0, dev0 = pending.popleft()
-                yield meta0, arr0, self._collect_compact(dev0, arr0)
+                meta0, arr0, n0, dev0 = pending.popleft()
+                yield meta0, arr0, collect(dev0, arr0, n0)
         while pending:
-            meta0, arr0, dev0 = pending.popleft()
-            yield meta0, arr0, self._collect_compact(dev0, arr0)
+            meta0, arr0, n0, dev0 = pending.popleft()
+            yield meta0, arr0, collect(dev0, arr0, n0)
+
+    def align_records(self, records: Iterable[SeqRecord]):
+        """(SeqRecord, AlignResult) stream, batching by read length, the
+        rescues applied; two device batches in flight and record parsing
+        on a background thread (the reference's reads-loader,
+        KAligner.cpp:4786)."""
+        def pipeline(source):
+            for recs, _, results in self._in_flight(
+                    ((bl, self._pad_batch(bl), len(bl)) for bl in source),
+                    lambda dev, arr, n: self._finalize(arr, dev, n=n)):
+                yield from zip(recs, results)
+
+        yield from _prefetched(self._batches(records), pipeline)
 
     def align_records_raw(self, records: Iterable[SeqRecord]):
         """Batched streaming for the SAM writer, batching by read length:
@@ -401,7 +642,8 @@ class KAligner:
         device batches in flight and record parsing on a background
         thread."""
         def pipeline(source):
-            return self._in_flight((bl, self._pad_batch(bl)) for bl in source)
+            return self._in_flight((bl, self._pad_batch(bl), len(bl))
+                                   for bl in source)
 
         yield from _prefetched(self._batches(records), pipeline)
 
@@ -455,6 +697,100 @@ def write_align_stats(path, stats: dict, sub_hist: np.ndarray,
                     f.write(f'"insert_size","{i}",{int(c)}\n')
 
 
+def write_sam(path, index: SfxIndex, aligned, cmdline: str = "",
+              emit_unmapped: bool = True, snp_caller=None,
+              stats_path=None) -> dict:
+    """Write a (SeqRecord, AlignResult) stream to SAM, record by record,
+    with the rescues' CIGARs; returns the class counts (every nar seen,
+    orphan demotions included). Byte-identical to the JAX package's
+    write_sam.
+
+    NM counts the I/D bases of a CIGAR as well as the substitutions; MAPQ
+    is the reference's (KAligner.cpp:6146-6233): 254, less 20 for a splice
+    (N), less 10 for a microInDel (I/D), scaled by the matched share of
+    the read. `snp_caller` (align.snp.SnpCaller) accumulates the plain
+    accepted reads into its pileup (the kalign SNP phase input,
+    KAligner.cpp:795-809); `stats_path` writes the substitution
+    distribution CSV (-O)."""
+    if str(path).endswith(".bam"):
+        raise NotImplementedError("BAM output is not ported yet: "
+                                  "ROADMAP.md queue A item 20")
+    g = index.genome
+    stats = defaultdict(int)
+    stats.update(dict.fromkeys(NAR_NAMES, 0))
+    snp_pos: list[int] = []
+    snp_reads: list[np.ndarray] = []
+
+    def flush_snp():
+        if snp_caller is not None and snp_pos:
+            snp_caller.add_alignments(np.asarray(snp_pos, np.int64),
+                                      np.stack(snp_reads))
+            snp_pos.clear()
+            snp_reads.clear()
+
+    sub_hist = np.zeros(64, np.int64)
+    starts_list = g.starts.tolist()  # per-read locate via bisect
+    with SamWriter(path, g.names, g.lengths, pg_cl=cmdline) as w:
+        for rec, res in aligned:
+            stats[res.nar] += 1
+            if res.nar == NAR_ACCEPTED:
+                ci = bisect.bisect_right(starts_list, res.pos) - 1
+                off = res.pos - starts_list[ci]
+                rev = res.strand == 1
+                seq, qual = seq_qual_for_strand(rec.codes, rec.qual, rev)
+                cigar = res.cigar or f"{len(rec.codes)}M"
+                nm = res.mm
+                matched = len(rec.codes)
+                if res.cigar:
+                    # NM counts indel bases (SAM spec); 'N' skips do not
+                    nm += sum(int(x) for x in
+                              re.findall(r"(\d+)[ID]", res.cigar))
+                    matched = sum(int(x) for x in
+                                  re.findall(r"(\d+)M", res.cigar))
+                mapq = 254
+                if res.cigar:
+                    if "N" in res.cigar:
+                        mapq -= 20
+                    elif "I" in res.cigar or "D" in res.cigar:
+                        mapq -= 10
+                mapq = min(254, max(1, mapq * matched // len(rec.codes)))
+                flag = FLAG_REVERSE if rev else 0
+                if res.secondary:
+                    flag |= 0x100
+                w.write(SamAlignment(
+                    qname=rec.name, flag=flag,
+                    rname=g.names[ci], pos=off + 1,
+                    mapq=mapq, cigar=cigar, seq=seq, qual=qual,
+                    tags=(f"NM:i:{nm}",)))
+                sub_hist[min(res.mm, 63)] += 1
+                if res.cigar is not None or res.secondary:
+                    continue  # indel/secondary reads do not feed the pileup
+                if snp_caller is not None:
+                    oriented = (dna.revcomp(rec.codes) if rev
+                                else rec.codes)
+                    snp_pos.append(res.pos)
+                    snp_reads.append(oriented)
+                    if len(snp_pos) >= 16384 and \
+                            len(snp_reads[0]) == len(oriented):
+                        flush_snp()
+            elif emit_unmapped:
+                seq, qual = seq_qual_for_strand(rec.codes, rec.qual, False)
+                w.write(SamAlignment(
+                    qname=rec.name, flag=FLAG_UNMAPPED, rname="*", pos=0,
+                    mapq=0, cigar="*", seq=seq, qual=qual))
+            # a length change would break np.stack batching; flush eagerly
+            if snp_caller is not None and snp_reads and \
+                    len(snp_reads[-1]) != len(snp_reads[0]):
+                last_p, last_r = snp_pos.pop(), snp_reads.pop()
+                flush_snp()
+                snp_pos.append(last_p)
+                snp_reads.append(last_r)
+    flush_snp()
+    if stats_path:
+        write_align_stats(stats_path, stats, sub_hist)
+    return stats
+
+
 _ASCII_FWD = np.frombuffer(b"ACGTNNNN", np.uint8)          # code -> base
 _ASCII_RC = np.frombuffer(b"TGCANNNN", np.uint8)           # code -> comp
 
@@ -472,7 +808,7 @@ def _align_blocks_raw(aligner: KAligner, src_path):
             if n < B:
                 codes = np.concatenate(
                     [codes, np.repeat(codes[:1], B - n, axis=0)])
-            yield (names, quals, n), codes
+            yield (names, quals, n), codes, n
 
     def pipeline(blocks):
         for (names, quals, n), arr, raw in aligner._in_flight(padded(blocks)):
@@ -496,15 +832,20 @@ def write_sam_fast(path, index: SfxIndex, aligner: KAligner, records,
     Raises native.NativeUnavailable without the native library. Returns
     the class counts, keyed by NAR_NAMES. `snp_caller`
     (align.snp.SnpCaller) accumulates accepted alignments into its pileup;
-    `stats_path` writes the substitution-distribution CSV (-O). The port
-    has this one SAM writer: the JAX package's per-record `write_sam`
-    serves the filters and phases of ROADMAP.md queue A item 20."""
+    `stats_path` writes the substitution-distribution CSV (-O). An aligner
+    with a rescue on goes through `align_records` and the per-record
+    `write_sam`, as in JAX."""
     if str(path).endswith(".bam"):
         raise NotImplementedError("BAM output is not ported yet: "
                                   "ROADMAP.md queue A item 20")
     lib = native.load()
     src_path = records if isinstance(records, (str, os.PathLike)) \
         else None
+    if not aligner._use_compact():
+        rec_iter = read_seqs(src_path) if src_path is not None else records
+        return write_sam(path, index, aligner.align_records(rec_iter),
+                         cmdline=cmdline, emit_unmapped=emit_unmapped,
+                         snp_caller=snp_caller, stats_path=stats_path)
 
     blocks_gen = first_block = None
     if src_path is not None:

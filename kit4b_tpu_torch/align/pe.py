@@ -27,12 +27,18 @@ passes are submitted before the previous group is drained, so the device
 queue never runs dry while the host resolves a group. Uploads go from
 pinned host buffers without waiting for the device.
 
-Not ported (ROADMAP.md queue A item 12): mates of unequal length, which JAX
-aligns through the host full-stats path (`_align_all`, `_pair`,
-`_rescue`), the byte-tensor `pe_pass` with its escalation loop
-(`_pe_pass_subset`, `_drain_device`), the per-record `write_sam` and the
-host-probe window scans. The packed path reaches none of them; the port
-raises where JAX would take them.
+Mates of unequal length (in any pair, or of lengths that differ between
+pairs) take the host full-stats path, as in JAX: each mate list is aligned
+by `KAligner.align_batch(return_raw=True)` (`fast_pass_v3`, the rescues the
+aligner has on), the pairs are formed on the host from both mates' hit
+lists (`_pair`) and an orphan is looked for over the insert window by a
+numpy scan (`_rescue`).
+
+Not ported (ROADMAP.md queue A item 18, genomes whose int32 locus ids
+wrap): the byte-tensor `pe_pass` with its escalation loop
+(`_pe_pass_subset`, `_drain_device`, `PeAligner(escalation=)`), which JAX
+takes only past that ceiling, and the host-probe window scans
+`window_scan` and `window_scan_packed` that its rescue reaches.
 """
 from __future__ import annotations
 
@@ -55,6 +61,8 @@ from ..ops.seed_extend_deep import deep_pe_pass_planes
 from ..ops.seed_extend_v4 import words_from_2bit
 from . import kalign as _k
 
+INT32_MAX = _k.INT32_MAX
+
 NAR_PE_ACCEPTED = _k.NAR_ACCEPTED
 NAR_PE_NOPAIR = "nopair"
 NAR_PE_INSERT = "badinsert"
@@ -76,6 +84,17 @@ class PePair:
     r2: _k.AlignResult | None = None
     tlen: int = 0                 # observed insert (outer distance)
     rescued: int = 0              # 1 or 2 if that mate was orphan-rescued
+
+
+def _hits_of(hit_ids, hit_mms, max_tot_mm):
+    """Usable loci for pairing: all reported hits with mm <= budget, as
+    (pos, strand, mm)."""
+    out = []
+    for hid, hmm in zip(hit_ids, hit_mms):
+        if hid == INT32_MAX or hmm > max_tot_mm:
+            continue
+        out.append((int(hid) >> 1, int(hid) & 1, int(hmm)))
+    return out
 
 
 class _LazyRecs:
@@ -137,19 +156,173 @@ class PeAligner:
 
     def align_pairs(self, recs1, recs2):
         """Align paired record lists; returns a (rec1, rec2, PePair)
-        stream. Every mate must have one length: mixed lengths raise
-        NotImplementedError here, before any alignment."""
+        stream. Pairs whose mates all share one length run the device
+        pairing pass; any other mix takes the host full-stats path."""
         recs1, recs2 = list(recs1), list(recs2)
         assert len(recs1) == len(recs2), "PE file length mismatch"
-        if not recs1:
-            return iter(())
         lens = {(len(a.codes), len(b.codes)) for a, b in zip(recs1, recs2)}
-        if len(lens) != 1 or len(recs1[0].codes) != len(recs2[0].codes):
-            raise NotImplementedError(
-                "kalign -u with mates of unequal or mixed lengths (the "
-                "host full-stats pairing) is not ported yet: ROADMAP.md "
-                "queue A item 12")
-        return self._align_pairs_device(recs1, recs2)
+        if len(lens) == 1 and len(recs1[0].codes) == len(recs2[0].codes):
+            return self._align_pairs_device(recs1, recs2)
+        return self._align_pairs_host(recs1, recs2)
+
+    def _align_pairs_host(self, recs1, recs2):
+        for r1, r2, a1, a2 in zip(recs1, recs2, self._align_all(recs1),
+                                  self._align_all(recs2)):
+            yield r1, r2, self._pair(r1, r2, a1, a2)
+
+    def _align_all(self, recs):
+        """Align records preserving order; returns a list of
+        (AlignResult, hit_ids, hit_mms, max_tot_mm). Each batch_size chunk
+        is aligned by read length; JAX pads each length's rows to
+        batch_size for its compiled shapes, which no row's answer depends
+        on, so the port aligns the rows alone."""
+        out = []
+        B = self.al.batch_size
+        for chunk_start in range(0, len(recs), B):
+            chunk = recs[chunk_start:chunk_start + B]
+            by_len: dict[int, list[int]] = {}
+            for i, r in enumerate(chunk):
+                by_len.setdefault(len(r.codes), []).append(i)
+            chunk_out: list = [None] * len(chunk)
+            for L, idxs in by_len.items():
+                arr = np.stack([chunk[i].codes for i in idxs])
+                results, raw = self.al.align_batch(arr, return_raw=True)
+                _, max_tot_mm = self.al.schedule_for(L)
+                for j, i in enumerate(idxs):
+                    chunk_out[i] = (results[j], raw["hit_id"][j],
+                                    raw["hit_mm"][j], max_tot_mm)
+            out.extend(chunk_out)
+        return out
+
+    def _same_chrom(self, p1: int, p2: int) -> bool:
+        g = self.al.index.genome
+        c1 = np.searchsorted(g.starts, p1, side="right")
+        c2 = np.searchsorted(g.starts, p2, side="right")
+        return c1 == c2
+
+    def _valid_pair(self, h1, h2, L1: int, L2: int):
+        """Orientation + insert check of two (pos, strand, mm) hits.
+        Returns the insert length or None. Default PE library (FR):
+        forward mate leftmost, reverse mate rightmost; insert = outer
+        distance."""
+        p1, s1, _ = h1
+        p2, s2, _ = h2
+        if s1 == s2:
+            return None
+        if not self._same_chrom(p1, p2):
+            return None
+        if s1 == 0:  # mate1 forward, mate2 reverse: p1 <= p2 end
+            left, right_end = p1, p2 + L2
+            if p2 < p1:
+                return None
+        else:        # mate2 forward
+            left, right_end = p2, p1 + L1
+            if p1 < p2:
+                return None
+        insert = right_end - left
+        if not (self.min_len <= insert <= self.max_len):
+            return None
+        return insert
+
+    def _pair(self, rec1, rec2, a1, a2) -> PePair:
+        """AcceptProvPE over both mates' hit lists (KAligner.cpp:10173):
+        the lowest combined mismatch count of the valid combinations,
+        unique in its loci; else the orphan rescue and the orphan-as-SE
+        fallback of the pe mode."""
+        res1, hid1, hmm1, mtm1 = a1
+        res2, hid2, hmm2, mtm2 = a2
+        L1, L2 = len(rec1.codes), len(rec2.codes)
+        h1 = _hits_of(hid1, hmm1, mtm1)
+        h2 = _hits_of(hid2, hmm2, mtm2)
+
+        best = None
+        best_score = None
+        n_best = 0
+        for c1 in h1:
+            for c2 in h2:
+                ins = self._valid_pair(c1, c2, L1, L2)
+                if ins is None:
+                    continue
+                score = c1[2] + c2[2]
+                if best_score is None or score < best_score:
+                    best, best_score, n_best = (c1, c2, ins), score, 1
+                elif score == best_score and (c1[0], c2[0]) != (
+                        best[0][0], best[1][0]):
+                    n_best += 1
+        if best is not None and n_best == 1:
+            (p1, s1, m1), (p2, s2, m2), ins = best
+            return PePair(
+                NAR_PE_ACCEPTED,
+                _k.AlignResult(_k.NAR_ACCEPTED, strand=s1, pos=p1, mm=m1,
+                               n_low=1),
+                _k.AlignResult(_k.NAR_ACCEPTED, strand=s2, pos=p2, mm=m2,
+                               n_low=1),
+                tlen=ins)
+        if best is not None:
+            return PePair(NAR_PE_NOPAIR)
+
+        # orphan rescue (pemode 1/3): anchor on a uniquely aligned mate
+        if self.pe_mode in (1, 3):
+            pair = self._rescue(rec1, rec2, res1, res2, h1, h2, L1, L2,
+                                mtm1, mtm2)
+            if pair is not None:
+                return pair
+
+        # orphan-as-SE fallback (pemode 3/4)
+        if self.pe_mode in (3, 4):
+            r1 = res1 if res1.nar == _k.NAR_ACCEPTED else None
+            r2 = res2 if res2.nar == _k.NAR_ACCEPTED else None
+            if r1 or r2:
+                return PePair(NAR_PE_NOPAIR, r1, r2)
+        return PePair(NAR_PE_NOPAIR)
+
+    def _rescue(self, rec1, rec2, res1, res2, h1, h2, L1, L2, mtm1, mtm2):
+        """AlignPartnerRead equivalent (KAligner.cpp:3333-3440): scan the
+        insert window around the unique anchor for the missing mate."""
+        if res1.nar == _k.NAR_ACCEPTED and not h2:
+            anchor, orphan, Lo, mtm, who = res1, rec2, L2, mtm2, 2
+        elif res2.nar == _k.NAR_ACCEPTED and not h1:
+            anchor, orphan, Lo, mtm, who = res2, rec1, L1, mtm1, 1
+        else:
+            return None
+        g = self.al.index.genome.seq
+        # expected window: opposite strand within max insert of the anchor
+        La = L1 if who == 2 else L2
+        if anchor.strand == 0:
+            lo = anchor.pos + self.min_len - Lo
+            hi = anchor.pos + self.max_len - Lo
+            want_strand = 1
+        else:
+            lo = anchor.pos + La - self.max_len
+            hi = anchor.pos + La - self.min_len
+            want_strand = 0
+        lo = max(0, lo)
+        hi = min(len(g) - Lo, hi)
+        if hi < lo:
+            return None
+        probe = (orphan.codes if want_strand == 0
+                 else dna.revcomp(orphan.codes))
+        span = g[lo:hi + Lo]
+        wins = np.lib.stride_tricks.sliding_window_view(span, Lo)
+        mm = (wins != probe).sum(axis=1)
+        best = int(mm.min())
+        if best > mtm:
+            return None
+        cands = np.nonzero(mm == best)[0]
+        if len(cands) != 1:
+            return None
+        opos = lo + int(cands[0])
+        o_res = _k.AlignResult(_k.NAR_ACCEPTED, strand=want_strand,
+                               pos=opos, mm=best, n_low=1)
+        if who == 2:
+            r1, r2 = anchor, o_res
+        else:
+            r1, r2 = o_res, anchor
+        ins = self._valid_pair((r1.pos, r1.strand, r1.mm),
+                               (r2.pos, r2.strand, r2.mm), L1, L2)
+        if ins is None:
+            return None
+        return PePair(NAR_PE_ACCEPTED, r1, r2, tlen=ins, rescued=who)
 
     def _align_pairs_device(self, recs1, recs2):
         al = self.al

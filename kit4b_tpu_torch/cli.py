@@ -61,8 +61,7 @@ def cmd_index(args) -> int:
 # kalign flags of paths not ported yet, each off by default:
 # dest -> (flag, ROADMAP queue A item)
 _KALIGN_UNPORTED = {
-    "microindellen": ("-y", 12), "splicemax": ("-l", 12),
-    "chimeric": ("-C", 12), "mlmode": ("--mlmode", 20),
+    "mlmode": ("--mlmode", 20),
     "bisulfite": ("--bisulfite", 17), "csindex": ("--csindex (BAM)", 20),
     "baindex": ("--baindex (BAM)", 20), "include": ("-Z", 20),
     "exclude": ("-z", 20), "priobed": ("-B", 20), "pcrdups": ("-5", 20),
@@ -120,10 +119,12 @@ def cmd_simreads(args) -> int:
 
 
 def cmd_kalign(args) -> int:
-    """ngskit4b kalign equivalent (KAlignerCL.cpp / KAligner.cpp):
-    substitutions only, single ends, or paired ends with -u (pairing, the
-    deep tier and the insert-window rescue, align.pe), SAM through the
-    native formatters."""
+    """ngskit4b kalign equivalent (KAlignerCL.cpp / KAligner.cpp): single
+    ends, with the microInDel (-y), splice (-l) and chimeric (-C) rescues
+    on request, or paired ends with -u (pairing, the deep tier and the
+    insert-window rescue, align.pe). Plain single ends and paired ends
+    write SAM through the native formatters; a rescue route writes it
+    record by record, after the orphan junction removal."""
     from .align import kalign
     for dest, (flag, item) in _KALIGN_UNPORTED.items():
         if getattr(args, dest):
@@ -140,7 +141,9 @@ def cmd_kalign(args) -> int:
     al = kalign.KAligner(idx, max_subs=args.substitutions,
                          mm_delta=args.editdelta, max_ml=args.maxmulti,
                          max_ns=args.maxns, batch_size=args.batchsize,
-                         sens=sens, device=device)
+                         sens=sens, micro_indel=args.microindellen,
+                         splice_max=args.splicemax,
+                         chimeric_pct=args.chimeric, device=device)
     caller = None
     if args.snpfile:
         from .align import snp     # imports scipy: only for -S
@@ -165,7 +168,7 @@ def cmd_kalign(args) -> int:
                 emit_unmapped=(args.format == 1), snp_caller=caller)
         log.info("kalign PE: %s; pair rows by stage %s on %s", stats,
                  pal.stage_rows, device)
-    else:
+    elif al._use_compact():
         src = args.infile[0] if len(args.infile) == 1 \
             else stream(args.infile)
         with t.phase("align"):
@@ -177,6 +180,24 @@ def cmd_kalign(args) -> int:
                  sum(stats.values()), stats,
                  {L: "v5" if v5 else "v4"
                   for L, v5 in al._lut4_decided.items()}, device)
+    else:
+        from .align import phases
+        with t.phase("align"):
+            aligned = list(al.align_records(stream(args.infile)))
+            # orphan junction removal (KAligner.cpp:668/:680)
+            if args.splicemax:
+                n = phases.remove_orphan_junctions(aligned, "splice")
+                log.info("kalign: %d orphan splice junctions removed", n)
+            if args.microindellen:
+                n = phases.remove_orphan_junctions(aligned, "indel")
+                log.info("kalign: %d orphan microInDels removed", n)
+            stats = kalign.write_sam(
+                args.outfile, idx, aligned, cmdline=" ".join(sys.argv),
+                emit_unmapped=(args.format == 1), snp_caller=caller,
+                stats_path=args.statsfile)
+        log.info("kalign: %d reads, %s; tier 1 by read length %s on %s",
+                 sum(stats.values()), dict(stats),
+                 dict.fromkeys(al._schedules, "v3"), device)
     if caller is not None:
         with t.phase("snp call"):
             calls = caller.call()

@@ -210,8 +210,8 @@ def marker_positions(index: SfxIndex, chrom_cult: np.ndarray,
     if 2 * G + 1 >= 2 ** 31:
         raise ValueError(
             f"kmarkers on a genome of {G} bases: hit ids 2*G+1 overflow "
-            "int32; genomes past 2^30 bases need the large-genome branches, "
-            "not ported yet: ROADMAP.md queue A item 12")
+            "int32; genomes past 2^30 bases need the per-shard offsets "
+            "of ROADMAP.md queue A item 18")
     K = kmer_len
     gview_d, sa_d, lut_d = _fast_device_arrays(index, K, dev)
     genome_d = torch.from_numpy(g.seq).to(dev)

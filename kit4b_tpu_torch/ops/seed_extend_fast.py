@@ -17,9 +17,11 @@ nothing from host memory: such a copy would wait for the stream,
 and callers keep several batches in flight.
 
 Not ported: `single_strand`, `lut_base` and `digit_map` (the bisulfite
-caller, ROADMAP queue A item 17), `fast_pass_compact` and the host-probe
-window scans `window_scan` and `window_scan_packed`, which the paired-end
-path reaches only for mates of unequal length (item 12).
+caller, ROADMAP queue A item 17), `fast_pass_compact` (an index with 2^31
+clean suffixes or more) and the host-probe window scans `window_scan` and
+`window_scan_packed`, which JAX's paired-end rescue reaches only on the
+byte-tensor `pe_pass` route, taken past the int32 locus-id ceiling
+(item 18).
 """
 from __future__ import annotations
 

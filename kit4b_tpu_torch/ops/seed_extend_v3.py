@@ -1,10 +1,12 @@
-"""Classification and the compact [B, 2] result of the kalign tier-1 pass.
+"""Classification, the compact [B, 2] result of the kalign tier-1 pass,
+and the full-stats tier 1.
 
-Port of `make_lut2_device`, `_classify_compact`, `pack_result2` and
-`unpack_result2` from kit4b_tpu/ops/seed_extend_v3.py. The v3 passes
-themselves (`fast_pass_compact_v3`, `fast_pass_v3`, `fast_pass_packed_v3`)
-are not ported: v4 supersedes them on this path, and the others serve the
-rescues and the genomes past 1.07 Gbp (ROADMAP queue A item 12).
+Port of `make_lut2_device`, `_classify_compact`, `pack_result2`,
+`unpack_result2` and `fast_pass_v3` from kit4b_tpu/ops/seed_extend_v3.py.
+`fast_pass_v3` runs on the v4 core (see its docstring). Not ported:
+`fast_pass_packed_v3` (v4 and v5 supersede it), and
+`fast_pass_compact_v3`, which serves genomes with 2*G+1 >= 2^31, whose
+int32 locus ids wrap (ROADMAP queue A item 18).
 """
 from __future__ import annotations
 
@@ -55,3 +57,31 @@ def unpack_result2(res: np.ndarray):
     low = res[:, 1].astype(np.int64)
     n_low = np.where(code >= 0, 1, np.where(code == -2, 2, 0))
     return code, low, n_low
+
+
+def fast_pass_v3(gview, sa, lut2, reads2b, nlist, *, genome_len, offsets,
+                 lut_k, read_len, n_compact, max_ml, n_extend=None,
+                 max_per_bucket=None):
+    """Full-stats tier 1: 2-bit reads in, fast_pass's dict out (low_mm /
+    n_low / nxt_mm [B], hit_id / hit_mm [B, max_ml], overflow [B]); the
+    hit lists feed the microInDel, splice and chimeric rescues and the
+    pairing of mates of unequal length.
+
+    JAX's `fast_pass_v3` runs `_cands_core` on lane-major byte tensors, a
+    layout chosen for two TPU cost laws. The v4 core keeps that core's
+    exact contract (the same distinct loci, mismatch counts and overflow)
+    from packed word planes, so this pass is `words_from_2bit` ->
+    `_cands_core_v4` -> `finalize_fast`, and reads cross to the device at
+    2 bits a base. Not taken from JAX: `key_lo` (the key-sharded index,
+    ROADMAP queue A item 18) and `single_strand`, `lut_base`, `digit_map`
+    (bisulfite, item 17). Nothing here waits for the device."""
+    from .seed_extend_fast import finalize_fast
+    from .seed_extend_v4 import _cands_core_v4, words_from_2bit
+    planes = words_from_2bit(reads2b, nlist, read_len)
+    ids, mm, overflow = _cands_core_v4(
+        gview, sa, lut2, planes, genome_len=genome_len, offsets=offsets,
+        lut_k=lut_k, read_len=read_len, n_compact=n_compact,
+        n_extend=n_extend, max_per_bucket=max_per_bucket)
+    out = finalize_fast(ids.T, mm.T, max_ml=max_ml)
+    out["overflow"] = overflow
+    return out

@@ -181,35 +181,15 @@ def test_cli_index_kalign_match_jax(tmp_path, lib, name):
         assert tier1 > left == 0   # device tier 2 resolved every escalation
 
 
-@pytest.mark.parametrize("flag", [["-u", "{mixed}"], ["-y", "3"],
-                                  ["-l", "50"], ["-C", "20"],
-                                  ["--mlmode", "2"], ["--bisulfite"],
+@pytest.mark.parametrize("flag", [["--mlmode", "2"], ["--bisulfite"],
                                   ["-Z", "chr1"], ["-5", "2"],
                                   ["-B", "r.bed"]])
-def test_cli_unported_flags_raise(tmp_path, capsys, request, flag):
-    reads, kix = "r.fa", "g.kix"
-    if flag == ["-u", "{mixed}"]:
-        # paired ends whose mates differ in length: JAX pairs them on the
-        # host, which the port has not ported yet (item 12)
-        request.getfixturevalue("lib")
-        seq = _genome("random")
-        fa, kix = tmp_path / "g.fa", tmp_path / "g.kix"
-        write_fasta(fa, [SeqRecord("chr1", "", seq)])
-        assert port_main(["index", "-i", str(fa), "-o", str(kix)]) == 0
-        reads = tmp_path / "r1.fa"
-        write_fasta(reads, [SeqRecord(f"p{i}", "", seq[i:i + 100])
-                            for i in range(8)])
-        write_fasta(tmp_path / "r2.fa", [SeqRecord(f"p{i}", "",
-                                                   seq[i + 300:i + 390])
-                                         for i in range(8)])
-        flag = ["-u", str(tmp_path / "r2.fa")]
-    rc = port_main(["kalign", "-i", str(reads), "-I", str(kix), "-o",
+def test_cli_unported_flags_raise(tmp_path, capsys, flag):
+    rc = port_main(["kalign", "-i", "r.fa", "-I", "g.kix", "-o",
                     str(tmp_path / "o.sam"), "--device", "cpu", *flag])
     assert rc == 1
     err = capsys.readouterr().err
     assert "not ported yet: ROADMAP.md queue A item" in err
-    if flag[0] == "-u":
-        assert "item 12" in err and not (tmp_path / "o.sam").exists()
 
 
 def test_cli_without_cuda_fails_and_port_imports_no_jax(tmp_path):

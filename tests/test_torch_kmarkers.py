@@ -141,12 +141,12 @@ def test_find_cultivar_markers_match_jax(cultivars, min_hamming, extend):
 
 
 def test_marker_guard_refuses_genomes_past_2_30(cultivars):
-    """2*G+1 must fit int32, as the hit ids are int32 (item 12)."""
+    """2*G+1 must fit int32, as the hit ids are int32 (item 18)."""
     _, _, (pg, pidx, pcc, _) = cultivars
     big = np.broadcast_to(np.uint8(0), (2 ** 30,))
     huge = PIndex(type(pg)(pg.names, pg.starts, pg.lengths, big),
                   pidx.lut_k, pidx.sa_clean, pidx.lut)
-    with pytest.raises(ValueError, match="item 12"):
+    with pytest.raises(ValueError, match="item 18"):
         pk.find_cultivar_markers(huge, pcc, 0, device="cpu")
 
 

@@ -179,22 +179,3 @@ def test_cli_simreads_then_pe_kalign_match_jax(tmp_path, case):
     assert sum(int(c[1]) & 2 != 0 for c in body) > 0.8 * len(body) * (
         0.5 if fmt == "1" else 1)
     assert outs["port"][1].count(b"\n") > 2
-
-
-def test_cli_pe_kalign_of_mixed_lengths_fails_naming_item_12(tmp_path,
-                                                            capsys):
-    fa = tmp_path / "g.fa"
-    _write_genome(fa)
-    kix = tmp_path / "g.kix"
-    assert port_main(["index", "-i", str(fa), "-o", str(kix)]) == 0
-    rng = np.random.default_rng(1)
-    for name, L in (("r1.fa", 100), ("r2.fa", 90)):
-        write_fasta(tmp_path / name, [SeqRecord(
-            f"p{i}", "", rng.integers(0, 4, L).astype(np.uint8))
-            for i in range(4)])
-    rc = port_main(["kalign", "-i", str(tmp_path / "r1.fa"), "-I", str(kix),
-                    "-o", str(tmp_path / "o.sam"), "-u",
-                    str(tmp_path / "r2.fa"), "--device", "cpu"])
-    assert rc == 1
-    assert "ROADMAP.md queue A item 12" in capsys.readouterr().err
-    assert not (tmp_path / "o.sam").exists()

@@ -1,6 +1,7 @@
 """The host modules the port keeps its own copies of, each held equal to its
 original in the JAX package on the same seeded inputs: dna, io.fasta,
-io.sam's flags and SEQ/QUAL helper, io.bed's reader, index (SfxIndex,
+io.sam's flags, writer and SEQ/QUAL helper, io.bed's reader, the rescue
+finders ops.indel, ops.splice and ops.chimeric, index (SfxIndex,
 SA-IS), sim.simreads (every mode, SNP planting and its BED), align.snp,
 tools.config4's genome,
 utils.runtime, utils.summaries and the host functions of kmer.kmarkers
@@ -105,6 +106,86 @@ def test_sam_flags_match():
         for rev in (False, True):
             assert psam.seq_qual_for_strand(codes, q, rev) == \
                 jsam.seq_qual_for_strand(codes, q, rev)
+
+
+def test_sam_writer_matches(tmp_path):
+    recs = [dict(qname="r1", flag=16, rname="c1", pos=7, mapq=244,
+                 cigar="40M2D60M", seq="ACGT", qual="IIII",
+                 tags=("NM:i:3",)),
+            dict(qname="r2", flag=4, rname="*", pos=0, mapq=0, cigar="*"),
+            dict(qname="r3", flag=99, rname="c2", pos=1, mapq=254,
+                 cigar="5S95M", rnext="=", pnext=300, tlen=-400)]
+    out = []
+    for mod in (psam, jsam):
+        path = tmp_path / f"{mod.__name__}.sam"
+        with mod.SamWriter(path, ["c1", "c2"], [100, 2000],
+                           pg_cl="kalign -y 20") as w:
+            for r in recs:
+                w.write(mod.SamAlignment(**r))
+        out.append(path.read_bytes())
+    assert out[0] == out[1]
+    assert out[0].startswith(b"@HD\tVN:1.4\tSO:unsorted\n@SQ\tSN:c1")
+
+
+def _rescue_inputs(kind):
+    """A 30 kbp genome, reads of 100 bp oriented to it, and their
+    candidate loci ([B, C], INT32_MAX padded): a one-InDel read per size
+    and kind, a two-exon read on each planted intron, or a read with
+    random flanks, each with its true locus among decoys; and a random
+    read."""
+    rng = np.random.default_rng({"indel": 1, "splice": 2, "chimeric": 3}
+                                [kind])
+    g = rng.integers(0, 4, 30_000).astype(np.uint8)
+    g[rng.integers(0, 30_000, 20)] = 4
+    reads, cands = [], []
+    for i in range(12):
+        p = 500 + i * 2_000
+        if kind == "indel":
+            d, s = 1 + i % 6, 20 + 5 * i
+            r = np.concatenate([g[p:p + s], g[p + s + d:p + 100 + d]]) \
+                if i % 2 else np.concatenate(
+                    [g[p:p + s], rng.integers(0, 4, d), g[p + s:p + 100 - d]])
+        elif kind == "splice":
+            s, gap = 20 + 5 * i, 150 + 40 * i
+            g[p + s:p + s + 2] = (2, 3)
+            g[p + s + gap - 2:p + s + gap] = (0, 2)
+            r = np.concatenate([g[p:p + s], g[p + s + gap:p + gap + 100]])
+            cands.append([p + gap, p, 7_777, 2 ** 31 - 1])
+        else:
+            t5, keep = i * 2, 55 + 2 * i
+            r = np.concatenate([rng.integers(0, 4, t5), g[p:p + keep],
+                                rng.integers(0, 4, 100 - t5 - keep)])
+            p -= t5
+        reads.append(r.astype(np.uint8)[:100])
+        if kind != "splice":
+            cands.append([3_333, p, 2 ** 31 - 1, p + 5])
+    reads.append(rng.integers(0, 4, 100).astype(np.uint8))
+    cands.append([200, 9_000, 2 ** 31 - 1, 2 ** 31 - 1])
+    pos = np.array(cands, np.int64)
+    strand = np.zeros_like(pos)
+    strand[::3] = 1
+    return g, np.stack(reads), pos, strand
+
+
+@pytest.mark.parametrize("kind,kw", [
+    ("indel", {}), ("indel", dict(max_indel=4, max_mm=1, min_seg=12)),
+    ("splice", {}), ("splice", dict(max_gap=400, min_gap=100)),
+    ("chimeric", {}), ("chimeric", dict(min_chimeric_pct=70,
+                                        subs_per_100=2))])
+def test_rescue_finders_match(kind, kw):
+    import importlib
+    mods = [importlib.import_module(f"{pkg}.ops.{kind}")
+            for pkg in ("kit4b_tpu_torch", "kit4b_tpu")]
+    find = {"indel": "find_indels", "splice": "find_splices",
+            "chimeric": "find_chimeric"}[kind]
+    g, reads, pos, strand = _rescue_inputs(kind)
+    got, want = (getattr(m, find)(g, reads, pos, strand, **kw)
+                 for m in mods)
+    assert [None if h is None else (vars(h), h.cigar(100)) for h in got] \
+        == [None if h is None else (vars(h), h.cigar(100)) for h in want]
+    assert got[-1] is None
+    if not kw:
+        assert sum(h is not None for h in got) >= 6
 
 
 def test_bed_reader_matches(tmp_path):

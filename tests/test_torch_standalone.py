@@ -2,8 +2,9 @@
 chip_smoke.py, imports the JAX package kit4b_tpu or jax. An `ast` scan of
 every file proves it line by line; subprocesses with both names blocked in
 `sys.modules` import every module of the port and run its CLI (`index`,
-`simreads`, `hammings` exhaustive and `-r`, `kalign` single and paired
-ends, `pseudogenome`, `kmarkers`, `prekmarkers`, with `--device cpu` where
+`simreads`, `hammings` exhaustive and `-r`, `kalign` single ends (also
+with the -y and -C rescues) and paired ends (also of unequal mates),
+`pseudogenome`, `kmarkers`, `prekmarkers`, with `--device cpu` where
 a command takes one) on a small
 seeded genome. The runs that build a suffix index need the port's host
 library and skip without it. This file imports neither package either:
@@ -155,6 +156,45 @@ def test_cli_index_and_kalign_with_both_blocked(genome_fa, tmp_path,
     truth = sum(c[0].split("|")[2] == c[2] and
                 int(c[0].split("|")[3]) == int(c[3]) - 1 for c in body)
     assert truth == len(body)
+
+
+def test_cli_kalign_rescues_and_unequal_mates_with_both_blocked(
+        genome_fa, tmp_path, host_library):
+    """kalign -y -C on InDel reads (the full-stats route, record by record),
+    then kalign -u on pairs whose mate 2 was cut to 60 bp (the host
+    pairing)."""
+    kix, reads, sam = tmp_path / "g.kix", tmp_path / "r.fa", tmp_path / "o.sam"
+    r1, r2, pe_sam = tmp_path / "r1.fa", tmp_path / "r2.fa", tmp_path / "p.sam"
+    _run("from kit4b_tpu_torch import cli\n"
+         "from kit4b_tpu_torch.io.fasta import read_seqs, write_fasta\n"
+         f"assert cli.main(['index', '-i', {str(genome_fa)!r}, '-o', "
+         f"{str(kix)!r}]) == 0\n"
+         f"assert cli.main(['simreads', '-i', {str(genome_fa)!r}, '-o', "
+         f"{str(reads)!r}, '-n', '200', '-l', '80', '-X', '0.5', '-x', "
+         "'3', '-S', '5']) == 0\n"
+         f"assert cli.main(['kalign', '-i', {str(reads)!r}, '-I', "
+         f"{str(kix)!r}, '-o', {str(sam)!r}, '-y', '20', '-C', '50', '-b', "
+         "'256', '-M', '1', '--device', 'cpu']) == 0\n"
+         f"assert cli.main(['simreads', '-i', {str(genome_fa)!r}, '-o', "
+         f"{str(r1)!r}, '-O', {str(r2)!r}, '-p', '-n', '100', '-l', '80', "
+         "'-j', '200', '-J', '400', '-S', '6']) == 0\n"
+         f"recs = list(read_seqs({str(r2)!r}))\n"
+         "for r in recs:\n"
+         "    r.codes = r.codes[:60]\n"
+         f"write_fasta({str(r2)!r}, recs)\n"
+         f"assert cli.main(['kalign', '-i', {str(r1)!r}, '-I', {str(kix)!r},"
+         f" '-o', {str(pe_sam)!r}, '-u', {str(r2)!r}, '-d', '150', '-D', "
+         "'450', '-b', '256', '-M', '1', '--device', 'cpu']) == 0\n",
+         tmp_path)
+    body = [ln.split("\t") for ln in sam.read_text().splitlines()
+            if not ln.startswith("@")]
+    assert len(body) == 200 and sum(c[5] != "*" for c in body) > 100
+    assert any(c[5] not in ("*", "80M") for c in body)   # a rescue's CIGAR
+    body = [ln.split("\t") for ln in pe_sam.read_text().splitlines()
+            if not ln.startswith("@")]
+    proper = [c for c in body if int(c[1]) & 2]
+    assert len(body) == 200 and len(proper) > 150
+    assert {len(c[9]) for c in proper} == {60, 80}
 
 
 def test_cli_hammings_restricted_with_both_blocked(genome_fa, tmp_path,
