@@ -155,9 +155,31 @@ result:
    (d) Phase 11b's index and pairs, mate 2 cut to a seeded length in
    100-150 bp, through `kalign -u -U 2`: reads/s, accepted pairs, mates at
    their truth locus (>= 98 %).
+13. kalign's options, BAM, the SNP side outputs and bisulfite alignment
+   (host phases, plain PyTorch passes). (a) The port's CLI on the seeded
+   workload of `kit4b_tpu_torch.tools.make_kalign_opts_golden` (21 runs:
+   -x, -6, --mlmode 2-5, --lociconstraints, -Z, -z, -B, -5, BAM unsorted
+   and with a BAI or a CSI, -S -g -3 -X --markerfile --snpcentroidfile,
+   genpba, the paired-end route, index -m 1 + kalign --bisulfite) against
+   the JAX package's committed golden: every array equal; the raw BGZF
+   bytes only where this machine's zlib wrote the golden (it prints which).
+   (b) Config #1's genome and phase 8b's reads through `kalign -x 10 -6 2
+   --mlmode 3 -Z ^ecoli -5 4 -o out.bam --baindex`, under torch.profiler,
+   the run split by phase (passes, phases, filters, BAM write and sort)
+   and function; the same run to SAM, whose records, sorted, must equal
+   the BAM's, and 1,000 random windows queried through the BAI, each
+   returning exactly the records that overlap it. (c) The same genome,
+   `simreads -n 920000 -N 1000` (about 20x), `kalign -S out.vcf -g -3 -X
+   --markerfile --snpcentroidfile`: wall, `snp call`, SNP recall and
+   precision against the planted SNPs. (d) `index -m 1` on that genome
+   (lut_k 16: two radix-3 LUTs of 3^16 + 1 entries), the build split into
+   SA-IS, LUTs and the .kbx write; `kalign --bisulfite` on 100,000
+   converted 100 bp reads: reads/s, accepted share and truth share; one
+   `bs_pass_compact` on 16,384 resident reads (CUDA events, median of 5),
+   its device operations and busy share.
 
 Each kernel's launch counter is set to 0 just before its path (phases 4,
-6, 7) and read just after it; phases 8-12 run none of the three kernels.
+6, 7) and read just after it; phases 8-13 run none of the three kernels.
 The script prints its seconds before the kernels line. The
 line before the last is a JSON table of the kernels, each with its bound
 (the least time the card could take: int8 tensor operations for minmm
@@ -198,6 +220,8 @@ KM_BATCH = 49_152          # the kmarkers CLI's tier-1 batch
 CONFIG4_MBP = 40.0         # config #4's chr21-like genome, Mbp
 PE_PAIRS, PE_LEN, PE_BATCH = 65_536, 150, 16_384   # its 2 x 150 pairs
 SPLICE_INTRONS, SPLICE_READS = 2_000, 20_000   # phase 12c, 10 reads each
+SNP_READS = 920_000    # phase 13c: 100 bp reads, about 20x of 4.6 Mbp
+BIS_READS, BS_BATCH = 100_000, 16_384   # phase 13d
 INT8_PEAK = 1979e12    # H100 SXM dense int8 tensor operations per second
 HBM_RATE = 3.35e12     # H100 SXM device memory bytes per second
 WIDE_K = (51, 153)     # Cw 256 and 768, the widths past the main path's 128
@@ -1456,7 +1480,9 @@ def _rescue_cli(torch, dev, card, argv, n_reads, label):
     peak = torch.cuda.max_memory_allocated()
     if rc != [0]:
         raise AssertionError(f"CLI {label} exited {rc}")
-    align = log.seconds["align"]
+    # the per-record route times the passes, the phases and the writer
+    # apart; together they are the aligning of the readset
+    align = sum(log.seconds.get(k, 0) for k in ("align", "phases", "write"))
     print(f"CLI {label} on {card}: wall {wall} s ({n_reads / wall} reads/s), "
           f"phases {log.seconds}; align phase {n_reads / align} reads/s, "
           f"split {secs}, the rest of it (parsing on its thread, lists) "
@@ -1672,6 +1698,316 @@ def pe_unequal_full(torch, dev, card, tmp: Path):
     if n_acc < 0.8 * PE_PAIRS or at < 0.98 * len(proper):
         raise AssertionError(f"{n_acc} pairs accepted, {at} of "
                              f"{len(proper)} mates at their truth")
+
+
+def opts_golden(torch, dev):
+    """Phase 13a: kalign's options, genpba and bisulfite alignment through
+    the port's CLI on the card against the JAX package's golden."""
+    import zlib
+    from kit4b_tpu_torch.tools import make_kalign_opts_golden as mg
+    gold = np.load(mg.GOLDEN)
+    w = mg.workload()
+    if mg.inputs_sha256(*w) != str(gold["inputs_sha256"]):
+        raise AssertionError("the options golden workload rebuilt here "
+                             "differs from the one the golden was made from")
+    t0 = time.perf_counter()
+    out = mg.compute(mg.port_main(), ["--device", str(dev)], *w)
+    wall = time.perf_counter() - t0
+    same_zlib = str(gold["zlib_version"]) == zlib.ZLIB_RUNTIME_VERSION
+    keys = [k for k in gold.files if k not in ("inputs_sha256",
+                                               "zlib_version")]
+    skipped = [k for k in keys if k.endswith(":raw") and not same_zlib]
+    bad = [k for k in keys if k not in skipped
+           and not np.array_equal(out[k], gold[k])]
+    print(f"options golden ({wall} s; {len(mg.GROUPS) + 2} CLI runs: "
+          f"{', '.join(mg.GROUPS)}, genpba, bisulfite): zlib here "
+          f"{zlib.ZLIB_RUNTIME_VERSION}, the golden's {gold['zlib_version']}"
+          f": " + ("raw BAM/BAI/CSI bytes compared" if same_zlib else
+                   f"raw BGZF bytes not comparable, {len(skipped)} compared "
+                   "as decompressed payload and decoded index only")
+          + f"; {len(keys) - len(skipped)} arrays compared, differing: "
+          f"{bad or 'none'}")
+    if bad or mg.check_reach(out):
+        raise AssertionError(f"kalign options differ from the JAX golden in "
+                             f"{bad}; reach {mg.check_reach(out)}")
+
+
+def _reg2bins(beg: int, end: int) -> list[int]:
+    """The BAI bins that may hold records overlapping [beg, end) (SAM
+    spec 5.3)."""
+    end -= 1
+    bins = [0]
+    for shift, first in ((26, 1), (23, 9), (20, 73), (17, 585), (14, 4681)):
+        bins += range(first + (beg >> shift), first + (end >> shift) + 1)
+    return bins
+
+
+def bai_queries(bam: Path, n_windows: int, length: int, rng) -> int:
+    """Every query over n_windows random windows through the BAI (bins,
+    chunks and the linear index, offsets mapped to record ordinals) returns
+    exactly the records that overlap the window. Returns the records the
+    queries found."""
+    from kit4b_tpu_torch.io.bam import read_bam
+    from kit4b_tpu_torch.tools import make_kalign_opts_golden as mg
+    recs = list(read_bam(bam))
+    beg = np.array([r.pos - 1 for r in recs], np.int64)
+    end = beg + np.array([_ref_span(r.cigar) for r in recs], np.int64)
+    rows = mg.decode_bai(Path(str(bam) + ".bai").read_bytes(),
+                         mg.ordinal_map(bam))
+    rows = rows[rows[:, 0] == 0]
+    chunks = rows[rows[:, 1] >= 0]
+    linear = rows[rows[:, 1] < 0][:, 3]
+    found = 0
+    for a in rng.integers(0, length, n_windows).tolist():
+        b = a + int(rng.integers(1, 5_000))
+        lo = int(linear[min(a >> 14, len(linear) - 1)]) if len(linear) \
+            else 0
+        cand = set()
+        for _, _, o0, o1 in chunks[np.isin(chunks[:, 1], _reg2bins(a, b))]:
+            cand.update(range(max(int(o0), lo), int(o1)))
+        got = {k for k in cand if beg[k] < b and end[k] > a}
+        want = set(np.nonzero((beg < b) & (end > a))[0].tolist())
+        if got != want:
+            raise AssertionError(f"BAI query [{a}, {b}) returns "
+                                 f"{len(got)} records, {len(want)} overlap")
+        found += len(got)
+    return found
+
+
+def opts_full(torch, dev, card, tmp: Path):
+    """Phase 13b: config #1 with the phases, the filters and a sorted BAM
+    with its BAI, beside the same run written as SAM."""
+    from kit4b_tpu_torch import cli, dna
+    from kit4b_tpu_torch.align import kalign
+    from kit4b_tpu_torch.io import bam as bam_io
+    from kit4b_tpu_torch.io.fasta import Genome
+    from kit4b_tpu_torch.sim import simreads
+    rng = np.random.default_rng(12345)
+    codes = rng.integers(0, 4, ECOLI_LEN).astype(np.uint8)
+    g = Genome(["ecoli_sim"], np.array([0]), np.array([ECOLI_LEN]),
+               np.append(codes, dna.BASE_EOG).astype(np.uint8))
+    recs = simreads.sim_reads(g, simreads.SimParams(
+        n_reads=ECOLI_READS, read_len=READ_LEN, seed=7,
+        error_mode="illumina", subs_rate=0.02))
+    fa, reads_fa, kix = tmp / "ecoli_sim.fa", tmp / "reads.fa", \
+        tmp / "ecoli_sim.kix"
+    write_fasta(fa, ["ecoli_sim"], [codes])
+    simreads.write_reads(reads_fa, recs)
+    if cli.main(["index", "-i", str(fa), "-o", str(kix)]) != 0:
+        raise AssertionError("CLI index exited non-zero")
+    flags = ["-x", "10", "-6", "2", "--mlmode", "3", "-Z", "^ecoli", "-5",
+             "4", "-b", str(ECOLI_BATCH)]
+    al = kalign.KAligner
+    targets = [("device passes and their collect", al, "_submit"),
+               ("device passes and their collect", al, "_collect_raw"),
+               ("results", al, "_to_results"),
+               ("BAM records", bam_io.BamWriter, "write"),
+               ("BAI", bam_io, "write_bai")]
+    runs = {}
+    for out in (tmp / "out.bam", tmp / "out.sam"):
+        log = _PhaseLog()
+        logging.getLogger("kit4b_tpu_torch").addHandler(log)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        rc = []
+        argv = ["kalign", "-i", str(reads_fa), "-I", str(kix), "-o",
+                str(out), *flags] + (["--baindex"] if out.suffix == ".bam"
+                                     else [])
+        try:
+            with _timed(targets) as secs:
+                wall, busy, n_ops = _profiled(
+                    torch, lambda: rc.append(cli.main(argv)))
+        finally:
+            logging.getLogger("kit4b_tpu_torch").removeHandler(log)
+        if rc != [0]:
+            raise AssertionError(f"CLI kalign -> {out.name} exited {rc}")
+        runs[out.suffix] = (log, wall, busy, n_ops, dict(secs),
+                            torch.cuda.max_memory_allocated())
+    log, wall, busy, n_ops, secs, peak = runs[".bam"]
+    print(f"CLI kalign {' '.join(flags)} -o out.bam --baindex on {card}: "
+          f"wall {wall} s ({ECOLI_READS / wall} reads/s), phases "
+          f"{log.seconds} (align = passes, collect and results; phases = "
+          f"-6, -x, --mlmode 3; filters = -Z, -5; write = BAM write and "
+          f"sort, BAI), align {ECOLI_READS / log.seconds['align']} reads/s; "
+          f"split {secs}; "
+          + (f"device busy {busy} s ({busy / wall} of the wall), "
+             if busy else "device busy not measured, ")
+          + f"{n_ops} device operations; peak device memory {peak} bytes; "
+          f"classes {log.stats}; the same run to SAM: wall {runs['.sam'][1]}"
+          f" s, phases {runs['.sam'][0].seconds}")
+    # the BAM's records, sorted, are the SAM's records sorted alike
+    bam_lines = [r.line() for r in bam_io.read_bam(tmp / "out.bam")]
+    with open(tmp / "out.sam") as f:
+        sam = [ln.rstrip("\n") for ln in f if not ln.startswith("@")]
+    sam_sorted = sorted(sam, key=lambda ln: int(ln.split("\t", 4)[3]))
+    recs_sam = _sam_records(tmp / "out.sam")
+    truth = {r[0]: simreads.parse_truth(r[0]) for r in recs_sam}
+    acc, at = _truth_share(recs_sam, lambda qn: (
+        truth[qn]["chrom"], truth[qn]["start"], truth[qn]["end"],
+        truth[qn]["strand"]))
+    n_trim = sum("S" in r[4] for r in recs_sam)
+    found = bai_queries(tmp / "out.bam", 1_000, ECOLI_LEN,
+                        np.random.default_rng(SEED + 13))
+    print(f"BAM check: {len(bam_lines)} records, equal to the SAM's "
+          f"{len(sam)} once sorted: {bam_lines == sam_sorted}; {n_trim} "
+          f"trimmed (S CIGAR); {at / max(acc, 1)} of {acc} accepted at "
+          f"their truth locus; 1,000 BAI window queries returned exactly "
+          f"the {found} overlapping records")
+    if bam_lines != sam_sorted or at < 0.99 * acc or not n_trim:
+        raise AssertionError("the sorted BAM differs from the SAM, or the "
+                             f"truth share {at} / {acc} is low")
+
+
+def snp_full(torch, dev, card, tmp: Path):
+    """Phase 13c: config #1's genome with planted SNPs at about 20x
+    through kalign -S -g -3 -X --markerfile --snpcentroidfile."""
+    from kit4b_tpu_torch import cli
+    fa, kix = tmp / "ecoli_sim.fa", tmp / "ecoli_sim.kix"
+    reads, bed = tmp / "snp_reads.fa", tmp / "snps.bed"
+    t0 = time.perf_counter()
+    if cli.main(["simreads", "-i", str(fa), "-o", str(reads), "-n",
+                 str(SNP_READS), "-l", str(READ_LEN), "-e", "illumina",
+                 "-z", "0.01", "-N", "1000", "-u", str(bed), "-S",
+                 "13"]) != 0:
+        raise AssertionError("CLI simreads -N 1000 exited non-zero")
+    t_sim = time.perf_counter() - t0
+    out = {k: tmp / k for k in ("snp.sam", "out.vcf", "cov.wig",
+                                "out.pba.npz", "m.fa", "c.csv")}
+    log = _PhaseLog()
+    logging.getLogger("kit4b_tpu_torch").addHandler(log)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    try:
+        rc = cli.main([
+            "kalign", "-i", str(reads), "-I", str(kix), "-o",
+            str(out["snp.sam"]), "-b", str(ECOLI_BATCH), "-S",
+            str(out["out.vcf"]), "-g", str(out["cov.wig"]), "-3",
+            str(out["out.pba.npz"]), "-X", str(tmp / "dsnp"),
+            "--markerfile", str(out["m.fa"]), "--snpcentroidfile",
+            str(out["c.csv"])])
+    finally:
+        logging.getLogger("kit4b_tpu_torch").removeHandler(log)
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    if rc != 0:
+        raise AssertionError(f"CLI kalign with the SNP outputs exited {rc}")
+    truth = {}
+    for line in bed.read_text().splitlines():
+        c = line.split("\t")
+        truth[c[0], int(c[1])] = "ACGT".index(c[3][2])
+    calls = _vcf_calls(out["out.vcf"])
+    hit = sum(truth.get(k) == a for k, a in calls.items())
+    lines = {k: sum(1 for _ in open(p)) for k, p in out.items()
+             if k not in ("snp.sam", "out.pba.npz")}
+    for k in ("dsnp.disnp.csv", "dsnp.trisnp.csv"):
+        lines[k] = sum(1 for _ in open(tmp / k))
+    print(f"simreads -n {SNP_READS} -N 1000 ({t_sim} s), then CLI kalign -S "
+          f"-g -3 -X --markerfile --snpcentroidfile on {card}: wall {wall} s"
+          f" ({SNP_READS / wall} reads/s), phases {log.seconds}; classes "
+          f"{log.stats}; peak device memory {peak} bytes; SNPs: "
+          f"{len(truth)} planted, {len(calls)} called, {hit} true: recall "
+          f"{hit / max(len(truth), 1)}, precision {hit / max(len(calls), 1)};"
+          f" lines written {lines}")
+    if hit < 0.9 * len(truth) or hit < 0.95 * len(calls) \
+            or lines["m.fa"] < 2 or lines["dsnp.disnp.csv"] < 2:
+        raise AssertionError(f"SNPs: {hit} true of {len(calls)} called, "
+                             f"{len(truth)} planted; {lines}")
+
+
+def bisulfite_full(torch, dev, card, tmp: Path):
+    """Phase 13d: index -m 1 on config #1's genome, then kalign
+    --bisulfite on converted reads; one bs_pass_compact timed."""
+    from kit4b_tpu_torch import cli
+    from kit4b_tpu_torch.align import bisulfite as bs
+    from kit4b_tpu_torch.align.kalign import build_pass_schedule
+    from kit4b_tpu_torch.index import sfx_index
+    from kit4b_tpu_torch.io.fasta import Genome
+    from kit4b_tpu_torch.ops import seed_extend_fast as F
+    from kit4b_tpu_torch.tools.make_kalign_opts_golden import bis_convert
+    fa, kbx = tmp / "ecoli_sim.fa", tmp / "ecoli_sim.kbx"
+    reads, sam = tmp / "bis.fa", tmp / "bis.sam"
+    ilog = _PhaseLog()
+    logging.getLogger("kit4b_tpu_torch").addHandler(ilog)
+    try:
+        with _timed([("SA-IS", sfx_index, "build_suffix_array")]) as secs:
+            t0 = time.perf_counter()
+            rc = cli.main(["index", "-m", "1", "-i", str(fa), "-o",
+                           str(kbx)])
+            wall_index = time.perf_counter() - t0
+    finally:
+        logging.getLogger("kit4b_tpu_torch").removeHandler(ilog)
+    if rc != 0:
+        raise AssertionError(f"CLI index -m 1 exited {rc}")
+    build = ilog.seconds["build bisulfite index"]
+    g = Genome.load(fa)
+    rng = np.random.default_rng(SEED + 14)
+    pos = rng.integers(0, ECOLI_LEN - READ_LEN, BIS_READS)
+    strand = rng.integers(0, 2, BIS_READS)
+    rows = [bis_convert(g.seq[p:p + READ_LEN], s, rng)
+            for p, s in zip(pos.tolist(), strand.tolist())]
+    write_fasta(reads, [f"bs{i}|{p}|{s}" for i, (p, s) in
+                        enumerate(zip(pos.tolist(), strand.tolist()))], rows)
+    log = _PhaseLog()
+    logging.getLogger("kit4b_tpu_torch").addHandler(log)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    rc = []
+    try:
+        wall, busy, n_ops = _profiled(torch, lambda: rc.append(cli.main(
+            ["kalign", "--bisulfite", "-i", str(reads), "-I", str(kbx),
+             "-o", str(sam)])))
+    finally:
+        logging.getLogger("kit4b_tpu_torch").removeHandler(log)
+    peak = torch.cuda.max_memory_allocated()
+    if rc != [0]:
+        raise AssertionError(f"CLI kalign --bisulfite exited {rc}")
+    recs = _sam_records(sam)
+    at = 0
+    for qn, flag, rname, p0, _, _ in recs:
+        _, p, s = qn.split("|")
+        at += p0 == int(p) and bool(flag & 16) == (s == "1")
+    print(f"CLI index -m 1 on {ECOLI_LEN} bp on {card}: wall {wall_index} "
+          f"s; build {build} s (SA-IS x2 {secs['SA-IS']} s, the radix-3 "
+          f"LUTs and keys {build - secs['SA-IS']} s), .kbx write "
+          f"{ilog.seconds['write index']} s; kalign --bisulfite on "
+          f"{BIS_READS} converted reads of {READ_LEN} bp: wall {wall} s "
+          f"({BIS_READS / wall} reads/s); accepted {len(recs) / BIS_READS},"
+          f" {at / max(len(recs), 1)} of them at their truth locus and "
+          f"strand; "
+          + (f"device busy {busy} s ({busy / wall} of the wall), "
+             if busy else "device busy not measured, ")
+          + f"{n_ops} device operations; peak device memory {peak} bytes")
+    if len(recs) < 0.8 * BIS_READS or at < 0.999 * len(recs):
+        raise AssertionError(f"bisulfite: {len(recs)} accepted, {at} at "
+                             "their truth")
+
+    # one pass on 16,384 resident reads
+    idx = bs.BsIndex.load(kbx)
+    al = bs.BsAligner(idx, device=dev)
+    (gct, sct, lct), (gga, sga, lga) = al._device(READ_LEN)
+    r = torch.from_numpy(np.stack(rows[:BS_BATCH])).to(dev)
+    rc_ = F.revcomp_device(r)
+    r_ct, r_garc = torch.where(r == 1, 3, r), torch.where(rc_ == 2, 0, rc_)
+    _, mtm = build_pass_schedule(READ_LEN, al.max_subs, al.mm_delta,
+                                 len(idx.genome.seq))
+
+    def run():
+        return bs.bs_pass_compact(
+            gct, sct, lct, gga, sga, lga, r_ct, r_garc,
+            genome_len=len(idx.genome.seq),
+            offsets=F.fast_offsets(READ_LEN, idx.lut_k, mtm),
+            lut_k=idx.lut_k, n_compact=al.n_compact, max_tot_mm=mtm,
+            mm_delta=al.mm_delta)
+    first = run().cpu().numpy()
+    ms = sorted(_time_ms(torch, run) for _ in range(5))
+    pwall, pbusy, pops = _profiled(torch, run)
+    print(f"bs_pass_compact on {BS_BATCH} device-resident reads on {card}: "
+          f"median {ms[2]} ms of 5 (CUDA events: {ms}), "
+          f"{BS_BATCH / ms[2] * 1e3} reads/s; {pops} device operations a "
+          f"pass, device busy {pbusy} s of {pwall} s; rows by code (-3 "
+          f"overflow, -2 multi, -1 no hit): "
+          f"{ {c: int((first[:, 0] == c).sum()) for c in (-3, -2, -1)} }")
 
 
 def minmm_cases(torch, cases, minmm, minmm_plain) -> int:
@@ -1977,6 +2313,13 @@ def main() -> int:
                                          dir=root) as tmp12:
             rescue_full(torch, dev, card, Path(tmp12))
         pe_unequal_full(torch, dev, card, Path(tmp))
+
+    # --- 13. kalign options, BAM, SNP outputs, bisulfite ----------------
+    opts_golden(torch, dev)
+    with tempfile.TemporaryDirectory(prefix=".chip_smoke_", dir=root) as tmp:
+        opts_full(torch, dev, card, Path(tmp))
+        snp_full(torch, dev, card, Path(tmp))
+        bisulfite_full(torch, dev, card, Path(tmp))
     if "jax" in sys.modules or "kit4b_tpu" in sys.modules:
         raise AssertionError("jax or the JAX package kit4b_tpu was imported")
 

@@ -27,15 +27,21 @@ them byte-identical to their originals. Every device tensor lives on the
 aligner's explicit `device` (CUDA by default; `device.resolve` raises when
 it is absent).
 
+`_force_full` (set by `--mlmode` 2-5) keeps the full-stats path without a
+rescue, for the multiloci hit lists. `filter_alignments` applies the
+chromosome, priority-region and PCR-duplicate filters to the record
+stream, and `write_sam` writes BAM (with a coordinate-sorted BAI or CSI on
+request, `io.bam`) for a path ending in .bam.
+
 Not ported: genomes with 2*G+1 >= 2^31 or 2^31 clean suffixes, whose int32
 locus ids pos*2+strand wrap (ROADMAP queue A item 18: JAX's per-shard
-offsets), and `--mlmode`'s forced hit lists, `filter_alignments` and BAM
-output (item 20). Paired ends are `align.pe`.
+offsets). Paired ends are `align.pe`.
 """
 from __future__ import annotations
 
 import bisect
 import ctypes
+import functools
 import os
 import queue
 import re
@@ -52,6 +58,7 @@ import torch
 from .. import dna, native
 from ..device import resolve
 from ..index.sfx_index import SfxIndex
+from ..io.bam import BamWriter
 from ..io.fasta import SeqRecord, read_seq_blocks, read_seqs
 from ..io.sam import (FLAG_REVERSE, FLAG_UNMAPPED, SamAlignment, SamWriter,
                       seq_qual_for_strand)
@@ -169,9 +176,7 @@ NAR_ACCEPTED, NAR_NOHIT, NAR_MULTI, NAR_NS = NAR_NAMES
 
 @dataclass
 class AlignResult:
-    """One read's placement: the fields of kit4b_tpu's AlignResult that
-    the ported paths set (the flank-trim fields wait for `-x`, ROADMAP
-    queue A item 20)."""
+    """One read's placement (kit4b_tpu's AlignResult)."""
     nar: str
     strand: int = 0        # 0 = '+', 1 = '-'
     pos: int = -1          # concatenated-genome start
@@ -179,8 +184,10 @@ class AlignResult:
     n_low: int = 0
     nxt_mm: int = INT32_MAX
     multi_ids: np.ndarray | None = None  # pos*2+strand of multiloci hits
-    cigar: str | None = None             # set by the rescues
-    secondary: bool = False              # SAM 0x100
+    cigar: str | None = None             # set by the rescues and -x
+    trim_left: int = 0                   # AutoTrimFlanks 5' soft clip
+    trim_right: int = 0                  # AutoTrimFlanks 3' soft clip
+    secondary: bool = False              # SAM 0x100 (mlmode 5 report-all)
 
 
 class KAligner:
@@ -294,11 +301,13 @@ class KAligner:
             read_len, self.index.lut_k,
             max_tot_mm + max(self.mm_delta - 1, 0))
 
+    _force_full = False   # set True when callers need multiloci hit lists
+
     def _use_compact(self) -> bool:
-        """Compact device classification unless the rescues need the hit
-        lists on the host."""
+        """Compact device classification unless hit lists are needed on the
+        host (the rescues, or --mlmode's multiloci candidates)."""
         return not (self.micro_indel or self.splice_max
-                    or self.chimeric_pct)
+                    or self.chimeric_pct or self._force_full)
 
     # --- device pass (submit / collect split for pipelining) ---------------
     def _submit(self, reads: np.ndarray, n_compact: int | None = None,
@@ -680,6 +689,65 @@ def _prefetched(source, consume):
         raise err[0]
 
 
+def filter_alignments(aligned, genome, *, chrom_include=None,
+                      chrom_exclude=None, priority_bed=None,
+                      max_pcr_dups: int = 0):
+    """Post-acceptance filters applied to the (rec, res) stream, mirroring
+    the reference phases FiltByChroms (KAligner.cpp:696),
+    FiltByPriorityRegions (:707), and ReducePCRduplicates (:634).
+
+    - chrom include/exclude regex lists (-Z/-z) demote accepted hits on
+      excluded chromosomes to 'nohit'.
+    - priority_bed: accepted hits must overlap a feature.
+    - max_pcr_dups: at most this many accepted reads per (start, strand)
+      locus; 0 disables. Requires a buffered pass (sorted by locus), so this
+      generator materializes when enabled.
+    """
+    inc = [re.compile(x) for x in (chrom_include or [])]
+    exc = [re.compile(x) for x in (chrom_exclude or [])]
+
+    def chrom_ok(name: str) -> bool:
+        if inc:
+            return any(p_.search(name) for p_ in inc)
+        if exc:
+            return not any(p_.search(name) for p_ in exc)
+        return True
+
+    def apply(rec, res):
+        if res.nar != NAR_ACCEPTED:
+            return rec, res
+        ci, off = genome.locate(np.array([res.pos]))
+        name = genome.names[int(ci[0])]
+        if not chrom_ok(name):
+            return rec, AlignResult(NAR_NOHIT)
+        if priority_bed is not None:
+            L = len(rec.codes)
+            if not priority_bed.overlapping(name, int(off[0]),
+                                            int(off[0]) + L):
+                return rec, AlignResult(NAR_NOHIT)
+        return rec, res
+
+    if not max_pcr_dups:
+        for rec, res in aligned:
+            yield apply(rec, res)
+        return
+    # PCR duplicate reduction needs locus grouping: buffer, count per
+    # (pos, strand), demote beyond the cap (reference keeps the first)
+    buffered = [apply(rec, res) for rec, res in aligned]
+    counts: dict = {}
+    for rec, res in buffered:
+        if res.nar != NAR_ACCEPTED:
+            yield rec, res
+            continue
+        key = (res.pos, res.strand)
+        n = counts.get(key, 0) + 1
+        counts[key] = n
+        if n > max_pcr_dups:
+            yield rec, AlignResult(NAR_NOHIT)
+        else:
+            yield rec, res
+
+
 def write_align_stats(path, stats: dict, sub_hist: np.ndarray,
                       insert_hist: np.ndarray | None = None) -> None:
     """Aligner stats CSV (reference -O output: substitution distribution,
@@ -697,12 +765,40 @@ def write_align_stats(path, stats: dict, sub_hist: np.ndarray,
                     f.write(f'"insert_size","{i}",{int(c)}\n')
 
 
+class _SortedBam:
+    """BamWriter-compatible buffer: a BAI or CSI needs coordinate order, so
+    the records are kept, sorted by (chromosome, position) and written on
+    exit (the reference sorts accepted hits before WriteBAMReadHits,
+    KAligner.cpp:5718). index True writes a BAI, "csi" a CSI."""
+
+    def __init__(self, path, chrom_names, chrom_lengths, *, index, **kw):
+        self._a = (path, chrom_names, chrom_lengths)
+        self._kw = dict(kw, index=index)
+        self._order = {n: i for i, n in enumerate(chrom_names)}
+        self._recs: list[SamAlignment] = []
+
+    def write(self, aln: SamAlignment) -> None:
+        self._recs.append(aln)
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self._recs.sort(key=lambda r: (self._order.get(r.rname, 1 << 30),
+                                       r.pos))
+        with BamWriter(*self._a, **self._kw) as bw:
+            for r in self._recs:
+                bw.write(r)
+
+
 def write_sam(path, index: SfxIndex, aligned, cmdline: str = "",
               emit_unmapped: bool = True, snp_caller=None,
-              stats_path=None) -> dict:
+              stats_path=None, bam_index=False) -> dict:
     """Write a (SeqRecord, AlignResult) stream to SAM, record by record,
-    with the rescues' CIGARs; returns the class counts (every nar seen,
-    orphan demotions included). Byte-identical to the JAX package's
+    with the rescues' and the flank trim's CIGARs, or to BAM when the path
+    ends .bam (coordinate-sorted with a BAI when `bam_index` is true, a CSI
+    when it is "csi"); returns the class counts (every nar seen, phase and
+    filter demotions included). Byte-identical to the JAX package's
     write_sam.
 
     NM counts the I/D bases of a CIGAR as well as the substitutions; MAPQ
@@ -712,9 +808,6 @@ def write_sam(path, index: SfxIndex, aligned, cmdline: str = "",
     accepted reads into its pileup (the kalign SNP phase input,
     KAligner.cpp:795-809); `stats_path` writes the substitution
     distribution CSV (-O)."""
-    if str(path).endswith(".bam"):
-        raise NotImplementedError("BAM output is not ported yet: "
-                                  "ROADMAP.md queue A item 20")
     g = index.genome
     stats = defaultdict(int)
     stats.update(dict.fromkeys(NAR_NAMES, 0))
@@ -730,7 +823,11 @@ def write_sam(path, index: SfxIndex, aligned, cmdline: str = "",
 
     sub_hist = np.zeros(64, np.int64)
     starts_list = g.starts.tolist()  # per-read locate via bisect
-    with SamWriter(path, g.names, g.lengths, pg_cl=cmdline) as w:
+    writer = SamWriter
+    if str(path).endswith(".bam"):
+        writer = functools.partial(_SortedBam, index=bam_index) \
+            if bam_index else BamWriter
+    with writer(path, g.names, g.lengths, pg_cl=cmdline) as w:
         for rec, res in aligned:
             stats[res.nar] += 1
             if res.nar == NAR_ACCEPTED:
@@ -832,16 +929,14 @@ def write_sam_fast(path, index: SfxIndex, aligner: KAligner, records,
     Raises native.NativeUnavailable without the native library. Returns
     the class counts, keyed by NAR_NAMES. `snp_caller`
     (align.snp.SnpCaller) accumulates accepted alignments into its pileup;
-    `stats_path` writes the substitution-distribution CSV (-O). An aligner
-    with a rescue on goes through `align_records` and the per-record
-    `write_sam`, as in JAX."""
-    if str(path).endswith(".bam"):
-        raise NotImplementedError("BAM output is not ported yet: "
-                                  "ROADMAP.md queue A item 20")
+    `stats_path` writes the substitution-distribution CSV (-O). A .bam
+    path, or an aligner that needs hit lists (a rescue on, or
+    `_force_full`), goes through `align_records` and the per-record
+    `write_sam` (unsorted BAM, no index), as in JAX."""
     lib = native.load()
     src_path = records if isinstance(records, (str, os.PathLike)) \
         else None
-    if not aligner._use_compact():
+    if str(path).endswith(".bam") or not aligner._use_compact():
         rec_iter = read_seqs(src_path) if src_path is not None else records
         return write_sam(path, index, aligner.align_records(rec_iter),
                          cmdline=cmdline, emit_unmapped=emit_unmapped,

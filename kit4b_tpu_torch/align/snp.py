@@ -1,6 +1,7 @@
 """SNP calling from accepted alignments (kalign SNP phase), the port's
-own copy of the caller and writers of kit4b_tpu/align/snp.py that
-`kalign -S` runs.
+own copy of kit4b_tpu/align/snp.py: the caller and writers of `kalign -S`,
+the DiSNP/TriSNP pass of `-X`, the centroid contexts of
+`--snpcentroidfile` and the marker sequences of `--markerfile`.
 
 Mirrors the reference CKAligner::ProcessSNPs/OutputSNPs
 (ngskit4b/KAligner.cpp:8168, :7098):
@@ -23,13 +24,17 @@ shards) arrives with multi-host streaming.
 """
 from __future__ import annotations
 
+import bisect
+from collections import defaultdict
 from dataclasses import dataclass
+from itertools import combinations
 
 import numpy as np
 from scipy.stats import binom
 
 from .. import dna
 from ..io.fasta import Genome
+from ..io.sam import read_sam
 
 BASE_COLS = 5  # A C G T N
 
@@ -174,6 +179,84 @@ class SnpCaller:
             axis=1).astype(np.uint32)
 
 
+# --- DiSNP / TriSNP ---------------------------------------------------------
+
+def call_multisnps(sam_path, calls: list[SnpCall], *, max_sep: int = 300,
+                   order: int = 2, min_reads: int = 1):
+    """Di/Tri-SNP haplotype counting (KAligner.cpp:10475
+    IterateReadsOverlapping; cDfltMaxDiSNPSep=300, KAligner.h): for every
+    pair (order=2) or triple (order=3) of accepted SNP loci within `max_sep`
+    bp, count reads covering all loci per allele combination.
+
+    Returns list of (chrom, loci_tuple, {allele_string: read_count}).
+    Implemented as a second pass over the emitted SAM (the reference
+    re-iterates its in-memory read store).
+    """
+    by_chrom: dict[str, list[int]] = defaultdict(list)
+    for c in calls:
+        by_chrom[c.chrom].append(c.loci)
+    groups: list[tuple[str, tuple]] = []
+    for chrom, loci in by_chrom.items():
+        loci.sort()
+        n = len(loci)
+        for i in range(n):
+            if order == 2:
+                for j in range(i + 1, n):
+                    if loci[j] - loci[i] > max_sep:
+                        break
+                    groups.append((chrom, (loci[i], loci[j])))
+            else:
+                for j in range(i + 1, n):
+                    if loci[j] - loci[i] > max_sep:
+                        break
+                    for k in range(j + 1, n):
+                        if loci[k] - loci[i] > max_sep:
+                            break
+                        groups.append((chrom, (loci[i], loci[j], loci[k])))
+    gidx: dict[tuple, dict] = {g: defaultdict(int) for g in groups}
+    loci_sorted = {chrom: sorted(l) for chrom, l in by_chrom.items()}
+
+    for rec in read_sam(sam_path):
+        if not rec.is_mapped:
+            continue
+        loci = loci_sorted.get(rec.rname)
+        if not loci:
+            continue
+        start = rec.pos - 1
+        end = start + len(rec.seq)
+        lo = bisect.bisect_left(loci, start)
+        hi = bisect.bisect_left(loci, end)
+        cover = loci[lo:hi]
+        if len(cover) < order:
+            continue
+        for t in _combos(cover, order):
+            key = (rec.rname, t)
+            if key in gidx:
+                allele = "".join(rec.seq[x - start] for x in t)
+                gidx[key][allele] += 1
+    out = []
+    for (chrom, loci), combos in gidx.items():
+        total = sum(combos.values())
+        if total >= min_reads and combos:
+            out.append((chrom, loci, dict(combos)))
+    return out
+
+
+def _combos(items, order):
+    return combinations(items, order)
+
+
+def write_multisnps_csv(path, groups, order: int = 2) -> None:
+    name = "DiSNP" if order == 2 else "TriSNP"
+    with open(path, "w") as f:
+        f.write(f'"{name}_ID","Chrom","Loci","Alleles","Counts"\n')
+        for i, (chrom, loci, combos) in enumerate(groups, start=1):
+            alleles = ";".join(sorted(combos))
+            counts = ";".join(str(combos[a]) for a in sorted(combos))
+            f.write(f'{i},"{chrom}","{"|".join(map(str, loci))}",'
+                    f'"{alleles}","{counts}"\n')
+
+
 _BASE_CHR = "ACGTN"
 
 
@@ -219,3 +302,153 @@ def write_snps_vcf(path, calls: list[SnpCall],
             f.write(f"{c.chrom}\t{c.loci + 1}\t{c.chrom}_{c.loci + 1}\t"
                     f"{_BASE_CHR[c.ref_base]}\t{alt_str}\t{qual}\tPASS\t"
                     f"DP={c.tot_bases};AF={af}\n")
+
+
+# --- SNP centroid contexts (KAligner.cpp:7380-7397, :8100-8131, :8625) ------
+
+CENTROID_FLANK = 3                      # cSNPCentfFlankLen
+CENTROID_LEN = 2 * CENTROID_FLANK + 1   # 7-mer context
+CENTROID_ELS = 4 ** CENTROID_LEN
+
+
+def snp_centroids(caller: SnpCaller, accepted: list[SnpCall]) -> dict:
+    """Centroid context distributions: for every 7-mer genome context
+    (SNP site centered), NumInsts counts loci with calling-depth coverage
+    (tot >= min_snp_reads, KAligner.cpp:7380-7397) and each accepted SNP
+    adds its ref/non-ref pileup counts to its context's row (:8100-8131).
+
+    Returns {"num_insts": [16384] int64, "num_snps": ..., "ref_cnt": ...,
+    "base_cnts": [16384, 5]} with the reference's big-endian 7-mer index."""
+    g = caller.genome
+    G = len(g.seq)
+    cov = caller._counts.reshape(G, BASE_COLS)[:, :4].sum(axis=1)
+    seq = g.seq.astype(np.int64)
+    # big-endian 7-mer value per center position (invalid where any flank
+    # base is non-ACGT or crosses the chrom boundary sentinels)
+    valid = seq < 4
+    idx7 = np.zeros(G, np.int64)
+    ok = np.ones(G, bool)
+    for o in range(-CENTROID_FLANK, CENTROID_FLANK + 1):
+        sh = np.roll(seq, -o)
+        vv = np.roll(valid, -o)
+        idx7 = (idx7 << 2) | np.where(vv, sh, 0)
+        ok &= vv
+    ok[:CENTROID_FLANK] = False
+    ok[G - CENTROID_FLANK:] = False
+
+    m = ok & (cov >= caller.opt.min_snp_reads)
+    num_insts = np.bincount(idx7[m], minlength=CENTROID_ELS)
+
+    num_snps = np.zeros(CENTROID_ELS, np.int64)
+    ref_cnt = np.zeros(CENTROID_ELS, np.int64)
+    base_cnts = np.zeros((CENTROID_ELS, 5), np.int64)
+    for c in accepted:
+        gpos = int(g.starts[g.names.index(c.chrom)]) + c.loci
+        if not ok[gpos]:
+            continue
+        ci = int(idx7[gpos])
+        num_snps[ci] += 1
+        nr = c.counts.copy().astype(np.int64)
+        ref_cnt[ci] += int(nr[c.ref_base])
+        nr[c.ref_base] = 0
+        base_cnts[ci] += nr
+    return {"num_insts": num_insts, "num_snps": num_snps,
+            "ref_cnt": ref_cnt, "base_cnts": base_cnts}
+
+
+def write_snp_centroids_csv(path, cent: dict) -> None:
+    """Reference centroid CSV layout (KAligner.cpp:8635-8650): one row per
+    7-mer, CentroidID 1-based, central base as RefBase."""
+    with open(path, "w") as f:
+        f.write('"CentroidID","Seq","NumInsts","NumSNPs","RefBase",'
+                '"RefBaseCnt","BaseA","BaseC","BaseG","BaseT","BaseN"\n')
+        for i in range(CENTROID_ELS):
+            v = i
+            bases = []
+            for _ in range(CENTROID_LEN):
+                bases.append(v & 3)
+                v >>= 2
+            bases.reverse()
+            seq = "".join(_BASE_CHR[b] for b in bases)
+            bc = cent["base_cnts"][i]
+            f.write(f'{i + 1},"{seq}",{cent["num_insts"][i]},'
+                    f'{cent["num_snps"][i]},'
+                    f'"{_BASE_CHR[bases[CENTROID_FLANK]]}",'
+                    f'{cent["ref_cnt"][i]},{bc[0]},{bc[1]},{bc[2]},'
+                    f'{bc[3]},{bc[4]}\n')
+
+
+# --- marker sequence reporting (KAligner.cpp:7483-7565) ---------------------
+
+def report_markers(path, caller: SnpCaller, accepted: list[SnpCall], *,
+                   marker5_len: int = 25, marker3_len: int = 25,
+                   poly_thres: float = 0.333) -> int:
+    """Write marker fasta for accepted SNPs whose full flanking window has
+    confident base calls (reference rules: every marker locus needs
+    >= min_snp_reads coverage; loci with non-ref proportion <= poly_thres
+    report the ref base, counting as polymorphic when > 0.1; otherwise a
+    major allele with proportion >= 1 - poly_thres is required, counting
+    as polymorphic when < 0.9; the SNP site itself needs non-ref
+    proportion >= 0.5). Sets marker_id / num_polymorphic on the calls and
+    returns the number of markers written.
+
+    Descriptor layout: '>Marker<id> <chrom> <start>|<len>|<snploci>|
+    <m5len>|<snpbase>|<refbase>|<numpoly>' (KAligner.cpp:7552)."""
+    g = caller.genome
+    G = len(g.seq)
+    counts = caller._counts.reshape(G, BASE_COLS)
+    seq = g.seq
+    marker_len = 1 + marker5_len + marker3_len
+    n = 0
+    with open(path, "w") as f:
+        for c in accepted:
+            c.marker_id = 0
+            c.num_polymorphic = 0
+            ci = g.names.index(c.chrom)
+            clen = int(g.lengths[ci])
+            if c.loci < marker5_len or c.loci + marker3_len >= clen:
+                continue
+            if c.non_ref / max(c.tot_bases, 1) < 0.5:
+                continue
+            gpos = int(g.starts[ci]) + c.loci
+            w = counts[gpos - marker5_len: gpos + marker3_len + 1]
+            acgt = w[:, :4].astype(np.int64)
+            tot = acgt.sum(axis=1)
+            refb = seq[gpos - marker5_len: gpos + marker3_len + 1]
+            if (tot < caller.opt.min_snp_reads).any() or (refb >= 4).any():
+                continue
+            ref_cnt = acgt[np.arange(marker_len), np.minimum(refb, 3)]
+            nr_prop = (tot - ref_cnt) / tot
+            mseq = []
+            npoly = 0
+            okm = True
+            for i in range(marker_len):
+                if nr_prop[i] <= poly_thres:
+                    if nr_prop[i] > 0.1:
+                        npoly += 1
+                    mseq.append(_BASE_CHR[int(refb[i])])
+                    continue
+                nrc = acgt[i].copy()
+                nrc[int(refb[i])] = 0
+                props = nrc / tot[i]
+                b = int(np.argmax(props))
+                if props[b] >= 1.0 - poly_thres:
+                    if props[b] < 0.9:
+                        npoly += 1
+                    mseq.append(_BASE_CHR[b])
+                else:
+                    okm = False
+                    break
+            if not okm:
+                continue
+            snp_base = mseq[marker5_len]
+            ref_base = _BASE_CHR[int(refb[marker5_len])]
+            if snp_base == ref_base:
+                continue
+            n += 1
+            c.marker_id = n
+            c.num_polymorphic = npoly
+            f.write(f">Marker{n} {c.chrom} {c.loci - marker5_len}|"
+                    f"{marker_len}|{c.loci}|{marker5_len}|{snp_base}|"
+                    f"{ref_base}|{npoly}\n{''.join(mseq)}\n")
+    return n

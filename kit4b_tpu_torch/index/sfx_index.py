@@ -15,8 +15,10 @@ File format: .kix (NumPy .npz) holding genome seq, chrom directory, clean SA
 and LUT, the analog of the reference's .sfx V5 file (SfxArray.h:194-209).
 The format is the JAX package's: an index that either package writes loads
 in the other. Both builds run on the port's host library (`native.py`)
-and raise `NativeUnavailable` without it: there is no numpy fallback. The
-bisulfite LUT radix (`lut_base`, `digit_map`) is not ported.
+and raise `NativeUnavailable` without it: there is no numpy fallback. A
+bisulfite index (align/bisulfite.py) builds its two collapsed-genome
+indexes with LUT radix 3 and a monotone code-to-digit map (`lut_base`,
+`digit_map`); the default radix 4 is plain DNA.
 """
 from __future__ import annotations
 
@@ -52,8 +54,15 @@ class SfxIndex:
     sa_clean: np.ndarray  # int32/int64 [M] clean-suffix positions, lex order
     lut: np.ndarray       # int64 [4^lut_k + 1] bucket starts into sa_clean
 
+    # LUT radix: 4 for plain DNA; 3 with a digit_map for bisulfite-collapsed
+    # alphabets (align/bisulfite.py) so direct addressing stays dense
+    lut_base: int = 4
+    digit_map: tuple | None = None
+
     @classmethod
-    def build(cls, genome: Genome, lut_k: int | None = None) -> "SfxIndex":
+    def build(cls, genome: Genome, lut_k: int | None = None,
+              lut_base: int = 4,
+              digit_map: tuple | None = None) -> "SfxIndex":
         seq = genome.seq
         if lut_k is None:
             lut_k = pick_lut_k(len(seq))
@@ -70,14 +79,18 @@ class SfxIndex:
         if k > 1:
             ok[n - k + 1:] = False
         sa_clean = sa[ok[sa]]
-        # Keys of clean suffixes (non-decreasing in SA order).
+        # Keys of clean suffixes (non-decreasing in SA order; any digit_map
+        # must be monotone in code order so bucket ranges stay contiguous).
+        dm = np.arange(4, dtype=np.int64) if digit_map is None \
+            else np.asarray(digit_map, dtype=np.int64)
         keys = np.zeros(len(sa_clean), dtype=np.int64)
         for j in range(k):
-            keys = keys * 4 + seq[sa_clean + j]
+            keys = keys * lut_base + dm[seq[sa_clean + j]]
         lut = np.searchsorted(
-            keys, np.arange(4**k + 1, dtype=np.int64)).astype(np.int64)
+            keys, np.arange(lut_base**k + 1, dtype=np.int64)).astype(np.int64)
         return cls(genome, k, sa_clean.astype(
-            np.int32 if n < 2**31 else np.int64), lut)
+            np.int32 if n < 2**31 else np.int64), lut,
+            lut_base=lut_base, digit_map=digit_map)
 
     @classmethod
     def build_buckets(cls, genome: Genome,

@@ -1,10 +1,11 @@
-"""SAM flag bits, the per-record writer and the SEQ/QUAL helper the port's
-SAM writers use (copies of kit4b_tpu/io/sam.py's flags, `SamAlignment`,
-`SamWriter` and `seq_qual_for_strand`; the header keeps the program name
+"""SAM flag bits, the per-record writer, the SEQ/QUAL helper and the text
+reader the port's SAM writers and the DiSNP pass use (copies of
+kit4b_tpu/io/sam.py's flags, `SamAlignment`, `SamWriter`, `SamRecord`,
+`read_sam` and `seq_qual_for_strand`; the header keeps the program name
 kit4b_tpu, so both packages write the same bytes)."""
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import numpy as np
 
@@ -65,6 +66,62 @@ class SamWriter:
 
     def __exit__(self, *exc):
         self.close()
+
+
+@dataclass
+class SamRecord:
+    qname: str
+    flag: int
+    rname: str
+    pos: int
+    mapq: int
+    cigar: str
+    rnext: str
+    pnext: int
+    tlen: int
+    seq: str
+    qual: str
+    opt: dict = field(default_factory=dict)   # optional TAG:TYPE:VALUE fields
+
+    def tag(self, name: str, default=None):
+        """Typed optional-field value (NM, AS, ... — SAMfile.cpp opt
+        field parsing); int/float types are converted."""
+        return self.opt.get(name, default)
+
+    @property
+    def is_mapped(self) -> bool:
+        return not (self.flag & FLAG_UNMAPPED)
+
+    @property
+    def is_reverse(self) -> bool:
+        return bool(self.flag & FLAG_REVERSE)
+
+
+def read_sam(path):
+    """Minimal SAM text reader (CSAMfile read parity, libkit4b/SAMfile.cpp)."""
+    with open(path) as f:
+        for line in f:
+            if line.startswith("@"):
+                continue
+            fields = line.rstrip("\n").split("\t")
+            if len(fields) < 11:
+                continue
+            opt = {}
+            for tok in fields[11:]:
+                parts = tok.split(":", 2)
+                if len(parts) != 3:
+                    continue
+                tagname, typ, val = parts
+                if typ == "i":
+                    opt[tagname] = int(val)
+                elif typ == "f":
+                    opt[tagname] = float(val)
+                else:
+                    opt[tagname] = val
+            yield SamRecord(fields[0], int(fields[1]), fields[2],
+                            int(fields[3]), int(fields[4]), fields[5],
+                            fields[6], int(fields[7]), int(fields[8]),
+                            fields[9], fields[10], opt)
 
 
 def seq_qual_for_strand(codes: np.ndarray, qual: np.ndarray | None,

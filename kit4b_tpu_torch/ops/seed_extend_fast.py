@@ -2,10 +2,14 @@
 tiers of kalign.
 
 Port of kit4b_tpu/ops/seed_extend_fast.py (`fast_candidates`,
-`finalize_fast`, `fast_pass`) for both strands of plain DNA reads, the
+`finalize_fast`, `fast_pass`), the
 paired-end orphan rescue scan (`window_scan_pe`, `_phase_scan`), plus its
 host helpers (`fast_offsets`, `_tail_mask`, `_window_masks`),
 which are re-homed here because the JAX module imports jax at module top.
+`fast_candidates` takes both strands of plain DNA reads by default, or one
+strand of reads the caller has collapsed to a 3-letter alphabet, keyed in
+radix `lut_base` through `digit_map` (the bisulfite pass,
+align/bisulfite.py).
 32-bit words ride the int64 carrier of `ops.bits`; counts, positions and
 ids are int32 as in JAX. Bit-identical to the JAX pass on the same inputs
 (tests/test_torch_kalign_passes.py).
@@ -16,8 +20,7 @@ v4/v5 cores, the deep pass and `words_from_2bit` share), so a pass copies
 nothing from host memory: such a copy would wait for the stream,
 and callers keep several batches in flight.
 
-Not ported: `single_strand`, `lut_base` and `digit_map` (the bisulfite
-caller, ROADMAP queue A item 17), `fast_pass_compact` (an index with 2^31
+Not ported: `fast_pass_compact` (an index with 2^31
 clean suffixes or more) and the host-probe window scans `window_scan` and
 `window_scan_packed`, which JAX's paired-end rescue reaches only on the
 byte-tensor `pe_pass` route, taken past the int32 locus-id ceiling
@@ -108,13 +111,15 @@ class ShapeConstants(NamedTuple):
 
 @functools.lru_cache(maxsize=64)
 def _shape_constants(offsets: tuple, lut_k: int, read_len: int,
-                     device: torch.device) -> ShapeConstants:
+                     device: torch.device,
+                     lut_base: int = 4) -> ShapeConstants:
     """The ShapeConstants of (offsets, lut_k, read_len) on `device`, built
-    once; offsets () and lut_k 0 give a read length's tail masks alone."""
+    once; offsets () and lut_k 0 give a read length's tail masks alone.
+    The digit weights are powers of `lut_base`."""
     nw = (read_len + 15) // 16
     offs = (torch.tensor(offsets, dtype=torch.int64)[:, None]
             + torch.arange(lut_k)[None, :])
-    powb = torch.tensor([4 ** e for e in range(lut_k - 1, -1, -1)],
+    powb = torch.tensor([lut_base ** e for e in range(lut_k - 1, -1, -1)],
                         dtype=torch.int32)
     off_w = torch.tensor(offsets, dtype=torch.int32)
     tm = _tail_mask(read_len, nw)
@@ -122,6 +127,12 @@ def _shape_constants(offsets: tuple, lut_k: int, read_len: int,
     return ShapeConstants(*(t.to(device) for t in (
         offs, powb, off_w, to_words(tm), to_words(wmask),
         to_words(tm | (tm << 1)))))
+
+
+@functools.lru_cache(maxsize=8)
+def _digit_map(digit_map: tuple, device: torch.device) -> torch.Tensor:
+    """A code-to-digit map as an int32 tensor on `device`, built once."""
+    return torch.tensor(digit_map, dtype=torch.int32, device=device)
 
 
 def revcomp_device(reads: torch.Tensor) -> torch.Tensor:
@@ -138,10 +149,19 @@ def fast_candidates(gview: torch.Tensor,   # [Gv, 2*nw2] genome context rows
                     offsets: tuple,
                     lut_k: int,
                     n_compact: int,
+                    single_strand: int | None = None,
+                    lut_base: int = 4,
+                    digit_map: tuple | None = None,
                     max_per_bucket: int | None = None):
-    """Seed + compact + extend + canonicalise, both strands. Returns (ids,
-    mm, overflow): ids/mm [B, NC] int32 (INT32_MAX invalid), each surviving
-    entry a deduplicated locus; overflow [B] bool -> escalate the read."""
+    """Seed + compact + extend + canonicalise. Returns (ids, mm, overflow):
+    ids/mm [B, NC] int32 (INT32_MAX invalid), each surviving entry a
+    deduplicated locus; overflow [B] bool -> escalate the read.
+
+    single_strand: None evaluates both strands (reads + their revcomp);
+    0/1 evaluates `reads` as given, labelling hits with that strand bit
+    (the bisulfite path pre-collapses/pre-revcomps its read tensors). A
+    seed's key is its digits (`digit_map` of each base code, the code
+    itself by default) in radix `lut_base`."""
     dev = reads.device
     B, L = reads.shape
     G = genome_len
@@ -152,14 +172,20 @@ def fast_candidates(gview: torch.Tensor,   # [Gv, 2*nw2] genome context rows
     nw2 = nw + 1
     n_keys = lut.shape[0] - 1
     Gv = gview.shape[0]
-    seqs = torch.stack([reads, revcomp_device(reads)], dim=1)   # [B,2,L]
-    D = 2 * W
+    if single_strand is None:
+        seqs = torch.stack([reads, revcomp_device(reads)], dim=1)  # [B,2,L]
+    else:
+        seqs = reads[:, None, :]                                   # [B,1,L]
+    S = seqs.shape[1]
+    D = S * W
     offs, powb, off_w, tmask, wmask, _ = _shape_constants(
-        tuple(offsets), k, L, dev)
+        tuple(offsets), k, L, dev, lut_base)
 
     # --- seed lookup: bucket (lo, cnt) per (strand, window) ----------------
     bases = seqs[:, :, offs]                                     # [B,S,W,k]
     digits = torch.where(bases < 4, bases, 0).to(torch.int32)
+    if digit_map is not None:
+        digits = _digit_map(tuple(digit_map), dev)[digits.long()]
     keys = (digits * powb).sum(-1, dtype=torch.int32)            # [B,S,W]
     key_ok = (bases < 4).all(-1)
     in_shard = (keys >= 0) & (keys < n_keys)
@@ -188,7 +214,10 @@ def fast_candidates(gview: torch.Tensor,   # [Gv, 2*nw2] genome context rows
     slot_ok = j[None, :] < total.clamp(max=NC)[:, None]
 
     w_d = (b % W).to(torch.int32)
-    strand = (b // W).to(torch.int32)
+    if single_strand is None:
+        strand = (b // W).to(torch.int32)
+    else:
+        strand = torch.full_like(w_d, single_strand)
     off_b = off_w[w_d.long()]
     sa_pos = take_clamped(sa, sa_idx).to(torch.int32)
     pos = sa_pos - off_b
@@ -211,9 +240,13 @@ def fast_candidates(gview: torch.Tensor,   # [Gv, 2*nw2] genome context rows
 
     ga = shift_align(gw)
     gba = shift_align(gb)
-    st = strand[..., None]
-    rp = torch.where(st == 0, rpack[:, None, 0, :], rpack[:, None, 1, :])
-    rb = torch.where(st == 0, rbad[:, None, 0, :], rbad[:, None, 1, :])
+    if S == 1:
+        rp = rpack[:, None, 0, :]
+        rb = rbad[:, None, 0, :]
+    else:
+        st = strand[..., None]
+        rp = torch.where(st == 0, rpack[:, None, 0, :], rpack[:, None, 1, :])
+        rb = torch.where(st == 0, rbad[:, None, 0, :], rbad[:, None, 1, :])
 
     x = ga ^ rp
     mism = (x | (x >> 1)) & MISM_BITS

@@ -73,8 +73,10 @@ def fast_pass_v3(gview, sa, lut2, reads2b, nlist, *, genome_len, offsets,
     from packed word planes, so this pass is `words_from_2bit` ->
     `_cands_core_v4` -> `finalize_fast`, and reads cross to the device at
     2 bits a base. Not taken from JAX: `key_lo` (the key-sharded index,
-    ROADMAP queue A item 18) and `single_strand`, `lut_base`, `digit_map`
-    (bisulfite, item 17). Nothing here waits for the device."""
+    ROADMAP queue A item 18) and `single_strand`, `lut_base`, `digit_map`,
+    which no caller of JAX's v3 core passes (the bisulfite pass runs
+    `seed_extend_fast.fast_candidates`). Nothing here waits for the
+    device."""
     from .seed_extend_fast import finalize_fast
     from .seed_extend_v4 import _cands_core_v4, words_from_2bit
     planes = words_from_2bit(reads2b, nlist, read_len)

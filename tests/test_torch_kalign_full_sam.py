@@ -93,11 +93,20 @@ def test_write_sam_after_orphan_removal_matches_jax(tmp_path,
     assert outs[1][1][pph.NAR_ORPHAN_SPLICE] == outs[1][0][0] > 0
 
 
-def test_write_sam_refuses_bam(tmp_path, golden_inputs):
+def test_write_sam_refuses_bam(tmp_path, golden_inputs, aligned):
+    """A .bam path, once refused, now writes BAM as in JAX: the -y -l -C
+    stream with its CIGARs, coordinate-sorted with a BAI, equal to the JAX
+    package's bytes."""
     _, both, se = golden_inputs
-    with pytest.raises(NotImplementedError, match="item 20"):
-        pk.write_sam(tmp_path / "o.bam", both.idx, [])
-    assert not (tmp_path / "o.bam").exists()
+    outs = []
+    for tag, stream, idx in zip(("jax", "port"), aligned,
+                                (both.jidx, both.idx)):
+        mod = jk if tag == "jax" else pk
+        st = mod.write_sam(tmp_path / f"{tag}.bam", idx, stream,
+                           cmdline="a b", bam_index=True)
+        outs.append((dict(st), (tmp_path / f"{tag}.bam").read_bytes(),
+                     (tmp_path / f"{tag}.bam.bai").read_bytes()))
+    assert outs[0] == outs[1]
 
 
 def test_write_sam_fast_with_a_rescue_matches_jax(tmp_path, golden_inputs):

@@ -1,5 +1,5 @@
 """SAM from the port against SAM from the JAX package, byte for byte:
-`write_sam_fast` on record streams and read files, and the
+`write_sam_fast` on record streams and read files (and to BAM), and the
 CLI end to end (`python -m kit4b_tpu_torch index` + `kalign --device cpu`
 against `kit4b_tpu.cli`) on the random and repeat genomes, L 100 and 64,
 reads with Ns, covering the v4 tier 1, the v5 tier 1 with its device tier
@@ -117,11 +117,20 @@ def test_write_sam_fast_path_source_matches_jax(tmp_path, repeats, fmt,
 
 
 def test_write_sam_fast_refuses_bam(tmp_path, repeats):
+    """A .bam path, once refused, now goes through the per-record writer
+    as in JAX: the BAM bytes equal the JAX package's."""
+    from kit4b_tpu.index.sfx_index import SfxIndex as JSfx
     idx, recs = repeats
-    with pytest.raises(NotImplementedError, match="item 20"):
-        pk.write_sam_fast(tmp_path / "o.bam", idx,
-                          pk.KAligner(idx, device="cpu"), recs)
-    assert not (tmp_path / "o.bam").exists()
+    jidx = JSfx(idx.genome, idx.lut_k, idx.sa_clean, idx.lut)
+    for tag, mod, index, kw in (("j", jk, jidx, {}),
+                                ("p", pk, idx, {"device": "cpu"})):
+        st = mod.write_sam_fast(tmp_path / f"{tag}.bam", index,
+                                mod.KAligner(index, batch_size=128, **kw),
+                                recs, cmdline="c")
+        assert st["accepted"] > 0
+    assert (tmp_path / "p.bam").read_bytes() == \
+        (tmp_path / "j.bam").read_bytes()
+    assert (tmp_path / "p.bam").read_bytes()[:4] == b"\x1f\x8b\x08\x04"
 
 
 CLI_CASES = {   # kind, read length, reads, batch, N rate, format, flags
@@ -184,12 +193,35 @@ def test_cli_index_kalign_match_jax(tmp_path, lib, name):
 @pytest.mark.parametrize("flag", [["--mlmode", "2"], ["--bisulfite"],
                                   ["-Z", "chr1"], ["-5", "2"],
                                   ["-B", "r.bed"]])
-def test_cli_unported_flags_raise(tmp_path, capsys, flag):
-    rc = port_main(["kalign", "-i", "r.fa", "-I", "g.kix", "-o",
-                    str(tmp_path / "o.sam"), "--device", "cpu", *flag])
-    assert rc == 1
-    err = capsys.readouterr().err
-    assert "not ported yet: ROADMAP.md queue A item" in err
+def test_cli_unported_flags_raise(tmp_path, lib, flag):
+    """The flags these cases once found refused (ROADMAP items 17 and 20)
+    now run: the port's CLI output equals the JAX package's, byte for
+    byte."""
+    seq = _genome("repeats")
+    fa = tmp_path / "genome.fa"
+    write_fasta(fa, [SeqRecord("chr1", "", seq)])
+    _, recs = _reads(seq, 100, 300, 31, 0.002)
+    reads = tmp_path / "reads.fa"
+    write_fasta(reads, recs)
+    bis = flag == ["--bisulfite"]
+    outs = {}
+    for tag, main, extra in (("jax", jax_main, []),
+                             ("port", port_main, ["--device", "cpu"])):
+        d = tmp_path / tag
+        d.mkdir()
+        (d / "r.bed").write_text("chr1\t0\t40000\tr1\nchr1\t90000\t95000\n")
+        kix = d / ("g.kbx" if bis else "g.kix")
+        assert main(["index", "-i", str(fa), "-o", str(kix)]
+                    + (["-m", "1"] if bis else [])) == 0
+        argv = ["kalign", "-i", str(reads), "-I", str(kix), "-o",
+                str(d / "o.sam"), "-M", "1", "-b", "128", "-O",
+                str(d / "s.csv"),
+                *[str(d / f) if f.endswith(".bed") else f for f in flag]]
+        assert main(argv + extra) == 0, tag
+        outs[tag] = {p.name: p.read_bytes() for p in d.iterdir()
+                     if p.suffix in (".sam", ".csv")}
+    assert outs["port"] == outs["jax"]
+    assert "o.sam" in outs["port"]
 
 
 def test_cli_without_cuda_fails_and_port_imports_no_jax(tmp_path):

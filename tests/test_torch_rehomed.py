@@ -1,6 +1,7 @@
 """The host modules the port keeps its own copies of, each held equal to its
 original in the JAX package on the same seeded inputs: dna, io.fasta,
-io.sam's flags, writer and SEQ/QUAL helper, io.bed's reader, the rescue
+io.sam's flags, writer, reader and SEQ/QUAL helper, io.bed's reader and
+overlap queries, io.bam, io.wig, kmer.pba, align.phases, the rescue
 finders ops.indel, ops.splice and ops.chimeric, index (SfxIndex,
 SA-IS), sim.simreads (every mode, SNP planting and its BED), align.snp,
 tools.config4's genome,
@@ -8,6 +9,7 @@ utils.runtime, utils.summaries and the host functions of kmer.kmarkers
 (pseudogenome, marker FASTA, the prekmarkers walk); and the port's own
 build of the host library (native.py), keyed by its sources, flags and
 CPU. Tests of the index skip when the library cannot be built."""
+import copy
 import gzip
 import logging
 import sqlite3
@@ -200,6 +202,176 @@ def test_bed_reader_matches(tmp_path):
     assert len(got) == len(want) == 4
     assert [vars(f) for f in got.features] == \
         [vars(f) for f in want.features]
+
+
+def test_bed_overlap_queries_match():
+    """BedFile.overlapping: features sorted by start with the running
+    maximum of their ends, queries touching each end exactly."""
+    from kit4b_tpu.io import bed as jbed
+    from kit4b_tpu_torch.io import bed as pbed
+    rng = np.random.default_rng(8)
+    feats = []
+    for i in range(300):
+        s0 = int(rng.integers(0, 20_000))
+        feats.append((f"c{i % 3}", s0, s0 + int(rng.integers(1, 2_000)),
+                      f"f{i}"))
+    j = jbed.BedFile([jbed.BedFeature(*f) for f in feats])
+    p = pbed.BedFile([pbed.BedFeature(*f) for f in feats])
+    queries = [(c, a, a + int(rng.integers(1, 300)))
+               for c, a in zip(rng.choice(["c0", "c1", "c2", "c9"], 500),
+                               rng.integers(0, 22_000, 500))]
+    queries += [(c, e, e + 5) for c, _, e, _ in feats[:50]]     # at an end
+    queries += [(c, b - 5, b) for c, b, _, _ in feats[:50]]     # to a start
+    n = 0
+    for c, a, b in queries:
+        got = [vars(f) for f in p.overlapping(str(c), int(a), int(b))]
+        assert got == [vars(f) for f in j.overlapping(str(c), int(a),
+                                                         int(b))]
+        n += bool(got)
+    assert n > 100
+
+
+def test_bam_writer_and_reader_match(tmp_path):
+    """io.bam's copy: a few records (reverse, soft clips, no quality,
+    a mate, unmapped) with a CSI, read back by either package."""
+    from kit4b_tpu.io import bam as jbam
+    from kit4b_tpu_torch.io import bam as pbam
+    recs = [dict(qname="a", flag=0, rname="c1", pos=5, mapq=254,
+                 cigar="4S20M", seq="ACGTACGTACGTACGTACGTACGT",
+                 qual="I" * 24, tags=("NM:i:1",)),
+            dict(qname="b", flag=16, rname="c1", pos=900, mapq=30,
+                 cigar="10M", rnext="=", pnext=950, tlen=60,
+                 seq="NNACGTACGT", qual="*"),
+            dict(qname="u", flag=4, rname="*", pos=0, mapq=0, cigar="*",
+                 seq="ACGN", qual="*")]
+    for tag, mod, sam in (("j", jbam, jsam), ("p", pbam, psam)):
+        with mod.BamWriter(tmp_path / f"{tag}.bam", ["c1", "c2"],
+                           [1000, 50], pg_cl="x", index="csi") as w:
+            for r in recs:
+                w.write(sam.SamAlignment(**r))
+    for f in ("bam", "bam.csi"):
+        assert (tmp_path / f"j.{f}").read_bytes() == \
+            (tmp_path / f"p.{f}").read_bytes()
+    assert [vars(a) for a in pbam.read_bam(tmp_path / "j.bam")] == \
+        [vars(a) for a in jbam.read_bam(tmp_path / "p.bam")]
+
+
+def test_sam_reader_matches(tmp_path):
+    path = tmp_path / "x.sam"
+    path.write_text("@HD\tVN:1.4\nr1\t16\tc1\t7\t254\t10M\t*\t0\t0\t"
+                    "ACGTACGTAC\t*\tNM:i:2\tXF:f:1.5\tRG:Z:g\tbad\n"
+                    "short\tline\nr2\t4\t*\t0\t0\t*\t*\t0\t0\tAC\t*\n")
+    got = [vars(r) for r in psam.read_sam(path)]
+    assert got == [vars(r) for r in jsam.read_sam(path)] and len(got) == 2
+    assert [r.is_mapped for r in psam.read_sam(path)] == [True, False]
+
+
+def test_wig_and_pba_writers_match(tmp_path):
+    from kit4b_tpu.io.wig import write_wig as jwig
+    from kit4b_tpu.kmer import pba as jpba
+    from kit4b_tpu_torch.io.wig import write_wig as pwig
+    from kit4b_tpu_torch.kmer import pba as ppba
+    pg, jg = _genomes(12)
+    rng = np.random.default_rng(12)
+    cov = (rng.integers(0, 4, len(pg.seq)) * (rng.random(len(pg.seq)) < 0.3)
+           ).astype(np.uint32)
+    cov[pg.starts[2]:] = 0          # a chromosome with no coverage
+    jwig(tmp_path / "j.wig", jg, cov, track_name="t")
+    pwig(tmp_path / "p.wig", pg, cov, track_name="t")
+    assert (tmp_path / "j.wig").read_bytes() == \
+        (tmp_path / "p.wig").read_bytes()
+    counts = rng.integers(0, 7, (len(pg.seq), 5)).astype(np.uint32)
+    got = ppba.pba_from_counts(counts)
+    np.testing.assert_array_equal(got, jpba.pba_from_counts(counts))
+    ppba.save_pba(tmp_path / "p.pba.npz", pg, got, readset="rs")
+    rs, chroms = jpba.load_pba(tmp_path / "p.pba.npz")
+    rs2, chroms2 = ppba.load_pba(tmp_path / "p.pba.npz")
+    assert rs == rs2 == "rs" and list(chroms) == list(chroms2) == pg.names
+    for k in chroms:
+        np.testing.assert_array_equal(chroms[k], chroms2[k])
+
+
+@pytest.mark.parametrize("phase", ["auto_trim_flanks", "pcr5_primer_correct",
+                                   "constraints", "assign_multi_random",
+                                   "expand_multi_all", "assign_multi_matches",
+                                   "side_files"])
+def test_phases_match(tmp_path, phase):
+    """align.phases' copy on one synthetic (rec, res) list: accepted reads
+    with mismatches at the flanks and the 5' end, on both strands, and
+    multi reads whose loci share unique reads' coverage."""
+    from kit4b_tpu.align import kalign as jk
+    from kit4b_tpu.align import phases as jph
+    from kit4b_tpu_torch.align import kalign as pk
+    from kit4b_tpu_torch.align import phases as pph
+    pg, jg = _genomes(13)
+    rng = np.random.default_rng(13)
+    L = 60
+    base = []
+    for i in range(120):
+        strand = i % 2
+        pos = int(rng.integers(0, 2_900))
+        if i % 7 == 0:
+            pos = 1000 + int(rng.integers(0, 30))   # the repeat's first copy
+        codes = pg.seq[pos:pos + L].copy()
+        mm = rng.choice(L, int(rng.integers(0, 5)), replace=False)
+        for m in mm:
+            codes[m] = (codes[m] + 1) % 4
+        if i % 5 == 0:
+            codes[:3] = (codes[:3] + 1) % 4
+        if strand:
+            codes = pdna.revcomp(codes)
+        o = int(rng.integers(0, 200))
+        if i % 11 == 0:
+            res = ("multi", dict(mm=1, n_low=2, multi_ids=np.array(
+                [(1000 + o) * 2, (3500 + o) * 2 + 1, 2 ** 31 - 1],
+                np.int64)))
+        elif i % 13 == 0:
+            res = ("nohit", {})
+        else:
+            res = ("accepted", dict(
+                strand=strand, pos=pos, n_low=1,
+                mm=int(((codes if not strand else pdna.revcomp(codes))
+                        != pg.seq[pos:pos + L]).sum())))
+        base.append((f"r{i}", codes, res))
+
+    def stream(mod_fa, mod_k):
+        return [(mod_fa.SeqRecord(n, "d", c.copy()),
+                 mod_k.AlignResult(nar, **copy.deepcopy(kw)))
+                for n, c, (nar, kw) in base]
+    j, p = stream(jfa, jk), stream(pfa, pk)
+    args = {"auto_trim_flanks": (jg.seq, 8), "pcr5_primer_correct":
+            (jg.seq, 1, 12)}
+    if phase == "constraints":
+        (tmp_path / "c.csv").write_text(
+            "# c\nchr1,1005,\"AC\"\nchr1,2000,G\nchr9,1,A\nchr2,10,T\n")
+        cj = jph.load_loci_constraints(tmp_path / "c.csv", jg)
+        cp = pph.load_loci_constraints(tmp_path / "c.csv", pg)
+        assert cj == cp
+        out = (jph.identify_constraint_violations(j, cj),
+               pph.identify_constraint_violations(p, cp))
+    elif phase == "side_files":
+        out = (jph.report_none_aligned(tmp_path / "j.fa", j),
+               pph.report_none_aligned(tmp_path / "p.fa", p),
+               jph.report_multi_align(tmp_path / "jm.fa", j),
+               pph.report_multi_align(tmp_path / "pm.fa", p))
+        assert (tmp_path / "j.fa").read_bytes() == \
+            (tmp_path / "p.fa").read_bytes()
+        assert (tmp_path / "jm.fa").read_bytes() == \
+            (tmp_path / "pm.fa").read_bytes()
+    elif phase == "expand_multi_all":
+        j, p = jph.expand_multi_all(j), pph.expand_multi_all(p)
+        out = (len(j), len(p))
+    else:
+        extra = args.get(phase, ())
+        out = (getattr(jph, phase)(j, *extra),
+               getattr(pph, phase)(p, *extra))
+    assert out[0] == out[1]
+
+    def fields(stream):
+        return [(r.name, r.codes.tolist(), {
+            k: v.tolist() if isinstance(v, np.ndarray) else v
+            for k, v in vars(a).items()}) for r, a in stream]
+    assert fields(p) == fields(j)
 
 
 def test_format_sam_pe_binding_on_a_fixed_input(lib):

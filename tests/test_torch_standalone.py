@@ -3,9 +3,11 @@ chip_smoke.py, imports the JAX package kit4b_tpu or jax. An `ast` scan of
 every file proves it line by line; subprocesses with both names blocked in
 `sys.modules` import every module of the port and run its CLI (`index`,
 `simreads`, `hammings` exhaustive and `-r`, `kalign` single ends (also
-with the -y and -C rescues) and paired ends (also of unequal mates),
-`pseudogenome`, `kmarkers`, `prekmarkers`, with `--device cpu` where
-a command takes one) on a small
+with the -y and -C rescues, with the phases and filters into BAM with a
+BAI, with the SNP side outputs) and paired ends (also of unequal mates),
+`genpba`, `index -m 1` with `kalign --bisulfite`, `pseudogenome`,
+`kmarkers`, `prekmarkers`, with `--device cpu` where a command takes one)
+on a small
 seeded genome. The runs that build a suffix index need the port's host
 library and skip without it. This file imports neither package either:
 
@@ -195,6 +197,53 @@ def test_cli_kalign_rescues_and_unequal_mates_with_both_blocked(
     proper = [c for c in body if int(c[1]) & 2]
     assert len(body) == 200 and len(proper) > 150
     assert {len(c[9]) for c in proper} == {60, 80}
+
+
+def test_cli_kalign_options_genpba_and_bisulfite_with_both_blocked(
+        genome_fa, tmp_path, host_library):
+    """kalign with -x -6 --mlmode 3 -Z -5 into a BAM with a BAI and the
+    SNP side outputs (-S -g -3 -X --markerfile --snpcentroidfile), genpba,
+    then index -m 1 and kalign --bisulfite."""
+    kix, kbx, reads = tmp_path / "g.kix", tmp_path / "g.kbx", \
+        tmp_path / "r.fa"
+    bam, sam, bsam = tmp_path / "o.bam", tmp_path / "g.sam", \
+        tmp_path / "b.sam"
+    side = {k: str(tmp_path / k) for k in (
+        "s.csv", "c.wig", "o.pba.npz", "d", "m.fa", "cent.csv", "gp.pba.npz")}
+    _run("from kit4b_tpu_torch import cli\n"
+         f"assert cli.main(['index', '-i', {str(genome_fa)!r}, '-o', "
+         f"{str(kix)!r}]) == 0\n"
+         f"assert cli.main(['index', '-m', '1', '-i', {str(genome_fa)!r}, "
+         f"'-o', {str(kbx)!r}]) == 0\n"
+         f"assert cli.main(['simreads', '-i', {str(genome_fa)!r}, '-o', "
+         f"{str(reads)!r}, '-n', '300', '-l', '80', '-S', '5', '-N', "
+         "'5000']) == 0\n"
+         f"assert cli.main(['kalign', '-i', {str(reads)!r}, '-I', "
+         f"{str(kix)!r}, '-o', {str(bam)!r}, '--baindex', '-x', '10', "
+         "'-6', '2', '--mlmode', '3', '-Z', 'chr', '-5', '3', '-p', '2', "
+         f"'-S', {side['s.csv']!r}, '-b', '256', '--device', 'cpu']) == 0\n"
+         f"assert cli.main(['kalign', '-i', {str(reads)!r}, '-I', "
+         f"{str(kix)!r}, '-o', {str(sam)!r}, '-p', '2', '-S', "
+         f"{side['s.csv']!r}, '-g', {side['c.wig']!r}, '-3', "
+         f"{side['o.pba.npz']!r}, '-X', {side['d']!r}, '--markerfile', "
+         f"{side['m.fa']!r}, '--snpcentroidfile', {side['cent.csv']!r}, "
+         "'-b', '256', '--device', 'cpu']) == 0\n"
+         f"assert cli.main(['genpba', '-i', {str(reads)!r}, '-I', "
+         f"{str(kix)!r}, '-o', {side['gp.pba.npz']!r}, '-b', '256', "
+         "'--device', 'cpu']) == 0\n"
+         f"assert cli.main(['kalign', '--bisulfite', '-i', {str(reads)!r},"
+         f" '-I', {str(kbx)!r}, '-o', {str(bsam)!r}, '-b', '256', "
+         "'--device', 'cpu']) == 0\n"
+         "from kit4b_tpu_torch.io.bam import read_bam\n"
+         f"recs = list(read_bam({str(bam)!r}))\n"
+         "assert len(recs) > 150, len(recs)\n"
+         "assert any('S' in r.cigar for r in recs)\n", tmp_path)
+    assert (tmp_path / "o.bam.bai").stat().st_size > 0
+    for k in ("c.wig", "o.pba.npz", "d.disnp.csv", "d.trisnp.csv",
+              "cent.csv", "gp.pba.npz"):
+        assert (tmp_path / k).stat().st_size > 0, k
+    assert sum(1 for ln in bsam.read_text().splitlines()
+               if not ln.startswith("@")) > 100
 
 
 def test_cli_hammings_restricted_with_both_blocked(genome_fa, tmp_path,
