@@ -177,9 +177,35 @@ result:
    converted 100 bp reads: reads/s, accepted share and truth share; one
    `bs_pass_compact` on 16,384 resident reads (CUDA events, median of 5),
    its device operations and busy share.
+14. Config #5 and the float device uses (host numpy and kalign, the
+   near-duplicate pass and two float32 products in plain PyTorch). (a) The
+   port's CLI and functions on the seeded workload of
+   `kit4b_tpu_torch.tools.make_assembly_golden` (filter with and without
+   -a, -D 2 on the card, -d, -c 2, a -k resume; assemb SE and -u with -P;
+   mergeoverlaps on FASTA and FASTQ; scaffold; pescaffold on the port's
+   kalign SAMs; rnaexpr, genmlds, sarscov2ml; filter_assemble,
+   merge_pe_to_se and one `_overlap_pass` batch) against the JAX package's
+   committed golden: every array equal, rnaexpr's floats within its
+   tolerance. (b) BASELINE config #5 at BASELINE.md's size: 1 Mbp at 25x
+   from `tools/config5.py` (83,333 pairs of 2 x 150 and 8,333 duplicated),
+   through the CLI `filter`, `assemb -y 60 -Y 40`, `index` and `kalign` of
+   each mate file onto the contigs, `pescaffold`, `scaffold --minctg 100`,
+   and the fused `filter_assemble`, each timed with its PhaseTimer split;
+   every output's SHA-256 equal to the JAX package's full run recorded in
+   the golden, and scaffolds that join contigs. Prints the reads removed,
+   the contigs of at least 300 bp, how many of the 20 longest are exact
+   substrings of the genome, the multi-contig scaffolds and peak device
+   memory. (c) `filter -D 2` on those reads under torch.profiler (its
+   device busy share), then one `_overlap_pass` on 8,192 queries of its
+   corpus (CUDA events, median of 5; device operations and busy share),
+   equal to the CPU pass. (d) `rnaexpr` on 96 samples x 30,000 genes in
+   replicate pairs with three label swaps, r within 1e-5 of numpy's
+   float64 and the planted inconsistencies found; `sarscov2ml` on 10,000
+   isolates x 400 features, its co-support counts exact and the three
+   planted linked groups found.
 
 Each kernel's launch counter is set to 0 just before its path (phases 4,
-6, 7) and read just after it; phases 8-13 run none of the three kernels.
+6, 7) and read just after it; phases 8-14 run none of the three kernels.
 The script prints its seconds before the kernels line. The
 line before the last is a JSON table of the kernels, each with its bound
 (the least time the card could take: int8 tensor operations for minmm
@@ -222,6 +248,11 @@ PE_PAIRS, PE_LEN, PE_BATCH = 65_536, 150, 16_384   # its 2 x 150 pairs
 SPLICE_INTRONS, SPLICE_READS = 2_000, 20_000   # phase 12c, 10 reads each
 SNP_READS = 920_000    # phase 13c: 100 bp reads, about 20x of 4.6 Mbp
 BIS_READS, BS_BATCH = 100_000, 16_384   # phase 13d
+OVL_BATCH = 8_192      # phase 14c: the near-duplicate pass's queries
+RNA_GENES, RNA_SAMPLES = 30_000, 96      # phase 14d: rnaexpr
+RNA_SWAPS = ((4, 17), (30, 61), (70, 91))   # sample labels swapped
+ML_ROWS, ML_FEATS = 10_000, 400          # phase 14d: sarscov2ml
+ML_GROUPS = ((5, 300), (5, 200), (5, 150))   # planted: features, rows
 INT8_PEAK = 1979e12    # H100 SXM dense int8 tensor operations per second
 HBM_RATE = 3.35e12     # H100 SXM device memory bytes per second
 WIDE_K = (51, 153)     # Cw 256 and 768, the widths past the main path's 128
@@ -2010,6 +2041,275 @@ def bisulfite_full(torch, dev, card, tmp: Path):
           f"{ {c: int((first[:, 0] == c).sum()) for c in (-3, -2, -1)} }")
 
 
+@contextlib.contextmanager
+def _cli_step(steps: dict, name: str):
+    """Records (wall seconds, _PhaseLog) of the CLI run inside in
+    steps[name]."""
+    log = _PhaseLog()
+    logger = logging.getLogger("kit4b_tpu_torch")
+    logger.addHandler(log)
+    t0 = time.perf_counter()
+    try:
+        yield
+    finally:
+        logger.removeHandler(log)
+    steps[name] = (time.perf_counter() - t0, log)
+
+
+def _contig_stats(path: Path, genome: str, genome_rc: str) -> dict:
+    """Config5_bacterial.py's figures of a contig FASTA: the contigs of at
+    least 300 bp (count, longest, N50, total) and how many of the 20
+    longest sequences are exact substrings of the genome on either
+    strand."""
+    from kit4b_tpu_torch import dna
+    from kit4b_tpu_torch.io.fasta import read_seqs
+    seqs = sorted((dna.decode(r.codes) for r in read_seqs(path)), key=len,
+                  reverse=True)
+    big = [len(x) for x in seqs if len(x) >= 300]
+    acc, n50 = 0, 0
+    for ln in big:
+        acc += ln
+        if 2 * acc >= sum(big):
+            n50 = ln
+            break
+    exact = sum(x in genome or x in genome_rc for x in seqs[:20])
+    return {"sequences": len(seqs), "contigs >= 300 bp": len(big),
+            "longest": big[0] if big else 0, "N50": n50,
+            "total": sum(big), "exact of the 20 longest": exact}
+
+
+def _multi_contig(path: Path) -> int:
+    """Scaffolds of a scaffold FASTA that join two contigs or more."""
+    from kit4b_tpu_torch.io.fasta import read_seqs
+    return sum("," in r.descr for r in read_seqs(path))
+
+
+def assembly_golden(torch, dev):
+    """Phase 14a: config #5's commands, the fused route, merge_pe_to_se,
+    one overlap pass and the float commands through the port on the card
+    against the JAX package's golden."""
+    from kit4b_tpu_torch.tools import make_assembly_golden as mg
+    gold = np.load(mg.GOLDEN)
+    w = mg.workload()
+    if mg.inputs_sha256(*w) != str(gold["inputs_sha256"]):
+        raise AssertionError("the assembly golden workload rebuilt here "
+                             "differs from the one the golden was made from")
+    t0 = time.perf_counter()
+    out = mg.compute(mg.port_fns(dev), *w)
+    wall = time.perf_counter() - t0
+    bad, reach = mg.differing(out, gold), mg.check_reach(out)
+    r_err = float(np.abs(out["rnaexpr:r"] - gold["rnaexpr:r"]).max())
+    print(f"assembly golden ({wall} s; {len(mg.RUNS)} CLI runs: "
+          f"{', '.join(mg.RUNS)}; filter_assemble, merge_pe_to_se, one "
+          f"_overlap_pass batch): {len(out)} arrays compared, rnaexpr r "
+          f"within {r_err} of JAX's (tolerance {mg.R_TOL}), differing: "
+          f"{bad or 'none'}")
+    if bad or reach:
+        raise AssertionError(f"config #5 differs from the JAX golden in "
+                             f"{bad}; reach {reach}")
+
+
+def config5_full(torch, dev, card, tmp: Path):
+    """Phase 14b: BASELINE config #5 at BASELINE.md's size through the
+    port's CLI (filter, assemb, index + kalign, pescaffold, scaffold) and
+    the fused filter_assemble, each output's SHA-256 against the JAX
+    package's full run recorded in the golden."""
+    from kit4b_tpu_torch import dna
+    from kit4b_tpu_torch.tools import make_assembly_golden as mg
+    gold = np.load(mg.GOLDEN)
+    steps = {}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    digests, seq = mg.full_run(mg.port_fns(dev), tmp,
+                               lambda name: _cli_step(steps, name))
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    bad = [k for k, v in digests.items() if str(v) != str(gold[k])]
+    genome = dna.decode(seq)
+    genome_rc = dna.decode(dna.revcomp(seq))
+    pairs = int(mg.FULL_KBP * 1000 * mg.FULL_COV / 300)
+    filt_log = steps["filter"][1]
+    multi = {f: _multi_contig(tmp / f) for f in ("pescaffolds.fa",
+                                                 "scaffolds.fa")}
+    print(f"config #5 ({mg.FULL_KBP} kbp at {mg.FULL_COV}x: {pairs} pairs "
+          f"of 2 x 150 + {pairs // 10} duplicated) through the CLI on "
+          f"{card}: {wall} s; by step (wall s, PhaseTimer split): "
+          + "; ".join(f"{k} {v[0]} {v[1].seconds}" for k, v in steps.items())
+          + f"; filter removed {filt_log.removed}; CLI assemb contigs "
+          f"{_contig_stats(tmp / 'contigs.fa', genome, genome_rc)}; fused "
+          f"filter_assemble contigs "
+          f"{_contig_stats(tmp / 'fused.fa', genome, genome_rc)}; "
+          f"multi-contig scaffolds {multi}; peak device memory {peak} "
+          f"bytes; outputs differing from the JAX package's full run: "
+          f"{bad or 'none'}")
+    if bad or not all(multi.values()):
+        raise AssertionError(f"config #5 differs from the JAX package in "
+                             f"{bad}, or joins no contigs: {multi}")
+
+
+def neardup_full(torch, dev, card, tmp: Path):
+    """Phase 14c: `filter -D 2` on phase 14b's reads under torch.profiler,
+    then one `_overlap_pass` on 8,192 queries of its corpus, timed and
+    held to the same pass on the CPU."""
+    from kit4b_tpu_torch import cli
+    from kit4b_tpu_torch.assembly import filter as filt
+    from kit4b_tpu_torch.assembly.overlap import (INT32_MAX, _overlap_pass,
+                                                  corpus_genome)
+    from kit4b_tpu_torch.assembly.store import SeqStore
+    from kit4b_tpu_torch.index.sfx_index import SfxIndex
+    from kit4b_tpu_torch.io.fasta import read_seqs
+    from kit4b_tpu_torch.ops.extend_packed import pack_genome
+    from kit4b_tpu_torch.ops.seed_extend_fast import make_gview_device
+    r1, r2 = tmp / "r1.fa", tmp / "r2.fa"
+    steps, rc = {}, []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with _cli_step(steps, "filter -D 2"):
+        wall, busy, n_ops = _profiled(torch, lambda: rc.append(cli.main(
+            ["filter", "-i", str(r1), "-u", str(r2), "-o",
+             str(tmp / "filt_D.fa"), "-D", "2"])))
+    if rc != [0]:
+        raise AssertionError(f"CLI filter -D 2 exited {rc}")
+    log = steps["filter -D 2"][1]
+    n_out = sum(1 for ln in open(tmp / "filt_D.fa") if ln.startswith(">"))
+    n_in = sum(1 for ln in open(tmp / "filt.fa") if ln.startswith(">"))
+    print(f"CLI filter -D 2 on {card}: wall {wall} s, phases {log.seconds};"
+          f" removed {log.removed}; {n_out} reads kept ({n_in} without "
+          f"-D); "
+          + (f"device busy {busy} s ({busy / wall} of the wall), "
+             if busy else "device busy not measured, ")
+          + f"{n_ops} device operations; peak device memory "
+          f"{torch.cuda.max_memory_allocated()} bytes")
+    if not log.removed.get("near-duplicates") or n_out >= n_in:
+        raise AssertionError(f"filter -D 2 removed no near-duplicate: "
+                             f"{log.removed}")
+    # one pass on 8,192 queries of the corpus mark_near_duplicates builds
+    store = SeqStore.from_records(list(read_seqs(r1)), list(read_seqs(r2)))
+    filt.mark_duplicates(store, pe=True)
+    g, _ = corpus_genome(store.compact(), with_rc=False)
+    idx = SfxIndex.build(g)
+    win = int(g.lengths.max())
+    nw2 = (win + 15) // 16 + 1
+    gpack, gbad = pack_genome(g.seq, nw2 + 1)
+    host = [g.seq, idx.sa_clean.astype(np.int32), idx.lut.astype(np.int32),
+            g.starts.astype(np.int32),
+            (g.starts + g.lengths).astype(np.int32),
+            g.starts[:OVL_BATCH], g.lengths[:OVL_BATCH]]
+
+    def pass_on(d):
+        gview = make_gview_device(gpack, gbad, nw2, d)
+        args = [torch.from_numpy(np.ascontiguousarray(x)).to(d)
+                for x in host]
+        return lambda: _overlap_pass(gview, *args, lut_k=idx.lut_k,
+                                     cand=32, win=win)
+    run = pass_on(dev)
+    pos, mm = (x.cpu().numpy() for x in run())
+    cpos, cmm = (x.numpy() for x in pass_on(torch.device("cpu"))())
+    same = np.array_equal(pos, cpos) and np.array_equal(mm, cmm)
+    ms = sorted(_time_ms(torch, run) for _ in range(5))
+    pwall, pbusy, pops = _profiled(torch, run)
+    print(f"_overlap_pass on {OVL_BATCH} queries (cand 32, win {win}) of "
+          f"the {len(g.names)}-read corpus on {card}: median {ms[2]} ms of 5"
+          f" (CUDA events: {ms}); {pops} device operations, device busy "
+          f"{pbusy} s of {pwall} s; {int((pos != INT32_MAX).sum())} valid "
+          f"candidates; equal to the CPU pass: {same}")
+    if not same:
+        raise AssertionError("_overlap_pass differs between card and CPU")
+
+
+def _write_matrix_csv(path: Path, head: str, cols: list, rows: list,
+                      values: np.ndarray) -> None:
+    """A CSV of one header line and a named row per row of values, each
+    value as Python writes it (floats round-trip)."""
+    with open(path, "w") as f:
+        f.write(head + "," + ",".join(cols) + "\n")
+        for name, row in zip(rows, values.tolist()):
+            f.write(name + "," + ",".join(map(str, row)) + "\n")
+
+
+def float_full(torch, dev, card, tmp: Path):
+    """Phase 14d: rnaexpr on 96 samples x 30,000 genes in replicate pairs
+    with three pairs of labels swapped, and sarscov2ml on 10,000 isolates x
+    400 features with planted linked groups, through the CLI on the card,
+    against numpy in float64."""
+    from kit4b_tpu_torch import cli
+    from kit4b_tpu_torch.align import rnaexpr
+    rng = np.random.default_rng(SEED + 16)
+    F, S = RNA_GENES, RNA_SAMPLES
+    base = rng.gamma(2.0, 50.0, size=(F, S // 2))
+    counts = np.round(np.repeat(base, 2, axis=1) * np.exp(rng.normal(
+        0, 0.1, size=(F, S))), 1)
+    names = [f"s{i:02d}" for i in range(S)]
+    for a, b in RNA_SWAPS:
+        names[a], names[b] = names[b], names[a]
+    _write_matrix_csv(tmp / "counts.csv", "Feature",
+                      [f'"{n}"' for n in names],
+                      [f'"g{i}"' for i in range(F)], counts)
+    (tmp / "part.csv").write_text("".join(f"s{i:02d},s{i ^ 1:02d}\n"
+                                          for i in range(S)))
+    t0 = time.perf_counter()
+    if cli.main(["rnaexpr", "-i", str(tmp / "counts.csv"), "-c",
+                 str(tmp / "part.csv"), "-o", str(tmp / "rna.csv")]) != 0:
+        raise AssertionError("CLI rnaexpr exited non-zero")
+    rna_wall = time.perf_counter() - t0
+    ref = np.corrcoef(counts.T)                     # float64
+    r = rnaexpr.pearson_matrix(counts, dev)
+    r_err = float(np.abs(r - ref).max())
+    col = {n: i for i, n in enumerate(names)}
+    rows = [ln.split(",") for ln in open(tmp / "rna.csv").read()
+            .splitlines()[1:]]
+    csv_err = max(max(abs(float(x[2]) - ref[col[x[0].strip('"')],
+                                           col[x[1].strip('"')]]),
+                      abs(float(x[4]) - ref[col[x[0].strip('"')],
+                                           col[x[3].strip('"')]]))
+                  for x in rows)
+    found = {x[0].strip('"') for x in rows if x[7] == "0"}
+    planted = {n for i, n in enumerate(names)
+               if col[f"s{int(n[1:]) ^ 1:02d}"] != i ^ 1}
+    print(f"CLI rnaexpr on {S} samples x {F} genes on {card}: wall "
+          f"{rna_wall} s; r against numpy float64: max error {r_err} "
+          f"(pearson_matrix), {csv_err} (the CSV's 6-decimal fields); "
+          f"{len(found)} inconsistent samples found, {len(planted)} planted,"
+          f" equal: {found == planted}")
+    if r_err > 1e-5 or csv_err > 1e-5 + 1e-6 or found != planted:
+        raise AssertionError("rnaexpr: r off numpy's or the planted "
+                             "inconsistencies not found")
+    # sarscov2ml: background classes 0-3 (3 in 5 % of cells)
+    m = rng.choice(4, size=(ML_ROWS, ML_FEATS), p=[0.4, 0.3, 0.25, 0.05])
+    groups = []
+    for n_feat, n_rows in ML_GROUPS:
+        cols = sorted(rng.choice(ML_FEATS, n_feat, replace=False).tolist())
+        rws = rng.choice(ML_ROWS, n_rows, replace=False)
+        m[np.ix_(rws, cols)] = rng.integers(3, 6, size=(n_rows, n_feat))
+        groups.append((cols, n_rows))
+    feats = [f"F{i:03d}" for i in range(ML_FEATS)]
+    _write_matrix_csv(tmp / "m.csv", "Isolate", feats,
+                      [f"iso{i}" for i in range(ML_ROWS)], m)
+    t0 = time.perf_counter()
+    if cli.main(["sarscov2ml", "-i", str(tmp / "m.csv"), "-o",
+                 str(tmp / "links.csv")]) != 0:
+        raise AssertionError("CLI sarscov2ml exited non-zero")
+    ml_wall = time.perf_counter() - t0
+    hot = (m >= 3).astype(np.float32)
+    co = (torch.from_numpy(hot).to(dev).T @ torch.from_numpy(hot).to(dev)
+          ).cpu().numpy().astype(np.int64)
+    co_exact = np.array_equal(co, hot.astype(np.int64).T
+                              @ hot.astype(np.int64))
+    links = [(int(ln.split(",", 1)[0]),
+              set(ln.split(",", 1)[1].strip().strip('"').split(";")))
+             for ln in open(tmp / "links.csv").read().splitlines()[1:]]
+    hit = [any(rows >= n and {feats[c] for c in cols} == fs
+               for rows, fs in links) for cols, n in groups]
+    print(f"CLI sarscov2ml on {ML_ROWS} isolates x {ML_FEATS} features on "
+          f"{card}: wall {ml_wall} s; {len(links)} linkages; planted groups "
+          f"found {hit}; the float32 co-support on the card equals numpy's "
+          f"int64 counts: {co_exact}")
+    if not (co_exact and all(hit)):
+        raise AssertionError("sarscov2ml: co-support inexact or a planted "
+                             "group not found")
+
+
 def minmm_cases(torch, cases, minmm, minmm_plain) -> int:
     """Phase 2: the min-match kernel against its plain version, bit for
     bit, on (label, own rows, partner, diag, span_lo, span_cnt, row_base)
@@ -2041,14 +2341,15 @@ def reset_launches() -> None:
 class _PhaseLog(logging.Handler):
     """Keeps the unrounded seconds of the CLI's PhaseTimer phases,
     kalign's class counts and tier-1 pass by read length, paired-end
-    kalign's pair counts and pair rows by stage, and kmarkers' positions by
-    tier."""
+    kalign's pair counts and pair rows by stage, kmarkers' positions by
+    tier and filter's reads removed by step."""
 
     def __init__(self):
         super().__init__()
         self.seconds = {}
         self.stats = self.tier1 = self.tiers = None
         self.pe_stats = self.pe_stages = None
+        self.removed = {}
 
     def emit(self, record):
         if record.msg == "phase %s: %.2fs":
@@ -2059,6 +2360,8 @@ class _PhaseLog(logging.Handler):
             self.pe_stats, self.pe_stages = record.args[0], record.args[1]
         elif str(record.msg).startswith("kmarkers: positions by tier"):
             self.tiers = record.args[0]
+        elif record.msg == "filter %s: removed %d":
+            self.removed[record.args[0]] = record.args[1]
 
 
 def main() -> int:
@@ -2320,6 +2623,13 @@ def main() -> int:
         opts_full(torch, dev, card, Path(tmp))
         snp_full(torch, dev, card, Path(tmp))
         bisulfite_full(torch, dev, card, Path(tmp))
+
+    # --- 14. config #5 and the float device uses ------------------------
+    assembly_golden(torch, dev)
+    with tempfile.TemporaryDirectory(prefix=".chip_smoke_", dir=root) as tmp:
+        config5_full(torch, dev, card, Path(tmp))
+        neardup_full(torch, dev, card, Path(tmp))
+        float_full(torch, dev, card, Path(tmp))
     if "jax" in sys.modules or "kit4b_tpu" in sys.modules:
         raise AssertionError("jax or the JAX package kit4b_tpu was imported")
 

@@ -2,13 +2,15 @@
 
 Port of kit4b_tpu/cli.py with the `index` (-m 1 bisulfite too),
 `simreads`, `kalign` (single and paired ends, every flag, --bisulfite),
-`genpba`, `hammings`, `pseudogenome`, `kmarkers` and `prekmarkers`
-subcommands, taking the same flags and writing the same files, plus
-`--device {cuda,cpu}` on the commands that use a device (`kalign`,
-`genpba`, `hammings`, `kmarkers`). The parsers are copies, as is all the
-port needs of the JAX package: it imports none of it. Flags of paths not
-ported yet parse as in kit4b_tpu and raise NotImplementedError naming
-their ROADMAP item.
+`genpba`, `hammings`, `pseudogenome`, `kmarkers`, `prekmarkers`, `filter`,
+`assemb`, `scaffold`, `pescaffold`, `mergeoverlaps`, `rnaexpr`, `genmlds`
+and `sarscov2ml` subcommands, taking the same flags and writing the same
+files, plus `--device {cuda,cpu}` on the commands that use a device
+(`kalign`, `genpba`, `hammings`, `kmarkers`, `filter` for -D, `scaffold`,
+`rnaexpr`, `sarscov2ml`). The parsers are copies, as is all the port needs
+of the JAX package: it imports none of it. Flags of paths not ported yet
+parse as in kit4b_tpu and raise NotImplementedError naming their ROADMAP
+item.
 """
 from __future__ import annotations
 
@@ -521,6 +523,196 @@ def cmd_prekmarkers(args) -> int:
     return 0
 
 
+def cmd_filter(args) -> int:
+    """ngskit4b filter equivalent (CArtefactReduce). Only -D (the
+    near-duplicate pass) touches the device."""
+    from .assembly import filter as filt
+    from .assembly.store import SeqStore
+    from .io.fasta import write_fasta
+    t = PhaseTimer()
+    if args.checkpoint and os.path.exists(str(args.checkpoint) + ".npz"):
+        with t.phase("load checkpoint"):
+            store = SeqStore.load(args.checkpoint)
+        log.info("filter: resumed %d seqs from checkpoint", len(store))
+    else:
+        with t.phase("load reads"):
+            r1 = []
+            for p_ in args.infile:
+                r1.extend(read_seqs(p_))
+            r2 = None
+            if args.pairfile:
+                r2 = []
+                for p_ in args.pairfile:
+                    r2.extend(read_seqs(p_))
+            if args.adapters:
+                from .assembly.contaminants import trim_adapters
+                # min_len=0: keep PE lists aligned; SeqStore.from_records
+                # drops under-length reads pair-wise afterwards
+                r1, st1 = trim_adapters(r1, min_len=0)
+                log.info("filter adapters r1: %s", st1)
+                if r2 is not None:
+                    r2, st2 = trim_adapters(r2, min_len=0)
+                    log.info("filter adapters r2: %s", st2)
+            store = SeqStore.from_records(
+                r1, r2, min_phred=args.minphred, trim5=args.trim5,
+                trim3=args.trim3, min_len=args.minlen)
+        if args.checkpoint:
+            store.save(args.checkpoint)
+    params = filt.FilterParams(
+        dedup=not args.nodedup, near_dup_subs=args.neardup,
+        min_overlap_pct=args.minoverlap, overlap_passes=args.passes)
+    with t.phase("filter"):
+        out = filt.artefact_reduce(
+            store, params,
+            progress=lambda what, n: log.info("filter %s: removed %d",
+                                              what, n),
+            device=args.device)
+    with t.phase("write"):
+        write_fasta(args.outfile, out.to_fasta_records("read"))
+    log.info("filter: %d -> %d seqs -> %s", len(store), out.n_live(),
+             args.outfile)
+    return 0
+
+
+def cmd_assemb(args) -> int:
+    """ngskit4b assemb equivalent (CdeNovoAssemb): host numpy only."""
+    from .assembly import assemble as asmb
+    from .assembly.store import SeqStore
+    from .io.fasta import write_fasta
+    t = PhaseTimer()
+    with t.phase("load"):
+        if args.pairfile:
+            r1 = [r for p_ in args.infile for r in read_seqs(p_)]
+            r2 = [r for p_ in args.pairfile for r in read_seqs(p_)]
+            store = SeqStore.from_records(r1, r2)
+        else:
+            store = SeqStore.from_arrays(
+                [r.codes for p_ in args.infile for r in read_seqs(p_)])
+    params = asmb.AssembleParams(
+        min_overlap=args.minoverlap, min_overlap_final=args.minoverlapfinal,
+        max_subs_per_100=args.subs, max_passes=args.maxpasses,
+        checkpoint_every=args.passthres,
+        checkpoint_path=args.outfile + ".pass")
+    with t.phase("assemble"):
+        out = asmb.assemble(
+            store, params,
+            progress=lambda p, e, a, c, n: log.info(
+                "pass %d: %d edges, %d merges, %d contained, %d live",
+                p, e, a, c, n))
+    with t.phase("write"):
+        write_fasta(args.outfile, out.to_fasta_records("contig"))
+    lens = sorted((int(out.lengths[i]) for i in range(len(out))),
+                  reverse=True)
+    half = sum(lens) / 2
+    acc, n50 = 0, 0
+    for ln in lens:
+        acc += ln
+        if acc >= half:
+            n50 = ln
+            break
+    log.info("assemb: %d contigs, total %d bp, N50 %d -> %s",
+             len(lens), sum(lens), n50, args.outfile)
+    return 0
+
+
+def cmd_pescaffold(args) -> int:
+    """ngskit4b pescaffold equivalent (CPEScaffold): host only."""
+    from .assembly.scaffold import ScaffoldParams, pescaffold
+    paths, recs = pescaffold(
+        args.pe1sam, args.pe2sam, args.contigs, args.outfile,
+        ScaffoldParams(min_links=args.minlinks, default_gap=args.gap))
+    joined = sum(1 for p_ in paths if len(p_) > 1)
+    log.info("pescaffold: %d scaffolds (%d multi-contig) -> %s",
+             len(paths), joined, args.outfile)
+    return 0
+
+
+def cmd_scaffold(args) -> int:
+    """ngskit4b scaffold equivalent (CScaffolder, sequence-aware): the
+    mates are aligned onto the contigs by kalign on the device."""
+    from .assembly.scaffold import ScaffoldParams, scaffold_contigs
+    paths, recs = scaffold_contigs(
+        args.contigs, args.pe1, args.pe2, args.outfile,
+        ScaffoldParams(min_links=args.minlinks, default_gap=args.gap,
+                       insert_size=args.insert),
+        max_subs=args.subs, min_contig=args.minctg, device=args.device)
+    joined = sum(1 for p_ in paths
+                 if len([e for e in p_ if e[0] != ""]) > 1)
+    log.info("scaffold: %d scaffolds (%d multi-contig) -> %s",
+             len(paths), joined, args.outfile)
+    return 0
+
+
+def cmd_mergeoverlaps(args) -> int:
+    """ngskit4b mergeoverlaps equivalent (CMergeReadPairs): host only."""
+    from .assembly.mergepairs import MergeParams, merge_pairs
+    from .io.fasta import write_fasta, write_fastq
+    r1 = [r for p_ in args.infile for r in read_seqs(p_)]
+    r2 = [r for p_ in args.pairfile for r in read_seqs(p_)]
+    merged, kept, stats = merge_pairs(
+        r1, r2, MergeParams(min_overlap=args.minoverlap,
+                            max_subs_pct=args.subs))
+    writer = write_fastq if any(m.qual is not None for m in merged) \
+        else write_fasta
+    writer(args.outfile, merged)
+    if args.unmerged1:
+        writer(args.unmerged1, [a for a, _ in kept])
+        writer(args.unmerged2, [b for _, b in kept])
+    log.info("mergeoverlaps: %s -> %s", stats, args.outfile)
+    return 0
+
+
+def cmd_rnaexpr(args) -> int:
+    """ngskit4b rnaexpr equivalent (CRNAExpr mode 0)."""
+    import csv
+    from .align import rnaexpr
+    samples, features, counts = rnaexpr.load_counts_matrix(args.infile)
+    partners = None
+    if args.samplesfile:
+        partners = {}
+        with open(args.samplesfile, newline="") as f:
+            for row in csv.reader(f):
+                if len(row) >= 2:
+                    partners[row[0].strip().strip('"')] = \
+                        row[1].strip().strip('"')
+    results = rnaexpr.replicate_consistency(samples, counts, partners,
+                                            device=args.device)
+    rnaexpr.write_consistency_csv(args.outfile, results)
+    bad = [r["sample"] for r in results if not r["consistent"]]
+    log.info("rnaexpr: %d samples, %d inconsistent (%s) -> %s",
+             len(results), len(bad), ",".join(bad[:10]), args.outfile)
+    return 0
+
+
+def cmd_genmlds(args) -> int:
+    """ngskit4b genmlds equivalent (CGenMLdatasets): host only."""
+    from .tools import mlds
+    labels = mlds.load_sample_labels(args.labels) if args.labels \
+        else None
+    ns, nf = mlds.transpose_dataset(args.infile, args.outfile, labels)
+    log.info("genmlds: %d samples x %d features -> %s", ns, nf,
+             args.outfile)
+    return 0
+
+
+def cmd_sarscov2ml(args) -> int:
+    """ngskit4b sarscov2ml equivalent (CSarsCov2ML mode 0)."""
+    import csv
+    from .tools import mlds
+    with open(args.infile, newline="") as f:
+        rows = [r for r in csv.reader(f) if r]
+    feat_names = [h.strip().strip('"') for h in rows[0][1:]]
+    mat = np.array([[float(v or 0) for v in r[1:]] for r in rows[1:]])
+    linkages = mlds.find_feature_linkages(
+        mat, feat_names, num_linked=args.numlinkedfeatures,
+        min_rows=args.minlinkedrows, min_class=args.featclassvalue,
+        device=args.device)
+    mlds.write_linkages_csv(args.outfile, linkages)
+    log.info("sarscov2ml: %d linkages -> %s", len(linkages),
+             args.outfile)
+    return 0
+
+
 def _kalign_args(p: argparse.ArgumentParser) -> None:
     """kit4b_tpu's kalign flags, copied, plus --device."""
     p.add_argument("-i", "--in", dest="infile", nargs="+", required=True)
@@ -780,6 +972,120 @@ def build_parser() -> argparse.ArgumentParser:
                         "is shared by at most this many cultivars")
     _common(p)
     p.set_defaults(fn=cmd_prekmarkers)
+
+    device_help = ("cuda runs the device pass on the card; cpu runs the "
+                    "same PyTorch code on the CPU")
+    p = sub.add_parser("filter", help="filter reads: dedup + error reduction")
+    p.add_argument("-i", "--in", dest="infile", nargs="+", required=True)
+    p.add_argument("-u", "--pair", dest="pairfile", nargs="+", default=None)
+    p.add_argument("-o", "--out", dest="outfile", required=True)
+    p.add_argument("-k", "--checkpoint", default=None,
+                   help="packed-store checkpoint file (resume if exists)")
+    p.add_argument("-Q", "--minphred", type=int, default=0)
+    p.add_argument("-x", "--trim5", type=int, default=0)
+    p.add_argument("-X", "--trim3", type=int, default=0)
+    p.add_argument("-l", "--minlen", type=int, default=30)
+    p.add_argument("-d", "--nodedup", action="store_true")
+    p.add_argument("-D", "--neardup", type=int, default=0,
+                   help="also remove near-duplicates within this many subs")
+    p.add_argument("-y", "--minoverlap", type=int, default=70,
+                   help="min flank overlap support percent")
+    p.add_argument("-c", "--passes", type=int, default=1)
+    p.add_argument("-a", "--adapters", action="store_true",
+                   help="trim standard Illumina adapter read-through")
+    p.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
+                   help=device_help + " (-D only)")
+    _common(p)
+    p.set_defaults(fn=cmd_filter)
+
+    p = sub.add_parser("assemb", help="de novo overlap assembly")
+    p.add_argument("-i", "--in", dest="infile", nargs="+", required=True)
+    p.add_argument("-u", "--pair", dest="pairfile", nargs="+", default=None,
+                   help="PE2 mate files (PE-aware assembly)")
+    p.add_argument("-o", "--out", dest="outfile", required=True)
+    p.add_argument("-y", "--minoverlap", type=int, default=50)
+    p.add_argument("-Y", "--minoverlapfinal", type=int, default=30)
+    p.add_argument("-s", "--subs", type=int, default=2,
+                   help="max subs per 100bp of overlap")
+    p.add_argument("-c", "--maxpasses", type=int, default=20)
+    p.add_argument("-P", "--passthres", type=int, default=0,
+                   help="checkpoint contigs each N passes")
+    _common(p)
+    p.set_defaults(fn=cmd_assemb)
+
+    p = sub.add_parser("scaffold",
+                       help="sequence-aware contig scaffolding from PE reads")
+    p.add_argument("-a", "--pe1", required=True)
+    p.add_argument("-A", "--pe2", required=True)
+    p.add_argument("-c", "--contigs", required=True)
+    p.add_argument("-o", "--out", dest="outfile", required=True)
+    p.add_argument("-L", "--minlinks", type=int, default=2)
+    p.add_argument("-g", "--gap", type=int, default=100)
+    p.add_argument("-p", "--insert", type=int, default=500,
+                   help="PE library mean insert size")
+    p.add_argument("-s", "--subs", type=int, default=5)
+    p.add_argument("--minctg", type=int, default=0,
+                   help="minimum contig length to scaffold")
+    p.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
+                   help=device_help + " (kalign of the mates)")
+    _common(p)
+    p.set_defaults(fn=cmd_scaffold)
+
+    p = sub.add_parser("pescaffold", help="scaffold contigs from PE SAMs")
+    p.add_argument("-a", "--pe1sam", required=True)
+    p.add_argument("-A", "--pe2sam", required=True)
+    p.add_argument("-c", "--contigs", required=True)
+    p.add_argument("-o", "--out", dest="outfile", required=True)
+    p.add_argument("-L", "--minlinks", type=int, default=2)
+    p.add_argument("-g", "--gap", type=int, default=100)
+    _common(p)
+    p.set_defaults(fn=cmd_pescaffold)
+
+    p = sub.add_parser("mergeoverlaps",
+                       help="merge overlapping PE pairs into SE reads")
+    p.add_argument("-i", "--in", dest="infile", nargs="+", required=True)
+    p.add_argument("-u", "--pair", dest="pairfile", nargs="+", required=True)
+    p.add_argument("-o", "--out", dest="outfile", required=True)
+    p.add_argument("-j", "--unmerged1", default=None)
+    p.add_argument("-J", "--unmerged2", default=None)
+    p.add_argument("-y", "--minoverlap", type=int, default=16)
+    p.add_argument("-s", "--subs", type=int, default=5)
+    _common(p)
+    p.set_defaults(fn=cmd_mergeoverlaps)
+
+    p = sub.add_parser("rnaexpr",
+                       help="RNA replicate consistency (Pearson matrix)")
+    p.add_argument("-i", "--cntsfile", dest="infile", required=True,
+                   help="expression counts matrix CSV")
+    p.add_argument("-c", "--samplesfile", default=None,
+                   help="sample -> partner replicate CSV (default: "
+                        "adjacent pairing)")
+    p.add_argument("-o", "--out", dest="outfile", required=True)
+    p.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
+                   help=device_help + " (the Pearson matmul)")
+    _common(p)
+    p.set_defaults(fn=cmd_rnaexpr)
+
+    p = sub.add_parser("genmlds",
+                       help="transpose feature CSV into ML dataset")
+    p.add_argument("-i", "--in", dest="infile", required=True)
+    p.add_argument("-l", "--labels", default=None,
+                   help="sample,label CSV to join")
+    p.add_argument("-o", "--out", dest="outfile", required=True)
+    _common(p)
+    p.set_defaults(fn=cmd_genmlds)
+
+    p = sub.add_parser("sarscov2ml",
+                       help="feature linkage discovery over a matrix")
+    p.add_argument("-i", "--in", dest="infile", required=True)
+    p.add_argument("-l", "--numlinkedfeatures", type=int, default=5)
+    p.add_argument("-r", "--minlinkedrows", type=int, default=50)
+    p.add_argument("-c", "--featclassvalue", type=int, default=3)
+    p.add_argument("-o", "--out", dest="outfile", required=True)
+    p.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
+                   help=device_help + " (the co-support matmul)")
+    _common(p)
+    p.set_defaults(fn=cmd_sarscov2ml)
     return ap
 
 

@@ -919,3 +919,204 @@ def test_shared_prefix_suffix_markers_match(lib, tmp_path, kw):
     for (pc, pn), (jc, jn) in zip(got, want):
         np.testing.assert_array_equal(pc, jc)
         np.testing.assert_array_equal(pn, jn)
+
+
+# --- config #5's host copies and the float commands' I/O -----------------
+
+def _store_records(seed, pkg_rec, n=40, pe=False):
+    """Seeded reads with qualities, Ns and ragged lengths as `pkg_rec`
+    SeqRecords (mate-2 records too when pe)."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for m in range(2 if pe else 1):
+        recs = []
+        for i in range(n):
+            L = int(rng.integers(20, 150))
+            c = rng.integers(0, 4, L).astype(np.uint8)
+            c[rng.random(L) < 0.01] = 4
+            q = rng.integers(20, 41, L).astype(np.uint8)
+            q[rng.random(L) < 0.01] = 3
+            recs.append(pkg_rec(f"r{i}/{m}", "", c, q))
+        out.append(recs)
+    return out if pe else out[0]
+
+
+@pytest.mark.parametrize("kw", [dict(), dict(min_phred=5, trim5=2, trim3=3),
+                                dict(max_ns_pct=0, min_len=40)])
+@pytest.mark.parametrize("pe", [False, True])
+def test_seq_store_from_records_and_compact_match(kw, pe):
+    from kit4b_tpu.assembly import store as jst
+    from kit4b_tpu_torch.assembly import store as pst
+    assert (pst.STORE_VERSION, pst.FLAG_DELETED, pst.FLAG_PE1, pst.FLAG_PE2,
+            pst.FLAG_DUP, pst.FLAG_NOOVL, pst.FLAG_MERGED) == \
+        (jst.STORE_VERSION, jst.FLAG_DELETED, jst.FLAG_PE1, jst.FLAG_PE2,
+         jst.FLAG_DUP, jst.FLAG_NOOVL, jst.FLAG_MERGED)
+    jr, pr = _store_records(7, jfa.SeqRecord, pe=pe), \
+        _store_records(7, pfa.SeqRecord, pe=pe)
+    j = jst.SeqStore.from_records(*(jr if pe else (jr,)), **kw)
+    p = pst.SeqStore.from_records(*(pr if pe else (pr,)), **kw)
+    for s in (j, p):
+        s.flags[::5] |= jst.FLAG_DELETED
+    for got, want in ((p, j), (p.compact(), j.compact())):
+        for k in ("seq", "starts", "lengths", "flags"):
+            np.testing.assert_array_equal(getattr(got, k), getattr(want, k))
+        assert (got.mate is None) == (want.mate is None)
+        if want.mate is not None:
+            np.testing.assert_array_equal(got.mate, want.mate)
+        assert got.n_live() == want.n_live() > 0
+        assert [(r.name, r.codes.tolist()) for r in
+                got.to_fasta_records("x")] == \
+            [(r.name, r.codes.tolist()) for r in want.to_fasta_records("x")]
+
+
+@pytest.mark.parametrize("writer", ["port", "jax"])
+@pytest.mark.parametrize("pe", [False, True])
+def test_seq_store_checkpoint_loads_in_either_package(tmp_path, writer, pe):
+    from kit4b_tpu.assembly import store as jst
+    from kit4b_tpu_torch.assembly import store as pst
+    pkg, rec = (pst, pfa.SeqRecord) if writer == "port" \
+        else (jst, jfa.SeqRecord)
+    recs = _store_records(9, rec, pe=pe)
+    st = pkg.SeqStore.from_records(*(recs if pe else (recs,)))
+    st.flags[3] |= pkg.FLAG_DUP | pkg.FLAG_DELETED
+    st.save(tmp_path / "ck")                      # written as ck.npz
+    assert not (tmp_path / "ck.npz.tmp.npz").exists()
+    for loaded in (pst.SeqStore.load(tmp_path / "ck"),
+                   jst.SeqStore.load(tmp_path / "ck.npz")):
+        for k in ("seq", "starts", "lengths", "flags"):
+            np.testing.assert_array_equal(getattr(loaded, k), getattr(st, k))
+        np.testing.assert_array_equal(loaded.mate, st.mate)
+    np.savez_compressed(tmp_path / "v2.npz", version=np.int64(2),
+                        seq=st.seq, starts=st.starts, lengths=st.lengths,
+                        flags=st.flags, mate=np.zeros(0, np.int64))
+    with pytest.raises(ValueError, match="unsupported store version 2"):
+        pst.SeqStore.load(tmp_path / "v2.npz")
+
+
+def test_adapter_table_and_corpus_genome_match():
+    from kit4b_tpu.assembly import contaminants as jco
+    from kit4b_tpu.assembly import overlap as jov
+    from kit4b_tpu.assembly import store as jst
+    from kit4b_tpu_torch.assembly import contaminants as pco
+    from kit4b_tpu_torch.assembly import overlap as pov
+    from kit4b_tpu_torch.assembly import store as pst
+    assert pco.DEFAULT_ADAPTERS == jco.DEFAULT_ADAPTERS
+    rng = np.random.default_rng(3)
+    arrays = [rng.integers(0, 5, int(n)).astype(np.uint8)
+              for n in rng.integers(5, 60, 30)]
+    j, p = jst.SeqStore.from_arrays(arrays), pst.SeqStore.from_arrays(arrays)
+    for s in (j, p):
+        s.flags[[2, 7]] |= jst.FLAG_DELETED
+    for rc in (True, False):
+        (jg, jl), (pg, pl) = jov.corpus_genome(j, rc), pov.corpus_genome(p, rc)
+        np.testing.assert_array_equal(pl, jl)
+        assert pg.names == jg.names
+        for k in ("starts", "lengths", "seq"):
+            np.testing.assert_array_equal(getattr(pg, k), getattr(jg, k))
+
+
+def test_scaffold_host_functions_match(tmp_path):
+    """collect_links over SAM records, build_scaffolds (votes, gaps, ends
+    used once, cycles refused) and write_scaffolds, through pescaffold."""
+    from kit4b_tpu.assembly import scaffold as jsc
+    from kit4b_tpu_torch.assembly import scaffold as psc
+    rng = np.random.default_rng(5)
+    ctgs = {f"c{i}": rng.integers(0, 4, int(rng.integers(50, 400)))
+            .astype(np.uint8) for i in range(7)}
+    jfa.write_fasta(tmp_path / "c.fa", [jfa.SeqRecord(k, "", v)
+                                        for k, v in ctgs.items()])
+    names = list(ctgs)
+    lines = {1: [], 2: []}
+    for q in range(300):
+        a, b = rng.choice(7, 2) if q % 4 else (q % 7, q % 7)
+        for m, c in ((1, a), (2, b)):
+            flag = (16 if rng.random() < 0.5 else 0) | \
+                (4 if q % 23 == 0 else 0)
+            lines[m].append(f"q{q}\t{flag}\t{names[c]}\t1\t60\t10M\t*\t0\t0"
+                            f"\tACGTACGTAC\t*")
+    for m in (1, 2):
+        (tmp_path / f"m{m}.sam").write_text("@HD\tVN:1.4\n"
+                                           + "\n".join(lines[m]) + "\n")
+    links = list(psc.collect_links(psam.read_sam(tmp_path / "m1.sam"),
+                                   psam.read_sam(tmp_path / "m2.sam")))
+    assert links == list(jsc.collect_links(
+        jsam.read_sam(tmp_path / "m1.sam"), jsam.read_sam(tmp_path / "m2.sam")))
+    gapped = [(a, b, int(g)) for (a, b), g in
+              zip(links, rng.integers(-50, 300, len(links)))]
+    for lk in (links, gapped):
+        for kw in (dict(), dict(min_links=4, default_gap=7, min_gap=3)):
+            paths = psc.build_scaffolds(lk, names, psc.ScaffoldParams(**kw))
+            assert paths == jsc.build_scaffolds(lk, names,
+                                                jsc.ScaffoldParams(**kw))
+            assert any(len(pth) > 1 for pth in paths)
+            got = psc.write_scaffolds(tmp_path / "p.fa", paths, ctgs,
+                                      psc.ScaffoldParams(**kw))
+            want = jsc.write_scaffolds(tmp_path / "j.fa", paths, ctgs,
+                                       jsc.ScaffoldParams(**kw))
+            assert [(r.name, r.descr, r.codes.tolist()) for r in got] == \
+                [(r.name, r.descr, r.codes.tolist()) for r in want]
+            assert (tmp_path / "p.fa").read_bytes() == \
+                (tmp_path / "j.fa").read_bytes()
+    psc.pescaffold(tmp_path / "m1.sam", tmp_path / "m2.sam",
+                   tmp_path / "c.fa", tmp_path / "p.fa")
+    jsc.pescaffold(tmp_path / "m1.sam", tmp_path / "m2.sam",
+                   tmp_path / "c.fa", tmp_path / "j.fa")
+    assert (tmp_path / "p.fa").read_bytes() == (tmp_path / "j.fa").read_bytes()
+    assert psc._end_of(True) == jsc._end_of(True) == "R"
+
+
+def test_counts_and_dataset_readers_and_writers_match(tmp_path):
+    from kit4b_tpu.align import rnaexpr as jre
+    from kit4b_tpu.tools import mlds as jml
+    from kit4b_tpu_torch.align import rnaexpr as pre
+    from kit4b_tpu_torch.tools import mlds as pml
+    (tmp_path / "c.csv").write_text(
+        'Feature,"a", "b",c\n"g1",1,2.5,3\n"g2",4,5\nbad\n" g3 ",0,0,1e3\n')
+    got, want = pre.load_counts_matrix(tmp_path / "c.csv"), \
+        jre.load_counts_matrix(tmp_path / "c.csv")
+    assert got[:2] == want[:2] == (["a", "b", "c"], ["g1", "g3"])
+    np.testing.assert_array_equal(got[2], want[2])
+    (tmp_path / "l.csv").write_text('"a",X\nb, "Y"\nonly\n')
+    assert pml.load_sample_labels(tmp_path / "l.csv") == \
+        jml.load_sample_labels(tmp_path / "l.csv") == {"a": "X", "b": "Y"}
+    (tmp_path / "d.csv").write_text(
+        'Feature,"a", "b",c\n"g1",1,2.5,3\n\n" g3 ",0,,1e3\n')
+    for labels in (None, {"a": "X", "c": "Z"}):
+        n = pml.transpose_dataset(tmp_path / "d.csv", tmp_path / "p.csv",
+                                  labels, label_name="Class")
+        assert n == jml.transpose_dataset(tmp_path / "d.csv",
+                                          tmp_path / "j.csv", labels,
+                                          label_name="Class") == (3, 2)
+        assert (tmp_path / "p.csv").read_bytes() == \
+            (tmp_path / "j.csv").read_bytes()
+    lk = [{"features": ["f1", "f9"], "rows": 12}, {"features": ["x"],
+                                                   "rows": 3}]
+    pml.write_linkages_csv(tmp_path / "p.csv", lk)
+    jml.write_linkages_csv(tmp_path / "j.csv", lk)
+    assert (tmp_path / "p.csv").read_bytes() == \
+        (tmp_path / "j.csv").read_bytes()
+
+
+def test_config5_reads_are_the_tools_scripts():
+    """tools/config5_bacterial.py's generator, step by step through the
+    JAX package: the port's reads are its reads, renamed by pair."""
+    from kit4b_tpu_torch.tools import config5
+    seq, r1, r2 = config5.make_config5(12.0, 9.0)
+    n = 12_000
+    rng = np.random.default_rng(55)
+    want = rng.integers(0, 4, n).astype(np.uint8)
+    g = jfa.Genome.from_records([jfa.SeqRecord("bact1", "", want)])
+    pairs = int(n * 9.0 / 300)
+    j1, j2 = jsim.sim_reads(g, jsim.SimParams(
+        n_reads=pairs, read_len=150, pe=True, pe_insert_min=250,
+        pe_insert_max=500, error_mode="illumina", subs_rate=0.005, seed=5))
+    dup = rng.choice(pairs, pairs // 10)
+    j1 = j1 + [j1[i] for i in dup]
+    j2 = j2 + [j2[i] for i in dup]
+    np.testing.assert_array_equal(seq, want)
+    for got, exp in ((r1, j1), (r2, j2)):
+        assert len(got) == len(exp) == pairs + pairs // 10
+        assert [(r.descr, r.codes.tolist()) for r in got] == \
+            [(r.name, r.codes.tolist()) for r in exp]
+    assert [r.name for r in r1] == [r.name for r in r2] == \
+        [f"p{j + 1:07d}" for j in range(len(r1))]

@@ -6,10 +6,11 @@ every file proves it line by line; subprocesses with both names blocked in
 with the -y and -C rescues, with the phases and filters into BAM with a
 BAI, with the SNP side outputs) and paired ends (also of unequal mates),
 `genpba`, `index -m 1` with `kalign --bisulfite`, `pseudogenome`,
-`kmarkers`, `prekmarkers`, with `--device cpu` where a command takes one)
-on a small
-seeded genome. The runs that build a suffix index need the port's host
-library and skip without it. This file imports neither package either:
+`kmarkers`, `prekmarkers`, `filter`, `assemb`, `mergeoverlaps`,
+`scaffold`, `pescaffold`, `rnaexpr`, `genmlds` and `sarscov2ml`, with
+`--device cpu` where a command takes one) on a small seeded genome. The
+runs that build a suffix index need the port's host library and skip
+without it. This file imports neither package either:
 
     python -m pytest --noconftest tests/test_torch_standalone.py
 """
@@ -316,3 +317,58 @@ def test_cli_simreads_and_pe_kalign_with_both_blocked(genome_fa, tmp_path,
                 int(c[0].split("|")[3]) == int(c[3]) - 1 for c in proper)
     assert truth > 0.95 * len(proper)
     assert vcf.read_text().startswith("##fileformat=VCF")
+
+
+def test_cli_assembly_and_float_commands_with_both_blocked(
+        genome_fa, tmp_path, host_library):
+    """simreads -p, then filter (-a, -D on the CPU), assemb -u,
+    mergeoverlaps, scaffold and index + kalign + pescaffold onto chrA cut
+    in two, and rnaexpr, genmlds and sarscov2ml on the assembly golden's
+    CSVs."""
+    _run("from pathlib import Path\n"
+         "from kit4b_tpu_torch import cli\n"
+         "from kit4b_tpu_torch.io.fasta import SeqRecord, read_seqs, "
+         "write_fasta\n"
+         "from kit4b_tpu_torch.tools import make_assembly_golden as mg\n"
+         "d = Path('.')\n"
+         f"assert cli.main(['simreads', '-i', {str(genome_fa)!r}, '-o', "
+         "'r1.fa', '-O', 'r2.fa', '-p', '-n', '400', '-l', '80', '-j', "
+         "'120', '-J', '260', '-S', '8']) == 0\n"
+         "for m in 'r1.fa', 'r2.fa':\n"
+         "    write_fasta(m, [SeqRecord(f'p{i}', '', r.codes) for i, r in "
+         "enumerate(read_seqs(m))])\n"
+         "chra = next(iter(read_seqs("
+         f"{str(genome_fa)!r})))\n"
+         "write_fasta('ctg.fa', [SeqRecord('a1', '', chra.codes[:2000]), "
+         "SeqRecord('a2', '', chra.codes[2030:])])\n"
+         "*_, counts, part, labels, mat = mg.workload()\n"
+         "for n, t in (('c.csv', counts), ('p.csv', part), ('l.csv', "
+         "labels), ('m.csv', mat)):\n"
+         "    (d / n).write_text(t)\n"
+         "runs = [\n"
+         "    ['filter', '-i', 'r1.fa', '-u', 'r2.fa', '-o', 'f.fa', '-a', "
+         "'-D', '2', '--device', 'cpu'],\n"
+         "    ['assemb', '-i', 'r1.fa', '-u', 'r2.fa', '-o', 'a.fa', '-y', "
+         "'40', '-Y', '25'],\n"
+         "    ['mergeoverlaps', '-i', 'r1.fa', '-u', 'r2.fa', '-o', "
+         "'mo.fa'],\n"
+         "    ['scaffold', '-a', 'r1.fa', '-A', 'r2.fa', '-c', 'ctg.fa', "
+         "'-o', 's.fa', '-p', '200', '--device', 'cpu'],\n"
+         "    ['index', '-i', 'ctg.fa', '-o', 'ctg.kix'],\n"
+         "    ['kalign', '-i', 'r1.fa', '-I', 'ctg.kix', '-o', 'm1.sam', "
+         "'--device', 'cpu'],\n"
+         "    ['kalign', '-i', 'r2.fa', '-I', 'ctg.kix', '-o', 'm2.sam', "
+         "'--device', 'cpu'],\n"
+         "    ['pescaffold', '-a', 'm1.sam', '-A', 'm2.sam', '-c', "
+         "'ctg.fa', '-o', 'ps.fa'],\n"
+         "    ['rnaexpr', '-i', 'c.csv', '-c', 'p.csv', '-o', 'r.csv', "
+         "'--device', 'cpu'],\n"
+         "    ['genmlds', '-i', 'c.csv', '-l', 'l.csv', '-o', 'g.csv'],\n"
+         "    ['sarscov2ml', '-i', 'm.csv', '-o', 'x.csv', '-l', '3', '-r', "
+         "'20', '--device', 'cpu']]\n"
+         "for argv in runs:\n"
+         "    assert cli.main(argv) == 0, argv\n", tmp_path)
+    for f in ("f.fa", "a.fa", "mo.fa", "r.csv", "g.csv", "x.csv"):
+        assert (tmp_path / f).read_text().count("\n") > 2, f
+    for f in ("s.fa", "ps.fa"):
+        assert "contigs=a1,a2" in (tmp_path / f).read_text(), f
