@@ -10,9 +10,9 @@ raises on failure, and the script then exits non-zero without printing a
 result:
 
 1. The card's name and power limit (nvidia-smi), the CUDA version, and the
-   build of the three kernels (csrc/minmm.cu, sweep.cu, take.cu; one nvcc
-   each, all at once) with ptxas's report; none may spill, and sweep and
-   take may not keep a stack frame.
+   build of the kernels (csrc/minmm.cu, sweep.cu, take.cu, sw.cu; one nvcc
+   each, all at once) with ptxas's report; none may spill, and none but
+   minmm may keep a stack frame.
 2. The min-match kernel against its plain PyTorch version at the shapes
    of phase 4's run (Cw = 128, T = 2048, S = 1024, one row chunk of 2^21
    own rows against the node's partner spans), bit for bit, and at a
@@ -204,13 +204,39 @@ result:
    isolates x 400 features, its co-support counts exact and the three
    planted linked groups found.
 
+15. The PacBio long-read path (the banded Smith-Waterman kernels of
+   csrc/sw.cu, host code around them). (a) The port on the seeded inputs
+   of `kit4b_tpu_torch.tools.make_pacbio_golden` (the engine's edge cases:
+   band edges, pad rows, N codes, equal peaks, every caller's score set and
+   a tie of gap costs, bands of 1 to 4,097, walks cut at L_OPS; and small
+   readsets through correct_reads, filter_reads, assemble and
+   polish_contigs) against the JAX package's committed golden: every array
+   equal, pointer bytes included. (b) Both kernels against their plain
+   versions on those cases and on one batch at B 32, W 3,000, Lp 4,096 of
+   CLR reads, the whole pointer array and every output equal; that batch
+   timed (CUDA events, median of 5) beside the plain versions (ms, device
+   operations) and the bounds (the scan's int32 operations, SW_CELL_OPS;
+   the traceback's bytes). (c) tools/pacbio_scale.py's readset (100 kbp at
+   8x, seed 99: 59 reads of 10-18 kbp spans at about 14 % CLR error; one
+   in ten folded into a hairpin) through the CLI `pbfilter`, `ecreads -l
+   10000 -L 5000 -b 3000`, `pbassemb` and `eccontigs`, each step's wall
+   split into index build, candidates, hairpin seeds, SW scan, traceback
+   and consensus, with its SW batches, kernel launches (one scan and one
+   traceback a batch), device busy share and peak memory. Checks: every
+   planted hairpin split, at least 80 % of the reads of 10 kbp or more
+   corrected, their median SW identity to the truth at least 0.1 above the
+   raw reads', a contig; ecreads' first and longest SW batches held to the
+   plain versions.
+
 Each kernel's launch counter is set to 0 just before its path (phases 4,
-6, 7) and read just after it; phases 8-14 run none of the three kernels.
-The script prints its seconds before the kernels line. The
-line before the last is a JSON table of the kernels, each with its bound
-(the least time the card could take: int8 tensor operations for minmm
-and sweep, bytes for take; take's `ms` is device time); the last line is
-{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
+6, 7, and each CLI step of 15c) and read just after it; phases 8-14 run
+none of the kernels. The script prints its seconds, and each phase's,
+before the kernels line. The line before the last is a JSON table of the
+kernels, each with its bound (the least time the card could take: int8
+tensor operations for minmm and sweep, int32 operations for sw_scan,
+bytes for take and sw_traceback; take's `ms` is device time); the last
+line is {"ok": true, "device": {"platform": "gpu", "kind": ..., "count":
+...}}.
 """
 from __future__ import annotations
 
@@ -270,16 +296,21 @@ def _round_up(x: int, m: int) -> int:
     return -(-x // m) * m
 
 
-def _time_ms(torch, fn) -> float:
-    """Milliseconds of one call of fn, timed with CUDA events."""
+def _with_ms(torch, fn):
+    """(fn(), its milliseconds by CUDA events)."""
     torch.cuda.synchronize()
     a = torch.cuda.Event(enable_timing=True)
     b = torch.cuda.Event(enable_timing=True)
     a.record()
-    fn()
+    out = fn()
     b.record()
     b.synchronize()
-    return a.elapsed_time(b)
+    return out, a.elapsed_time(b)
+
+
+def _time_ms(torch, fn) -> float:
+    """Milliseconds of one call of fn, timed with CUDA events."""
+    return _with_ms(torch, fn)[1]
 
 
 def write_fasta(path: Path, names: list[str], chroms: list[np.ndarray],
@@ -2310,6 +2341,402 @@ def float_full(torch, dev, card, tmp: Path):
                              "group not found")
 
 
+# --- phase 15: the PacBio long-read path --------------------------------
+
+# the least time of the banded Smith-Waterman scan is set by its integer
+# operations: each cell costs these int32 operations of the recurrence
+# (kit4b_tpu_torch/kernels/sw.py's spec; a work-efficient max scan costs
+# one max a cell), against one pointer byte written a cell
+SW_CELL_OPS = (
+    ("the target column, its two bounds and the code test", 4),
+    ("the cell rule's two ANDs, the probe-target compare, the two selects "
+     "of sub", 5),
+    ("E: two adds, a max, the eext compare", 4),
+    ("H0: an add, two maxes", 3),
+    ("dirb: two compares, two selects", 4),
+    ("X: an add of the column's constant", 1),
+    ("F: the max scan's max, an add, the fext and usedf compares", 4),
+    ("H = max(H0, F)", 1),
+    ("the pointer byte: three shifts, three ORs", 6),
+    ("the row peak: a compare, two selects", 3))
+SW_OPS_PER_CELL = sum(n for _, n in SW_CELL_OPS)      # 35
+INT32_RATE = 132 * 64 * 1.98e9   # H100 SXM: SMs x INT32 lanes x boost clock
+SW_BATCH = (32, 4096, 3000)      # phase 15b: B, Lp, W of the timed batch
+PB_KBP, PB_COV = 100.0, 8.0      # tools/pacbio_scale.py's measured size
+PB_HAIRPIN_EVERY = 10            # one read in ten folded into a hairpin
+PB_EC_ARGS = ("-l", "10000", "-L", "5000", "-b", "3000")
+
+
+def pacbio_golden(torch, dev):
+    """Phase 15a: the banded SW engine's edge cases and the four PacBio
+    functions through the port on the card against the JAX package's
+    golden."""
+    from kit4b_tpu_torch.tools import make_pacbio_golden as mg
+    gold = np.load(mg.GOLDEN)
+    cases, work = mg.sw_cases(), mg.workload()
+    if mg.inputs_sha256(cases, work) != str(gold["inputs_sha256"]):
+        raise AssertionError("the PacBio golden inputs rebuilt here differ "
+                             "from the ones the golden was made from")
+    t0 = time.perf_counter()
+    out = mg.compute(mg.port_fns(dev), cases, work)
+    wall = time.perf_counter() - t0
+    bad, reach = mg.differing(out, gold), mg.check_reach(out)
+    print(f"PacBio golden ({wall} s; {len(cases)} engine cases, "
+          f"correct_reads, filter_reads, assemble, polish_contigs): "
+          f"{len(out)} arrays compared, differing: {bad or 'none'}")
+    if bad or reach:
+        raise AssertionError(f"the PacBio path differs from the JAX golden "
+                             f"in {bad}; reach {reach}")
+
+
+def _sw_padded(probes, targets):
+    """probes and targets padded to multiples of 512 with 0x0F, as
+    banded_sw_batch pads them."""
+    out = []
+    for a in (probes, targets):
+        m = _round_up(max(a.shape[1], 1), 512)
+        out.append(np.pad(a, ((0, 0), (0, m - a.shape[1])),
+                          constant_values=0x0F))
+    return out
+
+
+def sw_scan_bound_ms(B, Lp, Lt, W) -> tuple[float, str]:
+    """(ms, what sets it) of one scan: its int32 operations over the card's
+    int32 rate, or its bytes (codes read once, pointer bytes written once)
+    over the memory rate."""
+    ops = B * Lp * W * SW_OPS_PER_CELL / INT32_RATE
+    nbytes = (B * Lp + B * Lt + 24 * B + B * Lp * W) / HBM_RATE
+    return max(ops, nbytes) * 1e3, ("operations" if ops >= nbytes
+                                    else "bytes")
+
+
+def sw_traceback_bound_ms(n, nm, nmm, L_OPS) -> float:
+    """ms of one traceback's bytes over the memory rate: a pointer byte for
+    each cell the walk visits (n + 1), the two codes of each M op, the op
+    codes written (B x L_OPS) and 36 bytes of scalars a lane."""
+    B = len(n)
+    nbytes = (int(n.sum()) + B + 2 * int(nm.sum() + nmm.sum()) + B * L_OPS
+              + 36 * B)
+    return nbytes / HBM_RATE * 1e3
+
+
+def sw_vs_plain(torch, dev, batch, label, timed=False):
+    """Both kernels against their plain versions on one batch as
+    banded_sw_batch takes it: (probes, plens, targets, tlens, diag0, W,
+    (match, mismatch, open, ext)). Raises unless the pointer arrays and
+    every output are equal; with `timed`, returns the kernels' times
+    (CUDA events, median of 5), the plain versions' (the one run compared)
+    and the bounds."""
+    from kit4b_tpu_torch.kernels import sw
+    probes, plens, targets, tlens, diag0, W, (m, mm, go, ge) = batch
+    pp, tp = _sw_padded(probes, targets)
+    p, t, pl, tl, d0 = (torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                        for a in (pp, tp, np.asarray(plens, np.int32),
+                                  np.asarray(tlens, np.int32),
+                                  np.asarray(diag0, np.int32)))
+    kw = dict(W=W, match=m, mismatch=mm, gap_open=go, gap_ext=ge)
+    L_OPS = pp.shape[1] + W
+
+    def scan():
+        return sw.sw_scan(p, t, pl, tl, d0, **kw)
+
+    def scan_plain():
+        return sw.sw_scan_plain(p, t, pl, tl, d0, **kw)
+    got = scan()
+    want, scan_plain_ms = _with_ms(torch, scan_plain)
+    bad = [k for k, g, w in zip(("best", "bi", "bk", "pointer bytes"), got,
+                                want) if not torch.equal(g, w)]
+    if bad:
+        raise AssertionError(f"sw_scan differs from its plain version in "
+                             f"{bad}: {label}")
+    best, bi, bk, ptrs = got
+    del want
+
+    def trace():
+        return sw.sw_traceback(ptrs, p, t, best, bi, bk, d0, W=W,
+                               L_OPS=L_OPS)
+
+    def trace_plain():
+        return sw.traceback_plain(ptrs, p, t, best, bi, bk, d0, W=W,
+                                  L_OPS=L_OPS)
+    tgot = trace()
+    twant, tb_plain_ms = _with_ms(torch, trace_plain)
+    bad = [k for k, g, w in zip(("ops", "n", "ps", "ts", "nm", "nmm"), tgot,
+                                twant) if not torch.equal(g, w)]
+    if bad:
+        raise AssertionError(f"sw_traceback differs from its plain version "
+                             f"in {bad}: {label}")
+    B, Lp = pp.shape
+    n, nm, nmm = (x.cpu().numpy() for x in (tgot[1], tgot[4], tgot[5]))
+    print(f"sw kernels vs plain [{label}]: B={B} Lp={Lp} Lt={tp.shape[1]} "
+          f"W={W} scores {(m, mm, go, ge)}: pointer bytes, best cells and "
+          f"walks equal (walk ops {int(n.sum())}, longest {int(n.max())})")
+    if not timed:
+        return None
+    scan_ms = sorted(_time_ms(torch, scan) for _ in range(5))
+    tb_ms = sorted(_time_ms(torch, trace) for _ in range(5))
+    s_bound, s_by = sw_scan_bound_ms(B, Lp, tp.shape[1], W)
+    t_bound = sw_traceback_bound_ms(n, nm, nmm, L_OPS)
+    return dict(scan_ms=scan_ms[2], scan_runs=scan_ms,
+                scan_plain_ms=scan_plain_ms, scan_bound=s_bound,
+                scan_by=s_by, tb_ms=tb_ms[2], tb_runs=tb_ms,
+                tb_plain_ms=tb_plain_ms, tb_bound=t_bound)
+
+
+def sw_plain_ops(torch, dev, case):
+    """Device operations of the plain scan and traceback on one of the
+    golden's cases, by torch.profiler (a small case: the profiler's own
+    cost grows with the operations it records). Returns (scan operations,
+    traceback operations, the longest walk)."""
+    from kit4b_tpu_torch.kernels import sw
+    from kit4b_tpu_torch.tools import make_pacbio_golden as mg
+    pp, tp = mg.padded(case)
+    p, t, pl, tl, d0 = (torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                        for a in (pp, tp, case["plens"], case["tlens"],
+                                  case["diag0"]))
+    m, mm, go, ge = case["scores"]
+    W = case["band"]
+    out = []
+    _, _, scan_ops = _profiled(torch, lambda: out.extend(sw.sw_scan_plain(
+        p, t, pl, tl, d0, W=W, match=m, mismatch=mm, gap_open=go,
+        gap_ext=ge)))
+    best, bi, bk, ptrs = out
+    res = []
+    _, _, tb_ops = _profiled(torch, lambda: res.extend(sw.traceback_plain(
+        ptrs, p, t, best, bi, bk, d0, W=W, L_OPS=pp.shape[1] + W)))
+    return scan_ops, tb_ops, int(res[1].max())
+
+
+def sw_timed_batch(rng):
+    """Phase 15b's batch: 32 pairs of CLR reads (tools.pacbio_reads'
+    corruption) of overlapping windows of one genome, probes of about
+    3,900 bases in a width of 4,096, on their true diagonal in a band of
+    3,000, with ecreads' scores."""
+    from kit4b_tpu_torch.tools.pacbio_reads import corrupt_pacbio
+    B, Lp, W = SW_BATCH
+    genome = rng.integers(0, 4, 12_000).astype(np.uint8)
+    probes = np.full((B, Lp), 0x0F, np.uint8)
+    targets = np.full((B, Lp), 0x0F, np.uint8)
+    plens, tlens, diag0 = (np.zeros(B, np.int32) for _ in range(3))
+    for b in range(B):
+        s = int(rng.integers(0, 8_000))
+        s2 = int(np.clip(s + rng.integers(-1_500, 1_500), 0, 8_000))
+        p = corrupt_pacbio(genome[s:s + 3_600], rng)[:Lp]
+        t = corrupt_pacbio(genome[s2:s2 + 3_600], rng)[:Lp]
+        probes[b, :len(p)], targets[b, :len(t)] = p, t
+        plens[b], tlens[b], diag0[b] = len(p), len(t), s - s2
+    return probes, plens, targets, tlens, diag0, W, (1, -2, -2, -1)
+
+
+def sw_kernels(torch, dev, card, rng):
+    """Phase 15b: both kernels against their plain versions on the
+    golden's edge cases and on one batch at B 32, W 3,000, Lp 4,096, which
+    is then timed (CUDA events, median of 5) beside the plain versions and
+    the bounds. Returns the times and bounds."""
+    from kit4b_tpu_torch.tools import make_pacbio_golden as mg
+    for c in mg.sw_cases():
+        if c["traceback"]:
+            sw_vs_plain(torch, dev, (
+                c["probes"], c["plens"], c["targets"], c["tlens"],
+                c["diag0"], c["band"], c["scores"]), c["label"])
+    t = sw_vs_plain(torch, dev, sw_timed_batch(rng),
+                    "B 32, W 3000, Lp 4096", timed=True)
+    torch.cuda.empty_cache()
+    case = next(c for c in mg.sw_cases() if c["label"] == "oracle")
+    scan_ops, tb_ops, walk = sw_plain_ops(torch, dev, case)
+    B, Lp, W = SW_BATCH
+    print(f"sw_scan at B={B} Lp={Lp} W={W} on {card}: kernel median "
+          f"{t['scan_ms']} ms of 5 (CUDA events: {t['scan_runs']}), plain "
+          f"{t['scan_plain_ms']} ms; bound {t['scan_bound']} ms "
+          f"({t['scan_by']}: {SW_OPS_PER_CELL} int32 operations a cell at "
+          f"{INT32_RATE / 1e12:g} T/s), kernel at "
+          f"{t['scan_bound'] / t['scan_ms']} of it")
+    print(f"sw_traceback on that batch on {card}: kernel median "
+          f"{t['tb_ms']} ms of 5 (CUDA events: {t['tb_runs']}), plain "
+          f"{t['tb_plain_ms']} ms; bound {t['tb_bound']} ms (bytes), "
+          f"kernel at {t['tb_bound'] / t['tb_ms']} of it")
+    print(f"plain versions' device operations (torch.profiler) on the "
+          f"golden's oracle case (B 4, Lp 512, W 128): scan {scan_ops}, "
+          f"traceback {tb_ops} (longest walk {walk} ops)")
+    return t
+
+
+def _synced(torch, fn):
+    def call(*a, **kw):
+        out = fn(*a, **kw)
+        torch.cuda.synchronize()
+        return out
+    return call
+
+
+def _pacbio_readset(tmp: Path):
+    """tools/pacbio_scale.py's readset (tools.pacbio_reads, seed 99) with
+    one read in PB_HAIRPIN_EVERY folded on its reverse complement, as
+    FASTA; returns (genome, the reads before folding, truth windows by
+    read name, the names of the folded reads)."""
+    from kit4b_tpu_torch import dna
+    from kit4b_tpu_torch.io.fasta import SeqRecord, write_fasta
+    from kit4b_tpu_torch.tools import pacbio_reads
+    genome, reads, truth = pacbio_reads.simulate(PB_KBP, PB_COV)
+    out, hairpins = [], []
+    for i, r in enumerate(reads):
+        codes = r.codes
+        if i % PB_HAIRPIN_EVERY == 0:
+            codes = np.concatenate([codes, dna.revcomp(codes)])
+            hairpins.append(r.name)
+        out.append(SeqRecord(r.name, "", codes))
+    write_fasta(tmp / "raw.fa", out)
+    lens = [len(r.codes) for r in reads]
+    print(f"PacBio readset (tools/pacbio_scale.py, seed 99): {len(reads)} "
+          f"reads of {min(lens)}-{max(lens)} bp, {sum(lens)} bp "
+          f"({PB_COV}x of {PB_KBP} kbp), {len(hairpins)} folded into "
+          f"hairpins")
+    return genome, reads, dict(zip((r.name for r in reads), truth)), \
+        hairpins
+
+
+def _identity(genome, truth, records, dev):
+    """Median SW identity (tools/pacbio_scale.py's) of each record against
+    the truth window of the read it came from: its name holds the read's
+    `pb<i>|<start>|<span>`, and a hairpin's second subread (`/sub2`) is
+    that read reverse-complemented."""
+    from kit4b_tpu_torch import dna
+    from kit4b_tpu_torch.tools.pacbio_reads import identity_vs_truth
+    ids = []
+    for r in records:
+        parts = r.name.split("|")
+        j = next(j for j, p in enumerate(parts) if p.startswith("pb"))
+        span, _, sub = parts[j + 2].partition("/")
+        codes = np.asarray(r.codes, np.uint8)
+        if sub == "sub2":
+            codes = dna.revcomp(codes)
+        ids.append(identity_vs_truth(
+            codes, genome, *truth[f"{parts[j]}|{parts[j + 1]}|{span}"],
+            device=dev))
+    return float(np.median(ids)) if ids else 0.0, len(ids)
+
+
+def pacbio_full(torch, dev, card, tmp: Path):
+    """Phase 15c: tools/pacbio_scale.py's readset (100 kbp at 8x, seed 99,
+    one read in ten a hairpin) through the CLI `pbfilter`, `ecreads -l
+    10000 -L 5000 -b 3000`, `pbassemb` and `eccontigs`, each step's wall
+    split by function, its SW batches, kernel launches, device busy share
+    and peak memory; the corrected reads' identity to the truth against
+    the raw reads'; ecreads' first and longest SW batches held to the
+    plain versions. Returns the kernels' launches over the four steps."""
+    from kit4b_tpu_torch import cli
+    from kit4b_tpu_torch.io.fasta import read_seqs
+    from kit4b_tpu_torch.kernels import sw
+    from kit4b_tpu_torch.pacbio import consensus, ecreads, pbassemb, \
+        pbfilter, sswd
+    genome, reads, truth, hairpins = _pacbio_readset(tmp)
+    held = {}               # ecreads' first and longest batch
+    batches = [0]
+
+    def spy(fn, keep):
+        def call(probes, plens, targets, tlens, diag0, **kw):
+            batches[0] += 1
+            if keep:
+                b = (probes.copy(), plens.copy(), targets.copy(),
+                     tlens.copy(), diag0.copy(), kw["band"],
+                     (kw["scores"].match, kw["scores"].mismatch,
+                      kw["scores"].gap_open, kw["scores"].gap_ext))
+                held.setdefault("first", b)
+                if "longest" not in held or \
+                        probes.shape[1] > held["longest"][0].shape[1]:
+                    held["longest"] = b
+            return fn(probes, plens, targets, tlens, diag0, **kw)
+        return call
+    f = tmp
+    steps = [("pbfilter", ["pbfilter", "-i", f"{f}/raw.fa", "-o",
+                           f"{f}/filt.fa"]),
+             ("ecreads", ["ecreads", "-i", f"{f}/filt.fa", "-o",
+                          f"{f}/ec.fa", *PB_EC_ARGS]),
+             ("pbassemb", ["pbassemb", "-i", f"{f}/ec.fa", "-o",
+                           f"{f}/contigs.fa"]),
+             ("eccontigs", ["eccontigs", "-i", f"{f}/contigs.fa", "-r",
+                            f"{f}/ec.fa", "-o", f"{f}/polished.fa"])]
+    split = [("index build", ecreads, "build_read_index"),
+             ("index build", pbassemb, "build_read_index"),
+             ("candidates", ecreads, "_candidates"),
+             ("candidates", pbassemb, "_candidates"),
+             ("hairpin seeds", pbfilter, "_self_rc_diag"),
+             ("SW scan", sswd, "sw_scan"),
+             ("traceback", sswd, "sw_traceback"),
+             ("consensus", consensus.ConsensusBuilder, "add"),
+             ("consensus", consensus.ConsensusBuilder, "call")]
+    saved = [(m, n, getattr(m, n)) for m, n in (
+        (sswd, "sw_scan"), (sswd, "sw_traceback"),
+        (ecreads, "banded_sw_batch"), (pbfilter, "banded_sw_batch"),
+        (pbassemb, "banded_sw_batch"))]
+    sswd.sw_scan = _synced(torch, sw.sw_scan)
+    sswd.sw_traceback = _synced(torch, sw.sw_traceback)
+    for mod in (ecreads, pbfilter, pbassemb):
+        mod.banded_sw_batch = spy(mod.banded_sw_batch, mod is ecreads)
+    launches = {"sw_scan": 0, "sw_traceback": 0}
+    try:
+        for name, argv in steps:
+            rc = []
+            batches[0] = 0
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_launches()
+            with _timed(split) as secs:
+                wall, busy, n_ops = _profiled(
+                    torch, lambda: rc.append(cli.main(argv)))
+            n_scan, n_tb = sw.sw_scan.launches, sw.sw_traceback.launches
+            peak = torch.cuda.max_memory_allocated()
+            if rc != [0]:
+                raise AssertionError(f"CLI {name} exited {rc}")
+            n_out = sum(1 for _ in read_seqs(argv[argv.index("-o") + 1]))
+            print(f"CLI {name} on {card}: wall {wall} s, split (s) "
+                  f"{ {k: v for k, v in secs.items() if v} }; "
+                  f"{batches[0]} SW batches, kernel launches sw_scan "
+                  f"{n_scan} sw_traceback {n_tb}; "
+                  + (f"device busy {busy} s ({busy / wall} of the wall), "
+                     if busy else "device busy not measured, ")
+                  + f"{n_ops} device operations; peak device memory {peak} "
+                  f"bytes; {n_out} records out")
+            if not (n_scan == n_tb == batches[0] > 0):
+                raise AssertionError(f"{name}: {batches[0]} SW batches but "
+                                     f"{n_scan} scan and {n_tb} traceback "
+                                     f"launches")
+            launches["sw_scan"] += n_scan
+            launches["sw_traceback"] += n_tb
+    finally:
+        for m, n, fn in saved:
+            setattr(m, n, fn)
+    filt = list(read_seqs(tmp / "filt.fa"))
+    split_names = {r.name.split("/")[0] for r in filt if "/sub" in r.name}
+    ec = list(read_seqs(tmp / "ec.fa"))
+    long_in = sum(len(r.codes) >= 10_000 for r in filt)
+    # the tool's raw baseline: every len // 12-th read
+    raw_id, n_raw = _identity(genome, truth,
+                              reads[::max(1, len(reads) // 12)], dev)
+    cor_id, n_cor = _identity(genome, truth, ec, dev)
+    ctg = [len(r.codes) for r in read_seqs(tmp / "contigs.fa")]
+    pol = [len(r.codes) for r in read_seqs(tmp / "polished.fa")]
+    print(f"PacBio path on {card}: pbfilter split {len(split_names)} reads "
+          f"({len(hairpins)} hairpins planted, "
+          f"{len(set(hairpins) - split_names)} of them not split); ecreads corrected {len(ec)} of "
+          f"{long_in} reads of >= 10 kbp; SW identity to the truth, median: "
+          f"raw {raw_id} ({n_raw} reads), corrected {cor_id} ({n_cor} "
+          f"reads); pbassemb {len(ctg)} contigs, longest "
+          f"{max(ctg, default=0)}, total {sum(ctg)}; eccontigs "
+          f"{len(pol)} polished, total {sum(pol)}")
+    for label in ("first", "longest"):
+        sw_vs_plain(torch, dev, held[label], f"ecreads' {label} batch")
+    torch.cuda.empty_cache()
+    if set(hairpins) - split_names or len(ec) < 0.8 * long_in \
+            or cor_id < raw_id + 0.1 or not ctg:
+        raise AssertionError(
+            f"PacBio path: {sorted(set(hairpins) - split_names)} hairpins "
+            f"not split, "
+            f"{len(ec)} of {long_in} reads corrected, identity {raw_id} -> "
+            f"{cor_id}, {len(ctg)} contigs")
+    return launches
+
+
 def minmm_cases(torch, cases, minmm, minmm_plain) -> int:
     """Phase 2: the min-match kernel against its plain version, bit for
     bit, on (label, own rows, partner, diag, span_lo, span_cnt, row_base)
@@ -2333,9 +2760,11 @@ def minmm_cases(torch, cases, minmm, minmm_plain) -> int:
 def reset_launches() -> None:
     """Sets every kernel's launch counter to 0."""
     from kit4b_tpu_torch.kernels.minmm import minmm
+    from kit4b_tpu_torch.kernels.sw import sw_scan, sw_traceback
     from kit4b_tpu_torch.kernels.sweep import sweep
     from kit4b_tpu_torch.kernels.take import take
     minmm.launches = sweep.launches = take.launches = 0
+    sw_scan.launches = sw_traceback.launches = 0
 
 
 class _PhaseLog(logging.Handler):
@@ -2367,6 +2796,13 @@ class _PhaseLog(logging.Handler):
 def main() -> int:
     import torch
     t_start = time.perf_counter()
+    phase_s = {}          # seconds of each phase, in order
+    lap = [t_start]
+
+    def done(phase: str) -> None:
+        now = time.perf_counter()
+        phase_s[phase] = now - lap[0]
+        lap[0] = now
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this test needs an NVIDIA "
               "card", file=sys.stderr)
@@ -2396,7 +2832,7 @@ def main() -> int:
     print(card)
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
-    kernels = ("minmm", "sweep", "take")
+    kernels = ("minmm", "sweep", "take", "sw")
     built = [k for k in kernels if build.paths(k)[1].exists()]
     t0 = time.perf_counter()
     build.build(*kernels)
@@ -2420,6 +2856,8 @@ def main() -> int:
         if spills:
             raise AssertionError(f"{k} spills or keeps a stack frame: "
                                  f"{spills}")
+
+    done("1")
 
     # --- the phase-4 genome and its node geometry ---------------------
     chroms, planted = synthetic_r64(rng)
@@ -2498,6 +2936,8 @@ def main() -> int:
               f"{row['bound_ms'] / (sum(row['ms']) / 2)} of it")
     torch.cuda.empty_cache()
 
+    done("2")
+
     # --- 3. the engine on the card vs the numpy oracle ----------------
     g = rng.integers(0, 4, 2000).astype(np.uint8)
     g[700] = 7                                  # EOS
@@ -2519,6 +2959,8 @@ def main() -> int:
             if not ok:
                 raise AssertionError(f"engine differs from oracle: K={k} "
                                      f"antisense={anti}")
+
+    done("3")
 
     # --- 4. the CLI end to end on the R64-sized genome ----------------
     with tempfile.TemporaryDirectory(prefix=".chip_smoke_", dir=root) as tmp:
@@ -2580,42 +3022,52 @@ def main() -> int:
     if int(got[N_RANDOM:].min()) != 0:
         raise AssertionError("no planted position reads distance 0")
 
+    done("4")
+
     # --- 5-7. the sweep kernel, the sweep engine, the gather ----------
     chr4 = synthetic_chr4(np.random.default_rng(SEED + 4))
     sweep_err, sweep_ms, sweep_plain_ms, sweep_bound = sweep_vs_plain(
         torch, dev, chr4, card)
+    done("5")
     sweep_launches, chr4_min = sweep_engine(torch, dev, chr4, g,
                                             oracle_results, card)
+    done("6")
     take_launches, take_err, take_ms, take_plain_ms, take_bound = gather(
         torch, dev)
+    done("7")
 
     # --- 8. kalign: the JAX golden, then config #1 at full size -------
     kalign_golden(torch, dev)
     with tempfile.TemporaryDirectory(prefix=".chip_smoke_", dir=root) as tmp:
         kalign_full(torch, dev, card, Path(tmp))
+    done("8")
 
     # --- 9. kmarkers: the JAX golden, the brute force, config #3 ------
     kmarkers_golden(torch, dev)
     kmarkers_brute(torch, dev)
     with tempfile.TemporaryDirectory(prefix=".chip_smoke_", dir=root) as tmp:
         kmarkers_full(torch, dev, card, Path(tmp))
+    done("9")
 
     # --- 10. hammings -r: the golden, chrIV, the R64-length CLI run ----
     restricted_golden(torch, dev)
     restricted_chr4(torch, dev, chr4, chr4_min, card)
     with tempfile.TemporaryDirectory(prefix=".chip_smoke_", dir=root) as tmp:
         restricted_full(torch, dev, card, Path(tmp), chroms, seq, Gp)
+    done("10")
 
     # --- 11. paired-end kalign: the JAX golden, config #4 at full size --
     # --- 12. full-stats kalign: the golden, -y -C, -l, unequal mates ----
     pe_golden(torch, dev)
     with tempfile.TemporaryDirectory(prefix=".chip_smoke_", dir=root) as tmp:
         pe_full(torch, dev, card, Path(tmp))
+        done("11")
         kalign_full_golden(torch, dev)
         with tempfile.TemporaryDirectory(prefix=".chip_smoke_",
                                          dir=root) as tmp12:
             rescue_full(torch, dev, card, Path(tmp12))
         pe_unequal_full(torch, dev, card, Path(tmp))
+    done("12")
 
     # --- 13. kalign options, BAM, SNP outputs, bisulfite ----------------
     opts_golden(torch, dev)
@@ -2623,6 +3075,7 @@ def main() -> int:
         opts_full(torch, dev, card, Path(tmp))
         snp_full(torch, dev, card, Path(tmp))
         bisulfite_full(torch, dev, card, Path(tmp))
+    done("13")
 
     # --- 14. config #5 and the float device uses ------------------------
     assembly_golden(torch, dev)
@@ -2630,11 +3083,20 @@ def main() -> int:
         config5_full(torch, dev, card, Path(tmp))
         neardup_full(torch, dev, card, Path(tmp))
         float_full(torch, dev, card, Path(tmp))
+    done("14")
+
+    # --- 15. the PacBio long-read path: golden, kernels, pipeline -------
+    pacbio_golden(torch, dev)
+    sw_t = sw_kernels(torch, dev, card, np.random.default_rng(SEED + 15))
+    with tempfile.TemporaryDirectory(prefix=".chip_smoke_", dir=root) as tmp:
+        sw_launches = pacbio_full(torch, dev, card, Path(tmp))
+    done("15")
     if "jax" in sys.modules or "kit4b_tpu" in sys.modules:
         raise AssertionError("jax or the JAX package kit4b_tpu was imported")
 
     print(f"chip_smoke: every phase passed in "
-          f"{time.perf_counter() - t_start} s")
+          f"{time.perf_counter() - t_start} s; seconds by phase "
+          f"{json.dumps(phase_s)}")
     print(json.dumps({"kernels": [
         {"name": "minmm", "route": "cuda",
          "source": "kit4b_tpu_torch/csrc/minmm.cu",
@@ -2653,7 +3115,21 @@ def main() -> int:
          "replaces": "tools/archive/profile_pallas_gather.py:36",
          "launches": take_launches, "max_abs_err": take_err,
          "ms": take_ms, "plain_ms": take_plain_ms, "bound_ms": take_bound,
-         "bound_by": "bytes", "library_ms": None}]}))
+         "bound_by": "bytes", "library_ms": None},
+        {"name": "sw_scan", "route": "cuda",
+         "source": "kit4b_tpu_torch/csrc/sw.cu",
+         "replaces": "kit4b_tpu/pacbio/sswd.py:48",
+         "launches": sw_launches["sw_scan"], "max_abs_err": 0,
+         "ms": sw_t["scan_ms"], "plain_ms": sw_t["scan_plain_ms"],
+         "bound_ms": sw_t["scan_bound"], "bound_by": sw_t["scan_by"],
+         "library_ms": None},
+        {"name": "sw_traceback", "route": "cuda",
+         "source": "kit4b_tpu_torch/csrc/sw.cu",
+         "replaces": "kit4b_tpu/pacbio/sswd.py:122",
+         "launches": sw_launches["sw_traceback"], "max_abs_err": 0,
+         "ms": sw_t["tb_ms"], "plain_ms": sw_t["tb_plain_ms"],
+         "bound_ms": sw_t["tb_bound"], "bound_by": "bytes",
+         "library_ms": None}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

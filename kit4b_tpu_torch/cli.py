@@ -3,11 +3,12 @@
 Port of kit4b_tpu/cli.py with the `index` (-m 1 bisulfite too),
 `simreads`, `kalign` (single and paired ends, every flag, --bisulfite),
 `genpba`, `hammings`, `pseudogenome`, `kmarkers`, `prekmarkers`, `filter`,
-`assemb`, `scaffold`, `pescaffold`, `mergeoverlaps`, `rnaexpr`, `genmlds`
-and `sarscov2ml` subcommands, taking the same flags and writing the same
-files, plus `--device {cuda,cpu}` on the commands that use a device
-(`kalign`, `genpba`, `hammings`, `kmarkers`, `filter` for -D, `scaffold`,
-`rnaexpr`, `sarscov2ml`). The parsers are copies, as is all the port needs
+`assemb`, `scaffold`, `pescaffold`, `mergeoverlaps`, `rnaexpr`, `genmlds`,
+`sarscov2ml`, `ecreads`, `pbfilter`, `pbassemb` and `eccontigs`
+subcommands, taking the same flags and writing the same files, plus
+`--device {cuda,cpu}` on the commands that use a device (`kalign`,
+`genpba`, `hammings`, `kmarkers`, `filter` for -D, `scaffold`, `rnaexpr`,
+`sarscov2ml` and the four PacBio commands). The parsers are copies, as is all the port needs
 of the JAX package: it imports none of it. Flags of paths not ported yet
 parse as in kit4b_tpu and raise NotImplementedError naming their ROADMAP
 item.
@@ -713,6 +714,62 @@ def cmd_sarscov2ml(args) -> int:
     return 0
 
 
+def cmd_ecreads(args) -> int:
+    """pacbiokit4b ecreads equivalent (CPBErrCorrect)."""
+    from .io.fasta import write_fasta
+    from .pacbio.ecreads import ECParams, correct_reads
+    recs = list(read_seqs(args.infile))
+    corr = correct_reads(recs, ECParams(
+        min_read_len=args.minreadlen,
+        min_corrected_len=args.mincorrectedlen, band=args.band),
+        device=resolve(args.device))
+    write_fasta(args.outfile, corr)
+    log.info("ecreads: %d reads in -> %d corrected -> %s",
+             len(recs), len(corr), args.outfile)
+    return 0
+
+
+def cmd_pbfilter(args) -> int:
+    """pacbiokit4b filter equivalent (CPBFilter, SMRTbell hairpins)."""
+    from .io.fasta import write_fasta
+    from .pacbio.pbfilter import FilterParams, filter_reads
+    out, stats = filter_reads(list(read_seqs(args.infile)),
+                              FilterParams(min_len=args.minlen,
+                                           trim=args.trim),
+                              device=resolve(args.device))
+    write_fasta(args.outfile, out)
+    log.info("pbfilter: %s -> %s", json.dumps(stats), args.outfile)
+    return 0
+
+
+def cmd_pbassemb(args) -> int:
+    """pacbiokit4b contigs equivalent (CPBAssemb)."""
+    from .io.fasta import write_fasta
+    from .pacbio.pbassemb import AssembParams, assemble
+    contigs = assemble(list(read_seqs(args.infile)),
+                       AssembParams(min_overlap=args.minoverlap,
+                                    min_identity=args.minidentity),
+                       device=resolve(args.device))
+    write_fasta(args.outfile, contigs)
+    log.info("pbassemb: %d contigs -> %s", len(contigs), args.outfile)
+    return 0
+
+
+def cmd_eccontigs(args) -> int:
+    """pacbiokit4b eccontigs equivalent (CPBECContigs)."""
+    from .io.fasta import write_fasta
+    from .pacbio.ecreads import ECParams
+    from .pacbio.pbassemb import polish_contigs
+    polished = polish_contigs(list(read_seqs(args.infile)),
+                              list(read_seqs(args.reads)),
+                              ECParams(min_read_len=0, min_corrected_len=0),
+                              device=resolve(args.device))
+    write_fasta(args.outfile, polished)
+    log.info("eccontigs: %d contigs polished -> %s",
+             len(polished), args.outfile)
+    return 0
+
+
 def _kalign_args(p: argparse.ArgumentParser) -> None:
     """kit4b_tpu's kalign flags, copied, plus --device."""
     p.add_argument("-i", "--in", dest="infile", nargs="+", required=True)
@@ -1086,6 +1143,53 @@ def build_parser() -> argparse.ArgumentParser:
                    help=device_help + " (the co-support matmul)")
     _common(p)
     p.set_defaults(fn=cmd_sarscov2ml)
+
+    sw_help = device_help + " (the banded Smith-Waterman batches)"
+    p = sub.add_parser("ecreads",
+                       help="error correct PacBio long reads (pacbiokit4b)")
+    p.add_argument("-i", "--in", dest="infile", required=True)
+    p.add_argument("-o", "--out", dest="outfile", required=True)
+    p.add_argument("-l", "--minreadlen", type=int, default=1000)
+    p.add_argument("-L", "--mincorrectedlen", type=int, default=500)
+    p.add_argument("-b", "--band", type=int, default=512)
+    p.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
+                   help=sw_help)
+    _common(p)
+    p.set_defaults(fn=cmd_ecreads)
+
+    p = sub.add_parser("pbfilter",
+                       help="filter PacBio reads for SMRTbell hairpins")
+    p.add_argument("-i", "--in", dest="infile", required=True)
+    p.add_argument("-o", "--out", dest="outfile", required=True)
+    p.add_argument("-l", "--minlen", type=int, default=500)
+    p.add_argument("-t", "--trim", type=int, default=0)
+    p.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
+                   help=sw_help)
+    _common(p)
+    p.set_defaults(fn=cmd_pbfilter)
+
+    p = sub.add_parser("pbassemb",
+                       help="assemble corrected PacBio reads into contigs")
+    p.add_argument("-i", "--in", dest="infile", required=True)
+    p.add_argument("-o", "--out", dest="outfile", required=True)
+    p.add_argument("-l", "--minoverlap", type=int, default=500)
+    p.add_argument("-p", "--minidentity", type=float, default=0.9)
+    p.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
+                   help=sw_help)
+    _common(p)
+    p.set_defaults(fn=cmd_pbassemb)
+
+    p = sub.add_parser("eccontigs",
+                       help="error correct contigs with corrected reads")
+    p.add_argument("-i", "--in", dest="infile", required=True,
+                   help="contigs multifasta")
+    p.add_argument("-r", "--reads", required=True,
+                   help="corrected reads multifasta")
+    p.add_argument("-o", "--out", dest="outfile", required=True)
+    p.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
+                   help=sw_help)
+    _common(p)
+    p.set_defaults(fn=cmd_eccontigs)
     return ap
 
 

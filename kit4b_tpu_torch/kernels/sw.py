@@ -1,0 +1,349 @@
+"""Banded affine-gap Smith-Waterman: the row scan and the traceback.
+
+`sw_scan` and `sw_traceback` launch the hand-written CUDA kernels of
+`csrc/sw.cu` on CUDA tensors; they replace the XLA passes `_sw_scan` and
+`_traceback_dev` of kit4b_tpu/pacbio/sswd.py. On CPU tensors they run
+`sw_scan_plain` and `traceback_plain`, the plain PyTorch versions of the
+same functions, which the tests hold against the JAX package and which the
+on-card smoke test holds the kernels against.
+
+The scan runs every one of the Lp probe rows of a pair (pad rows too) in a
+band of W target columns that slides one column a row: row i, band index
+k is target column `diag0 + i + k - W // 2`. It returns the best cell
+(`best`, its row `bi` and band index `bk`, all 0 when no cell is
+positive) and, with `traceback`, one pointer byte a cell in an
+[Lp, B, W] uint8 array:
+
+    bits 0-1  H0's source: 0 stop (H0 == 0), 1 diagonal (H0 == diag), 2 up
+    bit 2     the cell's value came from F (F > H0)
+    bit 3     E extends E above (e_ext >= e_open)
+    bit 4     F extends F left (exclusive prefix max > the previous X)
+
+The traceback walks that array from the best cell, one lane a pair, and
+returns the reversed op codes (1 M, 2 D, 3 I; zero past n), n, the
+1-based start row and column, and the matches and mismatches of its M ops
+(the clipped codes compared, so N against N counts as a match).
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from . import build
+
+NEG = -(1 << 24)
+MAX_W = 8192     # widest band the scan kernel takes: 8 columns a thread
+CHUNK_ROWS = 64  # rows whose cell rule sw_scan_plain gathers at once
+CHECK_EVERY = 32  # traceback_plain's steps between reads of the lanes' state
+
+
+def sw_scan_plain(probes: torch.Tensor, targets: torch.Tensor,
+                  plens: torch.Tensor, tlens: torch.Tensor,
+                  diag0: torch.Tensor, *, W: int, match: int, mismatch: int,
+                  gap_open: int, gap_ext: int, traceback: bool = True):
+    """Plain PyTorch version of the scan kernel; its spec is `_sw_scan` of
+    kit4b_tpu/pacbio/sswd.py. Returns (best, bi, bk) as [B] int32 and the
+    [Lp, B, W] uint8 pointer bytes, or None without `traceback`.
+
+    One row at a time, in chunks of CHUNK_ROWS rows: a chunk's target codes,
+    cell rule and substitution scores are gathered at once, and its
+    pointer bytes are packed at once from the rows' flags. H and E ride
+    [B, W + 1] buffers whose last column stays NEG (the up neighbour past
+    the band), and X rides one whose first column stays NEG, so that F's
+    exclusive prefix maximum is one `cummax`. Once every lane is past its
+    probe (no cell can match) and a row leaves the carried H and E as it
+    found them, every later row repeats that row exactly: the rest of the
+    pointer array is that row's bytes and the best cell does not move, so
+    the loop stops there."""
+    B, Lp = probes.shape
+    Lt = targets.shape[1]
+    dev = probes.device
+    i32 = dict(dtype=torch.int32, device=dev)
+    k = torch.arange(W, **i32)
+    xoff = gap_open - (k + 1) * gap_ext       # X = H0 + xoff
+    foff = k * gap_ext                         # F = Mx + foff
+    base = diag0[:, None, None] + k[None, None, :] - W // 2
+    score = (torch.tensor(match, **i32), torch.tensor(mismatch, **i32))
+    neg = torch.tensor(NEG, **i32)
+    Hb = torch.zeros((B, W + 1), **i32)        # H, then NEG
+    Hb[:, W] = NEG
+    Eb = torch.full((B, W + 1), NEG, **i32)    # E, then NEG
+    Xb = torch.full((B, W + 1), NEG, **i32)    # NEG, then X
+    H, Hup, Eup = Hb[:, :W], Hb[:, 1:], Eb[:, 1:]
+    X, Xx = Xb[:, 1:], Xb[:, :W]
+    best = torch.zeros(B, **i32)
+    bi = torch.zeros(B, **i32)
+    bk = torch.zeros(B, **i32)
+    ptrs = torch.empty((Lp, B, W), dtype=torch.uint8, device=dev) \
+        if traceback else None
+    if traceback:
+        R = min(CHUNK_ROWS, Lp)
+        dirb = torch.empty((R, B, W), dtype=torch.uint8, device=dev)
+        usedf, eext, fext = (torch.empty((R, B, W), dtype=torch.bool,
+                                         device=dev) for _ in range(3))
+    last_probe_row = int(plens.max()) if B else 0
+    steady = False
+    for i0 in range(0, Lp, CHUNK_ROWS):
+        R = min(CHUNK_ROWS, Lp - i0)
+        rows = torch.arange(i0, i0 + R, **i32)
+        cols = base + rows[None, :, None]                      # [B, R, W]
+        tb = torch.gather(targets, 1, cols.clamp(0, Lt - 1).view(B, -1)
+                          .long()).view(B, R, W)
+        pb = probes[:, i0:i0 + R, None]
+        okp = (rows[None, :, None] < plens[:, None, None]) & (pb < 4) \
+            & (cols >= 0) & (cols < tlens[:, None, None]) & (tb < 4)
+        subs = torch.where(okp, torch.where(pb == tb, *score), neg)
+        done = R
+        for r in range(R):
+            i = i0 + r
+            e_open = Hup + gap_open
+            e_ext = Eup + gap_ext
+            E = torch.maximum(e_open, e_ext)
+            diag = H + subs[:, r]
+            H0 = torch.maximum(diag, E).clamp_(min=0)
+            torch.add(H0, xoff, out=X)
+            Mx = torch.cummax(Xb, 1).values[:, :W]
+            F = Mx + foff
+            Hf = torch.maximum(H0, F)
+            rk = Hf.argmax(1).to(torch.int32)
+            rb = Hf.amax(1)
+            improve = rb > best
+            best = torch.maximum(best, rb)
+            bi.masked_fill_(improve, i)
+            bk = torch.where(improve, rk, bk)
+            if traceback:
+                dirb[r] = torch.where(H0 == 0, 0,
+                                      torch.where(H0 == diag, 1, 2))
+                torch.gt(F, H0, out=usedf[r])
+                torch.ge(e_ext, e_open, out=eext[r])
+                torch.gt(Mx, Xx, out=fext[r])
+            steady = i >= last_probe_row and torch.equal(Hf, H) \
+                and torch.equal(E, Eb[:, :W])
+            H.copy_(Hf)
+            Eb[:, :W] = E
+            if steady:
+                done = r + 1
+                break
+        if traceback:
+            ptrs[i0:i0 + done] = (dirb[:done] | (usedf[:done].to(torch.uint8)
+                                                 << 2)
+                                  | (eext[:done].to(torch.uint8) << 3)
+                                  | (fext[:done].to(torch.uint8) << 4))
+        if steady:
+            if traceback:
+                ptrs[i0 + done:] = ptrs[i0 + done - 1]
+            break
+    return best, bi, bk, ptrs
+
+
+def _walk_tables(dev: torch.device):
+    """(next state, op, stop) of one step of the traceback for each index
+    state * 32 + pointer byte: `_traceback_dev`'s state machine (0 H, 1 H0,
+    2 E, 3 F; ops 1 M, 2 D, 3 I) with its steps that neither emit nor move
+    (state H, and H0 whose byte says up) folded into the step after them,
+    which reads the same byte."""
+    state = torch.arange(4, device=dev).repeat_interleave(32)
+    byte = torch.arange(32, device=dev).repeat(4)
+    d = byte & 3
+    state = torch.where(state == 0, torch.where((byte & 4) != 0, 3, 1),
+                        state)
+    state = torch.where((state == 1) & (d == 2), 2, state)
+    nxt = torch.where(state == 1, 0,
+                      torch.where(state == 2,
+                                  torch.where((byte & 8) != 0, 2, 0),
+                                  torch.where((byte & 16) != 0, 3, 1)))
+    op = torch.where(state == 1, torch.where(d == 1, 1, 0),
+                     torch.where(state == 2, 2, 3))
+    return nxt, op, (state == 1) & (d == 0)
+
+
+def traceback_plain(ptrs: torch.Tensor, probes: torch.Tensor,
+                    targets: torch.Tensor, best: torch.Tensor,
+                    bi: torch.Tensor, bk: torch.Tensor, diag0: torch.Tensor,
+                    *, W: int, L_OPS: int):
+    """Plain PyTorch version of the traceback kernel; its spec is
+    `_traceback_dev` of kit4b_tpu/pacbio/sswd.py. Every lane steps in
+    lockstep through `_walk_tables`, a lane that has stopped keeps its
+    state, and the host reads whether any lane still walks every
+    CHECK_EVERY steps. Returns ops ([B, L_OPS] int8), n, ps, ts, nm, nmm
+    ([B] int32)."""
+    Lp, B, _ = ptrs.shape
+    Lq, Lt = probes.shape[1], targets.shape[1]
+    dev = ptrs.device
+    nxt, opc, stops = _walk_tables(dev)
+    lanes = torch.arange(B, device=dev)
+    d0 = diag0.long() - W // 2
+    i = bi.long()
+    c = d0 + i + bk.long()
+    state = torch.zeros(B, dtype=torch.long, device=dev)
+    n, nm, nmm = (torch.zeros(B, dtype=torch.long, device=dev)
+                  for _ in range(3))
+    ops = torch.zeros((B, L_OPS), dtype=torch.int8, device=dev)
+    stop = best <= 0
+
+    def walking():
+        k = c - i - d0
+        return ~stop & (i >= 0) & (c >= 0) & (k >= 0) & (k < W) \
+            & (n < L_OPS)
+    while bool(walking().any()):
+        for _ in range(CHECK_EVERY):
+            act = walking()
+            k = (c - i - d0).clamp(0, W - 1)
+            byte = ptrs[i.clamp(0, Lp - 1), lanes, k]
+            t = state * 32 + byte
+            op = opc[t]
+            emit = act & (op > 0)
+            m_op = emit & (op == 1)
+            match = probes[lanes, i.clamp(0, Lq - 1)] \
+                == targets[lanes, c.clamp(0, Lt - 1)]
+            nm += m_op & match
+            nmm += m_op & ~match
+            slot = n.clamp(max=L_OPS - 1)[:, None]
+            ops.scatter_(1, slot, torch.where(
+                emit[:, None], op.to(torch.int8)[:, None],
+                ops.gather(1, slot)))
+            n += emit
+            i -= (emit & (op != 3)).long()
+            c -= (emit & (op != 2)).long()
+            state = torch.where(act, nxt[t], state)
+            stop = stop | (act & stops[t])
+    i32 = torch.int32
+    return (ops, n.to(i32), (i + 1).to(i32), (c + 1).to(i32), nm.to(i32),
+            nmm.to(i32))
+
+
+@functools.cache
+def _lib() -> ctypes.CDLL:
+    lib = build.load("sw")
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.sw_scan_launch.argtypes = [i, p, p, p, p, p, i, i, i, i, i, i, i, i,
+                                   p, p, p, p, p]
+    lib.sw_scan_launch.restype = i
+    lib.sw_traceback_launch.argtypes = [i, p, p, p, p, p, p, p, i, i, i, i,
+                                        i, i, p, p, p, p, p, p, p]
+    lib.sw_traceback_launch.restype = i
+    return lib
+
+
+def _check(fn: str, dev: torch.device, **tensors) -> None:
+    """Raises unless every tensor lies on `dev`, is contiguous and has the
+    kernel's dtype: uint8 sequences and pointer bytes, int32 the rest."""
+    for name, t in tensors.items():
+        want = torch.uint8 if name in ("probes", "targets", "ptrs") \
+            else torch.int32
+        if t.device != dev:
+            raise ValueError(f"{fn}: {name} on {t.device}, not {dev}")
+        if t.dtype != want:
+            raise ValueError(f"{fn}: {name} must be {want}, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{fn}: {name} must be contiguous")
+
+
+def _device_index(dev: torch.device) -> int:
+    return dev.index if dev.index is not None else torch.cuda.current_device()
+
+
+def sw_scan(probes: torch.Tensor, targets: torch.Tensor,
+            plens: torch.Tensor, tlens: torch.Tensor, diag0: torch.Tensor,
+            *, W: int, match: int, mismatch: int, gap_open: int,
+            gap_ext: int, traceback: bool = True):
+    """(best, bi, bk, pointer bytes or None): the CUDA kernel for CUDA
+    tensors, `sw_scan_plain` for CPU tensors. Each kernel launch adds one
+    to `sw_scan.launches`."""
+    kw = dict(W=W, match=match, mismatch=mismatch, gap_open=gap_open,
+              gap_ext=gap_ext, traceback=traceback)
+    if probes.device.type == "cpu":
+        return sw_scan_plain(probes, targets, plens, tlens, diag0, **kw)
+    dev = probes.device
+    if dev.type != "cuda":
+        raise ValueError(f"sw_scan: tensors on {dev}; the kernel runs on "
+                         "CUDA")
+    _check("sw_scan", dev, probes=probes, targets=targets, plens=plens,
+           tlens=tlens, diag0=diag0)
+    if probes.dim() != 2 or targets.dim() != 2:
+        raise ValueError("sw_scan: probes and targets must be [B, L]")
+    B, Lp = probes.shape
+    Lt = targets.shape[1]
+    if targets.shape[0] != B or any(t.shape != (B,) for t in
+                                    (plens, tlens, diag0)):
+        raise ValueError(f"sw_scan: probes {tuple(probes.shape)}, targets "
+                         f"{tuple(targets.shape)} and the [B] vectors "
+                         "disagree on B")
+    if not 1 <= W <= MAX_W:
+        raise ValueError(f"sw_scan: band {W} outside the kernel's [1, "
+                         f"{MAX_W}]")
+    if Lt < 1:
+        raise ValueError("sw_scan: targets must have a column")
+    best, bi, bk = (torch.empty(B, dtype=torch.int32, device=dev)
+                    for _ in range(3))
+    ptrs = torch.empty((Lp, B, W), dtype=torch.uint8, device=dev) \
+        if traceback else None
+    if B == 0 or Lp == 0:
+        for t in (best, bi, bk):
+            t.zero_()
+        return best, bi, bk, ptrs
+    d = _device_index(dev)
+    err = _lib().sw_scan_launch(
+        d, probes.data_ptr(), targets.data_ptr(), plens.data_ptr(),
+        tlens.data_ptr(), diag0.data_ptr(), B, Lp, Lt, W, match, mismatch,
+        gap_open, gap_ext, ptrs.data_ptr() if traceback else None,
+        best.data_ptr(), bi.data_ptr(), bk.data_ptr(),
+        torch.cuda.current_stream(d).cuda_stream)
+    if err:
+        raise RuntimeError(f"sw_scan kernel launch failed: CUDA error {err}")
+    sw_scan.launches += 1
+    return best, bi, bk, ptrs
+
+
+sw_scan.launches = 0
+
+
+def sw_traceback(ptrs: torch.Tensor, probes: torch.Tensor,
+                 targets: torch.Tensor, best: torch.Tensor, bi: torch.Tensor,
+                 bk: torch.Tensor, diag0: torch.Tensor, *, W: int,
+                 L_OPS: int):
+    """(ops, n, ps, ts, nm, nmm): the CUDA kernel for CUDA tensors,
+    `traceback_plain` for CPU tensors. Each kernel launch adds one to
+    `sw_traceback.launches`."""
+    if ptrs.device.type == "cpu":
+        return traceback_plain(ptrs, probes, targets, best, bi, bk, diag0,
+                               W=W, L_OPS=L_OPS)
+    dev = ptrs.device
+    if dev.type != "cuda":
+        raise ValueError(f"sw_traceback: tensors on {dev}; the kernel runs "
+                         "on CUDA")
+    _check("sw_traceback", dev, ptrs=ptrs, probes=probes, targets=targets,
+           best=best, bi=bi, bk=bk, diag0=diag0)
+    if ptrs.dim() != 3 or ptrs.shape[2] != W:
+        raise ValueError(f"sw_traceback: pointer bytes {tuple(ptrs.shape)} "
+                         f"are not [Lp, B, {W}]")
+    Lp, B, _ = ptrs.shape
+    if probes.dim() != 2 or targets.dim() != 2 or probes.shape[0] != B \
+            or targets.shape[0] != B or any(
+                t.shape != (B,) for t in (best, bi, bk, diag0)):
+        raise ValueError("sw_traceback: inputs disagree on B")
+    if min(Lp, probes.shape[1], targets.shape[1], L_OPS) < 1:
+        raise ValueError("sw_traceback: empty pointer rows, sequences or "
+                         "ops")
+    ops = torch.zeros((B, L_OPS), dtype=torch.int8, device=dev)
+    n, ps, ts, nm, nmm = (torch.empty(B, dtype=torch.int32, device=dev)
+                          for _ in range(5))
+    if B == 0:
+        return ops, n, ps, ts, nm, nmm
+    d = _device_index(dev)
+    err = _lib().sw_traceback_launch(
+        d, ptrs.data_ptr(), probes.data_ptr(), targets.data_ptr(),
+        best.data_ptr(), bi.data_ptr(), bk.data_ptr(), diag0.data_ptr(), B,
+        Lp, probes.shape[1], targets.shape[1], W, L_OPS, ops.data_ptr(),
+        n.data_ptr(), ps.data_ptr(), ts.data_ptr(), nm.data_ptr(),
+        nmm.data_ptr(), torch.cuda.current_stream(d).cuda_stream)
+    if err:
+        raise RuntimeError(f"sw_traceback kernel launch failed: CUDA error "
+                           f"{err}")
+    sw_traceback.launches += 1
+    return ops, n, ps, ts, nm, nmm
+
+
+sw_traceback.launches = 0

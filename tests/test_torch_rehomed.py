@@ -6,9 +6,12 @@ finders ops.indel, ops.splice and ops.chimeric, index (SfxIndex,
 SA-IS), sim.simreads (every mode, SNP planting and its BED), align.snp,
 tools.config4's genome,
 utils.runtime, utils.summaries and the host functions of kmer.kmarkers
-(pseudogenome, marker FASTA, the prekmarkers walk); and the port's own
-build of the host library (native.py), keyed by its sources, flags and
-CPU. Tests of the index skip when the library cannot be built."""
+(pseudogenome, marker FASTA, the prekmarkers walk), the PacBio host code
+(pacbio.consensus, align.blitz's `_seed_hits`, ecreads' read index and
+candidates, pbfilter's `_self_rc_diag`, tools.pacbio_reads' CLR readset);
+and the port's own build of the host library (native.py), keyed by its
+sources, flags and CPU. Tests of the index skip when the library cannot be
+built."""
 import copy
 import gzip
 import logging
@@ -1120,3 +1123,167 @@ def test_config5_reads_are_the_tools_scripts():
             [(r.name, r.codes.tolist()) for r in exp]
     assert [r.name for r in r1] == [r.name for r in r2] == \
         [f"p{j + 1:07d}" for j in range(len(r1))]
+
+
+def _pacbio_scale():
+    """tools/pacbio_scale.py (the JAX package's tool) as a module."""
+    import importlib.util
+    from pathlib import Path
+    path = Path(__file__).resolve().parent.parent / "tools" / \
+        "pacbio_scale.py"
+    spec = importlib.util.spec_from_file_location("pacbio_scale", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_pacbio_readset_is_the_tools_script():
+    """tools/pacbio_scale.py's corruption and the read loop of its main
+    (lines 99-112) at a small size: the same genome, reads and truth."""
+    from kit4b_tpu_torch.tools import pacbio_reads
+    tool = _pacbio_scale()
+    kbp, cov = 40.0, 1.5
+    genome, reads, truth = pacbio_reads.simulate(kbp, cov)
+    n = int(kbp * 1000)
+    rng = np.random.default_rng(99)
+    want = rng.integers(0, 4, n).astype(np.uint8)
+    exp, total = [], 0
+    while total < n * cov:
+        span = int(rng.integers(10_000, 18_000))
+        start = int(rng.integers(0, n - span))
+        raw = tool.corrupt_pacbio(want[start:start + span], rng)
+        exp.append((f"pb{len(exp)}|{start}|{span}", raw.tolist(),
+                    (start, span)))
+        total += span
+    np.testing.assert_array_equal(genome, want)
+    assert [(r.name, r.codes.tolist(), t) for r, t in zip(reads, truth)] \
+        == exp
+    assert len(exp) >= 4
+
+
+def test_pacbio_identity_vs_truth_is_the_tools(lib):
+    from kit4b_tpu_torch.tools import pacbio_reads
+    tool = _pacbio_scale()
+    rng = np.random.default_rng(7)
+    genome = rng.integers(0, 4, 3_000).astype(np.uint8)
+    for start, span in ((0, 1_200), (1_500, 900)):
+        read = pacbio_reads.corrupt_pacbio(genome[start:start + span], rng)
+        want = tool.identity_vs_truth(read, genome, start, span, band=256)
+        got = pacbio_reads.identity_vs_truth(read, genome, start, span,
+                                             band=256, device="cpu")
+        assert got == want and got > 0.3
+
+
+@pytest.fixture
+def pacbio_reads_index(lib):
+    """Twelve 600 bp reads of a 2 kbp genome (one with Ns, one
+    reverse-complemented) as both packages' read index."""
+    from kit4b_tpu.pacbio import ecreads as jec
+    from kit4b_tpu_torch.pacbio import ecreads as pec
+    rng = np.random.default_rng(4242)
+    ref = rng.integers(0, 4, 2_000).astype(np.uint8)
+    codes = []
+    for i, s in enumerate(rng.integers(0, 1_400, 12)):
+        r = ref[s:s + 600].copy()
+        r[rng.random(600) < 0.02] = rng.integers(0, 4)
+        if i == 3:
+            r[100:110] = 4
+        if i == 5:
+            r = pdna.revcomp(r)
+        codes.append(r)
+    jidx, jg = jec.build_read_index(
+        [jfa.SeqRecord(f"r{i}", "", c) for i, c in enumerate(codes)])
+    pidx, pg = pec.build_read_index(
+        [pfa.SeqRecord(f"r{i}", "", c) for i, c in enumerate(codes)])
+    return codes, (jidx, jg), (pidx, pg)
+
+
+def test_build_read_index_matches(pacbio_reads_index):
+    _, (jidx, jg), (pidx, pg) = pacbio_reads_index
+    assert pg.names == jg.names
+    for a, b in ((pg.starts, jg.starts), (pg.lengths, jg.lengths),
+                 (pg.seq, jg.seq), (pidx.sa_clean, jidx.sa_clean),
+                 (pidx.lut, jidx.lut)):
+        np.testing.assert_array_equal(a, b)
+    assert pidx.lut_k == jidx.lut_k
+
+
+@pytest.mark.parametrize("stride,cap", [(16, 32), (3, 4), (1, 16)])
+def test_seed_hits_match(pacbio_reads_index, stride, cap):
+    from kit4b_tpu.align import blitz as jbl
+    from kit4b_tpu_torch.align import blitz as pbl
+    codes, (jidx, _), (pidx, _) = pacbio_reads_index
+    for q in (codes[0], codes[3][:100], pdna.revcomp(codes[7]),
+              codes[1][:5]):
+        want = jbl._seed_hits(jidx, q, stride, max_per_seed=cap)
+        got = pbl._seed_hits(pidx, q, stride, max_per_seed=cap)
+        for g, w in zip(got, want):
+            assert g.dtype == w.dtype
+            np.testing.assert_array_equal(g, w)
+    # a sampled window that starts on an N keys past the bucket table:
+    # the JAX package raises there, and so does its copy
+    if stride != 16:
+        for fn, idx in ((jbl._seed_hits, jidx), (pbl._seed_hits, pidx)):
+            with pytest.raises(IndexError):
+                fn(idx, codes[3], stride, max_per_seed=cap)
+
+
+@pytest.mark.parametrize("kw", [dict(), dict(band=256, min_seed_cores=8),
+                                dict(core_step=1, max_candidates=3)])
+def test_candidates_match(pacbio_reads_index, kw):
+    from kit4b_tpu.pacbio import ecreads as jec
+    from kit4b_tpu_torch.pacbio import ecreads as pec
+    codes, (jidx, jg), (pidx, pg) = pacbio_reads_index
+    for self_id, q in ((0, codes[0]), (5, codes[5]), (-1, codes[2]),
+                       (-1, pdna.revcomp(codes[5]))):
+        want = jec._candidates(jidx, jg, q, self_id, jec.ECParams(**kw))
+        got = pec._candidates(pidx, pg, q, self_id, pec.ECParams(**kw))
+        assert got == want
+    assert got
+
+
+def test_self_rc_diag_matches():
+    from kit4b_tpu.pacbio import pbfilter as jpf
+    from kit4b_tpu_torch.pacbio import pbfilter as ppf
+    rng = np.random.default_rng(77)
+    arm = rng.integers(0, 4, 500).astype(np.uint8)
+    seqs = [np.concatenate([arm, pdna.revcomp(arm)]),
+            np.concatenate([arm, rng.integers(0, 4, 37).astype(np.uint8),
+                            pdna.revcomp(arm[:300])]),
+            rng.integers(0, 4, 800).astype(np.uint8), arm[:20], arm[:40]]
+    nn = seqs[0].copy()
+    nn[rng.integers(0, len(nn), 30)] = 4
+    seqs.append(nn)
+    got = [ppf._self_rc_diag(s) for s in seqs]
+    assert got == [jpf._self_rc_diag(s) for s in seqs]
+    assert got[0] is not None and got[2] is None
+    assert [ppf._self_rc_diag(s, k=8, min_votes=2) for s in seqs] == \
+        [jpf._self_rc_diag(s, k=8, min_votes=2) for s in seqs]
+
+
+def test_consensus_builder_matches():
+    """Hand-made overlaps with runs of M, D and I, N and 0x0F codes in the
+    target, competing insertions and a deletion majority."""
+    from kit4b_tpu.pacbio import consensus as jc
+    from kit4b_tpu.pacbio.sswd import SWAlignment as JAln
+    from kit4b_tpu_torch.pacbio import consensus as pc
+    rng = np.random.default_rng(31)
+    probe = rng.integers(0, 4, 60).astype(np.uint8)
+    probe[[5, 6]] = 4
+    alns = [(0, 0, [("M", 20), ("I", 2), ("M", 10), ("D", 3), ("M", 20)]),
+            (4, 2, [("M", 16), ("I", 2), ("M", 10), ("D", 3), ("M", 10)]),
+            (10, 0, [("M", 10), ("I", 1), ("M", 10), ("D", 3), ("M", 25)]),
+            (30, 5, [("M", 5), ("D", 4), ("M", 21)])]
+    jb, pb = jc.ConsensusBuilder(probe), pc.ConsensusBuilder(probe)
+    for ps, ts, ops in alns:
+        pl = sum(n for op, n in ops if op != "I")
+        tl = sum(n for op, n in ops if op != "D")
+        t = rng.integers(0, 4, ts + tl + 3).astype(np.uint8)
+        t[ts + 3], t[ts + 8] = 4, 0x0F
+        a = JAln(1, ps, ps + pl, ts, ts + tl, ops)
+        jb.add(a, t)
+        pb.add(a, t)
+    for k in ("base_votes", "del_votes", "cov", "ins_cov", "n_overlaps"):
+        np.testing.assert_array_equal(getattr(pb, k), getattr(jb, k))
+    for cov in (1, 2, 3, 5):
+        np.testing.assert_array_equal(pb.call(cov), jb.call(cov))

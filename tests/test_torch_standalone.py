@@ -7,7 +7,8 @@ with the -y and -C rescues, with the phases and filters into BAM with a
 BAI, with the SNP side outputs) and paired ends (also of unequal mates),
 `genpba`, `index -m 1` with `kalign --bisulfite`, `pseudogenome`,
 `kmarkers`, `prekmarkers`, `filter`, `assemb`, `mergeoverlaps`,
-`scaffold`, `pescaffold`, `rnaexpr`, `genmlds` and `sarscov2ml`, with
+`scaffold`, `pescaffold`, `rnaexpr`, `genmlds`, `sarscov2ml` and the
+PacBio commands `pbfilter`, `ecreads`, `pbassemb` and `eccontigs`, with
 `--device cpu` where a command takes one) on a small seeded genome. The
 runs that build a suffix index need the port's host library and skip
 without it. This file imports neither package either:
@@ -372,3 +373,35 @@ def test_cli_assembly_and_float_commands_with_both_blocked(
         assert (tmp_path / f).read_text().count("\n") > 2, f
     for f in ("s.fa", "ps.fa"):
         assert "contigs=a1,a2" in (tmp_path / f).read_text(), f
+
+
+def test_cli_pacbio_commands_with_both_blocked(tmp_path, host_library):
+    """pbfilter, ecreads, pbassemb and eccontigs on CLR-like reads of a
+    3 kbp genome (tools.pacbio_reads' corruption), one read folded into a
+    hairpin: the hairpin split, reads corrected, one contig polished."""
+    _run("import numpy as np\n"
+         "from kit4b_tpu_torch import cli, dna\n"
+         "from kit4b_tpu_torch.io.fasta import SeqRecord, read_seqs, "
+         "write_fasta\n"
+         "from kit4b_tpu_torch.tools.pacbio_reads import corrupt_pacbio\n"
+         "rng = np.random.default_rng(5)\n"
+         "g = rng.integers(0, 4, 3000).astype(np.uint8)\n"
+         "reads = [SeqRecord(f'r{i}', '', corrupt_pacbio(g[s:s + 700], rng, "
+         "ins=0.03, dele=0.02)) for i, s in enumerate(range(0, 2301, 150))]\n"
+         "arm = reads[0].codes[:400]\n"
+         "reads.append(SeqRecord('hp', '', np.concatenate([arm, "
+         "dna.revcomp(arm)])))\n"
+         "write_fasta('raw.fa', reads)\n"
+         "runs = [['pbfilter', '-i', 'raw.fa', '-o', 'filt.fa', '-l', '300'],\n"
+         "        ['ecreads', '-i', 'filt.fa', '-o', 'ec.fa', '-l', '500', "
+         "'-L', '300', '-b', '256'],\n"
+         "        ['pbassemb', '-i', 'ec.fa', '-o', 'ctg.fa', '-l', '300', "
+         "'-p', '0.8'],\n"
+         "        ['eccontigs', '-i', 'ctg.fa', '-r', 'ec.fa', '-o', "
+         "'pol.fa']]\n"
+         "for argv in runs:\n"
+         "    assert cli.main(argv + ['--device', 'cpu']) == 0, argv\n"
+         "names = [r.name for r in read_seqs('filt.fa')]\n"
+         "assert 'hp/sub1' in names and 'hp/sub2' in names, names\n"
+         "assert len(list(read_seqs('ec.fa'))) >= 10\n"
+         "assert len(list(read_seqs('pol.fa'))) >= 1\n", tmp_path)
