@@ -211,12 +211,25 @@ result:
    a tie of gap costs, bands of 1 to 4,097, walks cut at L_OPS; and small
    readsets through correct_reads, filter_reads, assemble and
    polish_contigs) against the JAX package's committed golden: every array
-   equal, pointer bytes included. (b) Both kernels against their plain
-   versions on those cases and on one batch at B 32, W 3,000, Lp 4,096 of
-   CLR reads, the whole pointer array and every output equal; that batch
-   timed (CUDA events, median of 5) beside the plain versions (ms, device
-   operations) and the bounds (the scan's int32 operations, SW_CELL_OPS;
-   the traceback's bytes). (c) tools/pacbio_scale.py's readset (100 kbp at
+   equal, pointer bytes included. (b) The cluster's own costs: one
+   cluster barrier, one DSMEM load and one shared-memory load, timed on
+   clusters of 2, 4 and 8 blocks. Both kernels against their plain
+   versions on the golden's cases, on the cases built to break the
+   cluster scan and the tiled walk
+   (`kit4b_tpu_torch.tools.sw_cluster_cases`: ties across rows and
+   blocks, gap runs across warp and block edges, band edges, bands 1 to
+   8,192, batches 1 to 200 (every cluster size), every stop rule; random
+   pointer bytes for the walk) and on the three caller shapes of
+   `tools/time_sw.py` (15b's B 32, W 3,000, Lp 4,096 of CLR reads;
+   `pbassemb`'s B 32, W 256, Lp 16,384 of corrected reads; `pbfilter`'s
+   B 16, W 512, Lp 16,384 of hairpins), the whole pointer array and every
+   output equal. Each shape timed (CUDA events, median of 5) beside the
+   plain versions, its layout (cluster size, columns a thread) and how many
+   of its clusters the card holds at once, the scan's bounds (35 int32
+   operations a cell, SW_CELL_OPS; and the instructions a cell of the
+   kernel's own inner loop, from `cuobjdump -sass`), the traceback's bytes
+   bound and the floor of its serial walk. (c) tools/pacbio_scale.py's
+   readset (100 kbp at
    8x, seed 99: 59 reads of 10-18 kbp spans at about 14 % CLR error; one
    in ten folded into a hairpin) through the CLI `pbfilter`, `ecreads -l
    10000 -L 5000 -b 3000`, `pbassemb` and `eccontigs`, each step's wall
@@ -226,7 +239,8 @@ result:
    planted hairpin split, at least 80 % of the reads of 10 kbp or more
    corrected, their median SW identity to the truth at least 0.1 above the
    raw reads', a contig; ecreads' first and longest SW batches held to the
-   plain versions.
+   plain versions; the four outputs' SHA-256 equal to PB_SHA256, what the
+   parent commit's kernels wrote.
 
 Each kernel's launch counter is set to 0 just before its path (phases 4,
 6, 7, and each CLI step of 15c) and read just after it; phases 8-14 run
@@ -241,6 +255,7 @@ line is {"ok": true, "device": {"platform": "gpu", "kind": ..., "count":
 from __future__ import annotations
 
 import contextlib
+import hashlib
 import json
 import logging
 import re
@@ -2361,10 +2376,23 @@ SW_CELL_OPS = (
     ("the row peak: a compare, two selects", 3))
 SW_OPS_PER_CELL = sum(n for _, n in SW_CELL_OPS)      # 35
 INT32_RATE = 132 * 64 * 1.98e9   # H100 SXM: SMs x INT32 lanes x boost clock
-SW_BATCH = (32, 4096, 3000)      # phase 15b: B, Lp, W of the timed batch
+SW_SHAPES = ("ecreads", "pbassemb", "pbfilter")   # tools/time_sw.py's
 PB_KBP, PB_COV = 100.0, 8.0      # tools/pacbio_scale.py's measured size
 PB_HAIRPIN_EVERY = 10            # one read in ten folded into a hairpin
 PB_EC_ARGS = ("-l", "10000", "-L", "5000", "-b", "3000")
+PB_OUTPUTS = ("filt.fa", "ec.fa", "contigs.fa", "polished.fa")
+# 15c's outputs as the kernels of commit 6e8cd91 (one block a pair, one
+# thread a pair) wrote them: that commit's package driven by this file's
+# pacbio_full (NVIDIA H100 80GB HBM3, 700.00 W)
+PB_SHA256 = {
+    "filt.fa":
+        "e419023023a65d0e0e50b41e9e86215df03ecf445b0e10d9123e7fc04cd16cdb",
+    "ec.fa":
+        "7cf4382c7128894bc557b8147a79ceb7705886e52414182597c261170f076c76",
+    "contigs.fa":
+        "b2727d9b324b80c51275751a5eb3ec4beddf224b0103a3cc2a85595cc24c8189",
+    "polished.fa":
+        "e7ac47795f5f52bad350ddd3266ab0995fdef4e916d3502274d2cf381c993587"}
 
 
 def pacbio_golden(torch, dev):
@@ -2389,17 +2417,6 @@ def pacbio_golden(torch, dev):
                              f"in {bad}; reach {reach}")
 
 
-def _sw_padded(probes, targets):
-    """probes and targets padded to multiples of 512 with 0x0F, as
-    banded_sw_batch pads them."""
-    out = []
-    for a in (probes, targets):
-        m = _round_up(max(a.shape[1], 1), 512)
-        out.append(np.pad(a, ((0, 0), (0, m - a.shape[1])),
-                          constant_values=0x0F))
-    return out
-
-
 def sw_scan_bound_ms(B, Lp, Lt, W) -> tuple[float, str]:
     """(ms, what sets it) of one scan: its int32 operations over the card's
     int32 rate, or its bytes (codes read once, pointer bytes written once)
@@ -2420,67 +2437,109 @@ def sw_traceback_bound_ms(n, nm, nmm, L_OPS) -> float:
     return nbytes / HBM_RATE * 1e3
 
 
-def sw_vs_plain(torch, dev, batch, label, timed=False):
+def sw_cell_instructions(lib: Path) -> dict:
+    """SASS instructions of the scan kernel's row loop (the longest
+    backward branch of each cluster instantiation with no EXIT inside it),
+    by `cuobjdump -sass` of the built library: {C: instructions} and, under
+    "cell", the instructions a cell, (loop at C 8 - loop at C 4) / 4,
+    which leaves out the row's fixed work (shuffles, the exchange)."""
+    from torch.utils.cpp_extension import CUDA_HOME
+    tool = Path(CUDA_HOME or "/usr/local/cuda") / "bin" / "cuobjdump"
+    sass = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True,
+                          text=True, check=True, timeout=120).stdout
+    loops = {}
+    for part in sass.split("Function : ")[1:]:
+        m = re.match(r"\S*sw_scan_kernelILi(\d)ELb1EE", part)
+        if not m:      # the cluster instantiations
+            continue
+        addr = [(int(a, 16), ins) for a, ins in re.findall(
+            r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", part)]
+        at = {a: n for n, (a, _) in enumerate(addr)}
+        spans = [n - at[int(t, 16)] + 1 for n, (a, ins) in enumerate(addr)
+                 for t in re.findall(r"\bBRA\b[^;]*?0x([0-9a-f]+)", ins)
+                 if int(t, 16) in at and int(t, 16) < a and not any(
+                     "EXIT" in x for _, x in addr[at[int(t, 16)]:n])]
+        loops[int(m.group(1))] = max(spans, default=0)
+    loops["cell"] = (loops[8] - loops[4]) / 4 if 4 in loops and 8 in loops \
+        else None
+    return loops
+
+
+def sw_vs_plain(torch, dev, batch, label, timed=False, traceback=True):
     """Both kernels against their plain versions on one batch as
     banded_sw_batch takes it: (probes, plens, targets, tlens, diag0, W,
-    (match, mismatch, open, ext)). Raises unless the pointer arrays and
-    every output are equal; with `timed`, returns the kernels' times
-    (CUDA events, median of 5), the plain versions' (the one run compared)
-    and the bounds."""
+    (match, mismatch, open, ext)); or the traceback alone on a dict of
+    `sw_cluster_cases.random_pointer_cases`. Raises unless the pointer
+    arrays and every output are equal, the walks also cut at L_OPS 37; with
+    `timed`, returns the kernels' times (CUDA events, median of 5), the
+    plain versions' (the one run compared), the walks and the shape."""
     from kit4b_tpu_torch.kernels import sw
-    probes, plens, targets, tlens, diag0, W, (m, mm, go, ge) = batch
-    pp, tp = _sw_padded(probes, targets)
-    p, t, pl, tl, d0 = (torch.from_numpy(np.ascontiguousarray(a)).to(dev)
-                        for a in (pp, tp, np.asarray(plens, np.int32),
-                                  np.asarray(tlens, np.int32),
-                                  np.asarray(diag0, np.int32)))
-    kw = dict(W=W, match=m, mismatch=mm, gap_open=go, gap_ext=ge)
-    L_OPS = pp.shape[1] + W
+    from kit4b_tpu_torch.tools.time_sw import on_card
+    names = ("ops", "n", "ps", "ts", "nm", "nmm")
+    if isinstance(batch, dict):
+        c = batch
+        t = [torch.from_numpy(c[k]).to(dev) for k in (
+            "ptrs", "probes", "targets", "best", "bi", "bk", "diag0")]
+        kw = dict(W=c["W"], L_OPS=c["L_OPS"])
+        bad = [k for k, g, w in zip(names, sw.sw_traceback(*t, **kw),
+                                    sw.traceback_plain(*t, **kw))
+               if not torch.equal(g, w)]
+        if bad:
+            raise AssertionError(f"sw_traceback differs from its plain "
+                                 f"version in {bad}: {label}")
+        print(f"sw_traceback vs plain [{label}]: walks equal")
+        return None
+    (p, t, pl, tl, d0), kw = on_card(torch, batch, dev)
+    W = kw["W"]
+    B, Lp = p.shape
+    L_OPS = Lp + W
+    layout = sw.scan_layout(B, W, torch.cuda.get_device_properties(
+        dev).multi_processor_count)
 
     def scan():
-        return sw.sw_scan(p, t, pl, tl, d0, **kw)
-
-    def scan_plain():
-        return sw.sw_scan_plain(p, t, pl, tl, d0, **kw)
+        return sw.sw_scan(p, t, pl, tl, d0, traceback=traceback, **kw)
     got = scan()
-    want, scan_plain_ms = _with_ms(torch, scan_plain)
+    want, scan_plain_ms = _with_ms(torch, lambda: sw.sw_scan_plain(
+        p, t, pl, tl, d0, traceback=traceback, **kw))
     bad = [k for k, g, w in zip(("best", "bi", "bk", "pointer bytes"), got,
-                                want) if not torch.equal(g, w)]
+                                want)
+           if not (g is None and w is None or torch.equal(g, w))]
     if bad:
         raise AssertionError(f"sw_scan differs from its plain version in "
                              f"{bad}: {label}")
+    if not traceback:
+        print(f"sw_scan vs plain [{label}]: B={B} Lp={Lp} W={W} layout "
+              f"{layout}, traceback=False: best cells equal")
+        return None
     best, bi, bk, ptrs = got
     del want
 
-    def trace():
-        return sw.sw_traceback(ptrs, p, t, best, bi, bk, d0, W=W,
-                               L_OPS=L_OPS)
-
-    def trace_plain():
-        return sw.traceback_plain(ptrs, p, t, best, bi, bk, d0, W=W,
-                                  L_OPS=L_OPS)
+    def trace(lim=L_OPS):
+        return sw.sw_traceback(ptrs, p, t, best, bi, bk, d0, W=W, L_OPS=lim)
     tgot = trace()
-    twant, tb_plain_ms = _with_ms(torch, trace_plain)
-    bad = [k for k, g, w in zip(("ops", "n", "ps", "ts", "nm", "nmm"), tgot,
-                                twant) if not torch.equal(g, w)]
-    if bad:
-        raise AssertionError(f"sw_traceback differs from its plain version "
-                             f"in {bad}: {label}")
-    B, Lp = pp.shape
+    for lim in (L_OPS, 37):
+        twant, ms = _with_ms(torch, lambda: sw.traceback_plain(
+            ptrs, p, t, best, bi, bk, d0, W=W, L_OPS=lim))
+        bad = [k for k, g, w in zip(names, tgot if lim == L_OPS
+                                    else trace(lim), twant)
+               if not torch.equal(g, w)]
+        if bad:
+            raise AssertionError(f"sw_traceback differs from its plain "
+                                 f"version in {bad}: {label}, L_OPS {lim}")
+        if lim == L_OPS:
+            tb_plain_ms = ms
     n, nm, nmm = (x.cpu().numpy() for x in (tgot[1], tgot[4], tgot[5]))
-    print(f"sw kernels vs plain [{label}]: B={B} Lp={Lp} Lt={tp.shape[1]} "
-          f"W={W} scores {(m, mm, go, ge)}: pointer bytes, best cells and "
-          f"walks equal (walk ops {int(n.sum())}, longest {int(n.max())})")
+    print(f"sw kernels vs plain [{label}]: B={B} Lp={Lp} Lt={t.shape[1]} "
+          f"W={W} layout {layout}: pointer bytes, best cells and walks "
+          f"equal (walk ops {int(n.sum())}, longest {int(n.max())})")
     if not timed:
         return None
     scan_ms = sorted(_time_ms(torch, scan) for _ in range(5))
     tb_ms = sorted(_time_ms(torch, trace) for _ in range(5))
-    s_bound, s_by = sw_scan_bound_ms(B, Lp, tp.shape[1], W)
-    t_bound = sw_traceback_bound_ms(n, nm, nmm, L_OPS)
-    return dict(scan_ms=scan_ms[2], scan_runs=scan_ms,
-                scan_plain_ms=scan_plain_ms, scan_bound=s_bound,
-                scan_by=s_by, tb_ms=tb_ms[2], tb_runs=tb_ms,
-                tb_plain_ms=tb_plain_ms, tb_bound=t_bound)
+    return dict(B=B, Lp=Lp, Lt=t.shape[1], W=W, L_OPS=L_OPS, layout=layout,
+                scan_ms=scan_ms[2], scan_runs=scan_ms,
+                scan_plain_ms=scan_plain_ms, tb_ms=tb_ms[2], tb_runs=tb_ms,
+                tb_plain_ms=tb_plain_ms, n=n, nm=nm, nmm=nmm)
 
 
 def sw_plain_ops(torch, dev, case):
@@ -2507,58 +2566,69 @@ def sw_plain_ops(torch, dev, case):
     return scan_ops, tb_ops, int(res[1].max())
 
 
-def sw_timed_batch(rng):
-    """Phase 15b's batch: 32 pairs of CLR reads (tools.pacbio_reads'
-    corruption) of overlapping windows of one genome, probes of about
-    3,900 bases in a width of 4,096, on their true diagonal in a band of
-    3,000, with ecreads' scores."""
-    from kit4b_tpu_torch.tools.pacbio_reads import corrupt_pacbio
-    B, Lp, W = SW_BATCH
-    genome = rng.integers(0, 4, 12_000).astype(np.uint8)
-    probes = np.full((B, Lp), 0x0F, np.uint8)
-    targets = np.full((B, Lp), 0x0F, np.uint8)
-    plens, tlens, diag0 = (np.zeros(B, np.int32) for _ in range(3))
-    for b in range(B):
-        s = int(rng.integers(0, 8_000))
-        s2 = int(np.clip(s + rng.integers(-1_500, 1_500), 0, 8_000))
-        p = corrupt_pacbio(genome[s:s + 3_600], rng)[:Lp]
-        t = corrupt_pacbio(genome[s2:s2 + 3_600], rng)[:Lp]
-        probes[b, :len(p)], targets[b, :len(t)] = p, t
-        plens[b], tlens[b], diag0[b] = len(p), len(t), s - s2
-    return probes, plens, targets, tlens, diag0, W, (1, -2, -2, -1)
-
-
-def sw_kernels(torch, dev, card, rng):
-    """Phase 15b: both kernels against their plain versions on the
-    golden's edge cases and on one batch at B 32, W 3,000, Lp 4,096, which
-    is then timed (CUDA events, median of 5) beside the plain versions and
-    the bounds. Returns the times and bounds."""
+def sw_kernels(torch, dev, card):
+    """Phase 15b: the cluster's own costs; both kernels against their plain
+    versions on the golden's edge cases, on the cases built to break the
+    cluster scan and the tiled walk, on random pointer bytes and at the
+    three caller shapes of tools/time_sw.py, which are then timed (CUDA
+    events, median of 5) beside the plain versions and the bounds. Returns
+    15b's batch's times and bounds (the kernels line)."""
+    from kit4b_tpu_torch.kernels import build, sw
     from kit4b_tpu_torch.tools import make_pacbio_golden as mg
-    for c in mg.sw_cases():
-        if c["traceback"]:
-            sw_vs_plain(torch, dev, (
-                c["probes"], c["plens"], c["targets"], c["tlens"],
-                c["diag0"], c["band"], c["scores"]), c["label"])
-    t = sw_vs_plain(torch, dev, sw_timed_batch(rng),
-                    "B 32, W 3000, Lp 4096", timed=True)
-    torch.cuda.empty_cache()
+    from kit4b_tpu_torch.tools import sw_cluster_cases as cc
+    from kit4b_tpu_torch.tools import time_sw
+    smem_ns = None
+    for P in (2, 4, 8):
+        bar, dsmem, smem_ns = sw.cluster_costs(dev, P)
+        print(f"cluster of {P} blocks on {card}: a barrier (arrive + wait) "
+              f"{bar} ns, a DSMEM load {dsmem} ns, a shared-memory load "
+              f"{smem_ns} ns (20,000 of each, %globaltimer)")
+    for c in mg.sw_cases() + cc.cluster_cases():
+        sw_vs_plain(torch, dev, (
+            c["probes"], c["plens"], c["targets"], c["tlens"], c["diag0"],
+            c["band"], c["scores"]), c["label"], traceback=c["traceback"])
+    for c in cc.random_pointer_cases():
+        sw_vs_plain(torch, dev, c, c["label"])
+    loops = sw_cell_instructions(build.paths("sw")[1])
+    cell = loops["cell"]
+    print(f"sw_scan's row loop in SASS (instructions by columns a thread): "
+          f"{ {k: v for k, v in loops.items() if k != 'cell'} }; "
+          f"{cell} instructions a cell")
+    rng = np.random.default_rng(time_sw.SEED)
+    out = {}
+    for name in SW_SHAPES:
+        t = sw_vs_plain(torch, dev, time_sw.BATCHES[name](rng),
+                        f"{name}'s shape", timed=True)
+        B, Lp, W = t["B"], t["Lp"], t["W"]
+        clusters = sw.scan_clusters(dev, B, W, t["layout"])
+        s35, s_by = sw_scan_bound_ms(B, Lp, t["Lt"], W)
+        sdpx = B * Lp * W * cell / INT32_RATE * 1e3 if cell else None
+        bound = min(s35, sdpx) if sdpx else s35
+        tb_bound = sw_traceback_bound_ms(t["n"], t["nm"], t["nmm"],
+                                         t["L_OPS"])
+        floor = (int(t["n"].max()) + 1) * smem_ns * 1e-6
+        print(f"sw_scan at {name}'s shape (B={B} Lp={Lp} W={W}) on {card}: "
+              f"layout (P, C) = {t['layout']}, {clusters} clusters at once; "
+              f"kernel median {t['scan_ms']} ms of 5 (CUDA events: "
+              f"{t['scan_runs']}), plain {t['scan_plain_ms']} ms; bound "
+              f"{s35} ms ({s_by}: {SW_OPS_PER_CELL} int32 operations a "
+              f"cell at {INT32_RATE / 1e12:g} T/s), {sdpx} ms at the "
+              f"kernel's {cell} instructions a cell; kernel at "
+              f"{bound / t['scan_ms']} of the smaller")
+        print(f"sw_traceback at {name}'s shape on {card}: kernel median "
+              f"{t['tb_ms']} ms of 5 (CUDA events: {t['tb_runs']}), plain "
+              f"{t['tb_plain_ms']} ms; bound {tb_bound} ms (bytes), kernel "
+              f"at {tb_bound / t['tb_ms']} of it; floor of a serial walk "
+              f"{floor} ms (the longest walk's {int(t['n'].max())} steps "
+              f"and its stop x a {smem_ns} ns shared-memory load)")
+        out[name] = dict(t, scan_bound=bound, scan_by=s_by, tb_bound=tb_bound)
+        torch.cuda.empty_cache()
     case = next(c for c in mg.sw_cases() if c["label"] == "oracle")
     scan_ops, tb_ops, walk = sw_plain_ops(torch, dev, case)
-    B, Lp, W = SW_BATCH
-    print(f"sw_scan at B={B} Lp={Lp} W={W} on {card}: kernel median "
-          f"{t['scan_ms']} ms of 5 (CUDA events: {t['scan_runs']}), plain "
-          f"{t['scan_plain_ms']} ms; bound {t['scan_bound']} ms "
-          f"({t['scan_by']}: {SW_OPS_PER_CELL} int32 operations a cell at "
-          f"{INT32_RATE / 1e12:g} T/s), kernel at "
-          f"{t['scan_bound'] / t['scan_ms']} of it")
-    print(f"sw_traceback on that batch on {card}: kernel median "
-          f"{t['tb_ms']} ms of 5 (CUDA events: {t['tb_runs']}), plain "
-          f"{t['tb_plain_ms']} ms; bound {t['tb_bound']} ms (bytes), "
-          f"kernel at {t['tb_bound'] / t['tb_ms']} of it")
     print(f"plain versions' device operations (torch.profiler) on the "
           f"golden's oracle case (B 4, Lp 512, W 128): scan {scan_ops}, "
           f"traceback {tb_ops} (longest walk {walk} ops)")
-    return t
+    return out["ecreads"]
 
 
 def _synced(torch, fn):
@@ -2623,7 +2693,8 @@ def pacbio_full(torch, dev, card, tmp: Path):
     split by function, its SW batches, kernel launches, device busy share
     and peak memory; the corrected reads' identity to the truth against
     the raw reads'; ecreads' first and longest SW batches held to the
-    plain versions. Returns the kernels' launches over the four steps."""
+    plain versions. Returns the kernels' launches over the four steps and
+    the SHA-256 of the four outputs by file name."""
     from kit4b_tpu_torch import cli
     from kit4b_tpu_torch.io.fasta import read_seqs
     from kit4b_tpu_torch.kernels import sw
@@ -2727,6 +2798,9 @@ def pacbio_full(torch, dev, card, tmp: Path):
     for label in ("first", "longest"):
         sw_vs_plain(torch, dev, held[label], f"ecreads' {label} batch")
     torch.cuda.empty_cache()
+    sha = {n: hashlib.sha256((tmp / n).read_bytes()).hexdigest()
+           for n in PB_OUTPUTS}
+    print(f"PacBio path outputs, SHA-256: {json.dumps(sha)}")
     if set(hairpins) - split_names or len(ec) < 0.8 * long_in \
             or cor_id < raw_id + 0.1 or not ctg:
         raise AssertionError(
@@ -2734,7 +2808,7 @@ def pacbio_full(torch, dev, card, tmp: Path):
             f"not split, "
             f"{len(ec)} of {long_in} reads corrected, identity {raw_id} -> "
             f"{cor_id}, {len(ctg)} contigs")
-    return launches
+    return launches, sha
 
 
 def minmm_cases(torch, cases, minmm, minmm_plain) -> int:
@@ -3087,9 +3161,12 @@ def main() -> int:
 
     # --- 15. the PacBio long-read path: golden, kernels, pipeline -------
     pacbio_golden(torch, dev)
-    sw_t = sw_kernels(torch, dev, card, np.random.default_rng(SEED + 15))
+    sw_t = sw_kernels(torch, dev, card)
     with tempfile.TemporaryDirectory(prefix=".chip_smoke_", dir=root) as tmp:
-        sw_launches = pacbio_full(torch, dev, card, Path(tmp))
+        sw_launches, pb_sha = pacbio_full(torch, dev, card, Path(tmp))
+    if pb_sha != PB_SHA256:
+        raise AssertionError(f"15c's outputs differ from the parent "
+                             f"kernels': {pb_sha}")
     done("15")
     if "jax" in sys.modules or "kit4b_tpu" in sys.modules:
         raise AssertionError("jax or the JAX package kit4b_tpu was imported")

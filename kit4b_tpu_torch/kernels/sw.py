@@ -19,10 +19,15 @@ positive) and, with `traceback`, one pointer byte a cell in an
     bit 3     E extends E above (e_ext >= e_open)
     bit 4     F extends F left (exclusive prefix max > the previous X)
 
-The traceback walks that array from the best cell, one lane a pair, and
-returns the reversed op codes (1 M, 2 D, 3 I; zero past n), n, the
-1-based start row and column, and the matches and mismatches of its M ops
-(the clipped codes compared, so N against N counts as a match).
+The traceback walks that array from the best cell and returns the
+reversed op codes (1 M, 2 D, 3 I; zero past n), n, the 1-based start row
+and column, and the matches and mismatches of its M ops (the clipped codes
+compared, so N against N counts as a match).
+
+On the card the scan spreads each pair over a cluster of P blocks with C
+band columns a thread (`scan_layout`), and the traceback walks with one
+warp a pair over tiles of pointer bytes staged in shared memory; csrc/sw.cu
+says how.
 """
 from __future__ import annotations
 
@@ -34,7 +39,14 @@ import torch
 from . import build
 
 NEG = -(1 << 24)
-MAX_W = 8192     # widest band the scan kernel takes: 8 columns a thread
+MAX_W = 8192     # widest band the scan kernel takes: 32 warps of 8 columns
+CLUSTER_SIZES = tuple(range(1, 9))   # blocks a pair: 8, the portable limit
+THREAD_COLS = (2, 4, 8)          # band columns a thread
+MAX_WARPS = 32                   # a pair's warps: one exchange slot a lane
+MAX_BLOCK_THREADS = 512
+MIN_BLOCK_COLS = 1000            # a block's least share of the band: at
+                                 # W 3,000 three blocks a pair beat 2 and 4-8
+                                 # (time_sw.py --layouts on an H100)
 CHUNK_ROWS = 64  # rows whose cell rule sw_scan_plain gathers at once
 CHECK_EVERY = 32  # traceback_plain's steps between reads of the lanes' state
 
@@ -214,13 +226,44 @@ def traceback_plain(ptrs: torch.Tensor, probes: torch.Tensor,
             nmm.to(i32))
 
 
+def _block_threads(W: int, P: int, C: int) -> int:
+    """Threads a block of the scan: the pair's warps of 32 x C columns
+    spread over P blocks."""
+    warps = -(-W // (32 * C))
+    return -(-warps // P) * 32
+
+
+def scan_layouts(W: int) -> list[tuple[int, int]]:
+    """Every (P, C) the scan kernel takes for band W: at most 32 warps a
+    pair and 512 threads a block."""
+    return [(P, C) for P in CLUSTER_SIZES for C in THREAD_COLS
+            if _block_threads(W, P, C) <= MAX_BLOCK_THREADS
+            and P * _block_threads(W, P, C) // 32 <= MAX_WARPS]
+
+
+def scan_layout(B: int, W: int, sms: int = 132) -> tuple[int, int]:
+    """(P, C) of the scan for B pairs in a band of W on a card of `sms`
+    SMs: the largest cluster whose B x P blocks fit on the SMs and leave
+    each block MIN_BLOCK_COLS columns (else the smallest that takes W),
+    then the fewest columns a thread that fit."""
+    fits = scan_layouts(W)
+    sizes = sorted({P for P, _ in fits})
+    fill = [P for P in sizes if B * P <= sms and W >= P * MIN_BLOCK_COLS]
+    P = max(fill) if fill else sizes[0]
+    return P, min(C for p, C in fits if p == P)
+
+
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = build.load("sw")
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.sw_scan_launch.argtypes = [i, p, p, p, p, p, i, i, i, i, i, i, i, i,
-                                   p, p, p, p, p]
+                                   i, i, p, p, p, p, p]
     lib.sw_scan_launch.restype = i
+    lib.sw_scan_clusters.argtypes = [i, i, i, i, i, ctypes.POINTER(i)]
+    lib.sw_scan_clusters.restype = i
+    lib.sw_cluster_probe.argtypes = [i, i, i, p, p]
+    lib.sw_cluster_probe.restype = i
     lib.sw_traceback_launch.argtypes = [i, p, p, p, p, p, p, p, i, i, i, i,
                                         i, i, p, p, p, p, p, p, p]
     lib.sw_traceback_launch.restype = i
@@ -245,13 +288,19 @@ def _device_index(dev: torch.device) -> int:
     return dev.index if dev.index is not None else torch.cuda.current_device()
 
 
+def _sms(dev: torch.device) -> int:
+    return torch.cuda.get_device_properties(dev).multi_processor_count
+
+
 def sw_scan(probes: torch.Tensor, targets: torch.Tensor,
             plens: torch.Tensor, tlens: torch.Tensor, diag0: torch.Tensor,
             *, W: int, match: int, mismatch: int, gap_open: int,
-            gap_ext: int, traceback: bool = True):
+            gap_ext: int, traceback: bool = True,
+            layout: tuple[int, int] | None = None):
     """(best, bi, bk, pointer bytes or None): the CUDA kernel for CUDA
-    tensors, `sw_scan_plain` for CPU tensors. Each kernel launch adds one
-    to `sw_scan.launches`."""
+    tensors, `sw_scan_plain` for CPU tensors. `layout` (P, C) overrides
+    `scan_layout`'s choice on the card. Each kernel launch adds one to
+    `sw_scan.launches`."""
     kw = dict(W=W, match=match, mismatch=mismatch, gap_open=gap_open,
               gap_ext=gap_ext, traceback=traceback)
     if probes.device.type == "cpu":
@@ -284,11 +333,14 @@ def sw_scan(probes: torch.Tensor, targets: torch.Tensor,
         for t in (best, bi, bk):
             t.zero_()
         return best, bi, bk, ptrs
+    P, C = layout or scan_layout(B, W, _sms(dev))
+    if (P, C) not in scan_layouts(W):
+        raise ValueError(f"sw_scan: layout {(P, C)} does not fit band {W}")
     d = _device_index(dev)
     err = _lib().sw_scan_launch(
         d, probes.data_ptr(), targets.data_ptr(), plens.data_ptr(),
         tlens.data_ptr(), diag0.data_ptr(), B, Lp, Lt, W, match, mismatch,
-        gap_open, gap_ext, ptrs.data_ptr() if traceback else None,
+        gap_open, gap_ext, P, C, ptrs.data_ptr() if traceback else None,
         best.data_ptr(), bi.data_ptr(), bk.data_ptr(),
         torch.cuda.current_stream(d).cuda_stream)
     if err:
@@ -298,6 +350,32 @@ def sw_scan(probes: torch.Tensor, targets: torch.Tensor,
 
 
 sw_scan.launches = 0
+
+
+def scan_clusters(dev: torch.device, B: int, W: int,
+                  layout: tuple[int, int]) -> int:
+    """How many clusters of the scan at `layout` the card holds at once
+    (cudaOccupancyMaxActiveClusters)."""
+    n = ctypes.c_int(0)
+    err = _lib().sw_scan_clusters(_device_index(dev), B, W, *layout,
+                                  ctypes.byref(n))
+    if err:
+        raise RuntimeError(f"sw_scan_clusters failed: CUDA error {err}")
+    return n.value
+
+
+def cluster_costs(dev: torch.device, P: int, iters: int = 20_000):
+    """(ns of a cluster barrier, of a DSMEM load, of a load of the block's
+    own shared memory) on one cluster of P blocks: `iters` of each, the
+    loads dependent, each run timed on the card's clock."""
+    out = torch.zeros(4, dtype=torch.int64, device=dev)
+    d = _device_index(dev)
+    err = _lib().sw_cluster_probe(d, P, iters, out.data_ptr(),
+                                  torch.cuda.current_stream(d).cuda_stream)
+    if err:
+        raise RuntimeError(f"sw_cluster_probe failed: CUDA error {err}")
+    ns = out.cpu().tolist()
+    return ns[0] / iters, ns[1] / iters, ns[2] / iters
 
 
 def sw_traceback(ptrs: torch.Tensor, probes: torch.Tensor,
@@ -327,6 +405,9 @@ def sw_traceback(ptrs: torch.Tensor, probes: torch.Tensor,
     if min(Lp, probes.shape[1], targets.shape[1], L_OPS) < 1:
         raise ValueError("sw_traceback: empty pointer rows, sequences or "
                          "ops")
+    if ptrs.data_ptr() % 4:
+        raise ValueError("sw_traceback: pointer bytes must start on a "
+                         "4-byte boundary")
     ops = torch.zeros((B, L_OPS), dtype=torch.int8, device=dev)
     n, ps, ts, nm, nmm = (torch.empty(B, dtype=torch.int32, device=dev)
                           for _ in range(5))
