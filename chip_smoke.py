@@ -241,21 +241,48 @@ result:
    raw reads', a contig; ecreads' first and longest SW batches held to the
    plain versions; the four outputs' SHA-256 equal to PB_SHA256, what the
    parent commit's kernels wrote.
+16. blitz, hrdx, kmerdist and the scorer group (host code, the SW kernels
+   through blitz's gapped refinement, kalign's passes). (a) The port's CLI
+   on the seeded workload of `kit4b_tpu_torch.tools.make_longtail_golden`
+   (blitz's small set of edge cases and its big set of 200 queries of 1-16
+   kbp on a 1 Mbp genome, gapped and `--no-gapped`; hrdx; kmerdist on a MAF
+   of blitz's hits; benchmark modes 0-4; alignsbs; ngsqc -H -; maploci;
+   rnade) against the JAX package's committed golden: every file equal byte
+   for byte. (b) Config #1's genome through the CLI `index`, then 1,000
+   planted queries of 1-16 kbp (1 % substitutions, InDels of 10-40 bp, both
+   strands) and 50 random ones through the CLI `blitz` (one SW batch a
+   query) and `blitz --no-gapped`: the gapped wall split into seeding,
+   chaining, SW scan, traceback, the rest of the SW batches, the block walk
+   and the PSL write, with its SW launches, device busy share and peak
+   memory. Checks: every planted query's best hit on its strand, within 50
+   bp of its truth, spanning 90 % of it, its InDel carried to the base (at
+   most a pair of extra 1-base gaps); no random query hit; every block's
+   bases against the genome giving the PSL's matches and mismatches; the
+   longest query's and the median query's SW batches held to the plain
+   versions and timed beside their bounds. (c) hrdx on two 2 Mbp haplotypes
+   cut into contigs of 5-60 kbp with 20 unique ones; kmerdist on a MAF of
+   (b)'s hits against a direct count; simreads (100,000 reads) -> kalign ->
+   benchmark -m 4 (>= 99.9 % of aligned reads at their truth), -m 1 -> -m 2
+   -> kalign -> -m 3, -m 0; alignsbs (2,000 queries, 200 targets of 2 kbp,
+   10 bootstraps; iteration 0 against a direct overlap count); ngsqc -H -;
+   maploci against a direct count over 500 features; rnade on two kalign
+   SAMs against 200 genes; each step timed.
 
-Each kernel's launch counter is set to 0 just before its path (phases 4,
-6, 7, and each CLI step of 15c) and read just after it; phases 8-14 run
-none of the kernels. The script prints its seconds, and each phase's,
-before the kernels line. The line before the last is a JSON table of the
-kernels, each with its bound (the least time the card could take: int8
-tensor operations for minmm and sweep, int32 operations for sw_scan,
-bytes for take and sw_traceback; take's `ms` is device time); the last
-line is {"ok": true, "device": {"platform": "gpu", "kind": ..., "count":
-...}}.
+Each kernel's launch counter is set to 0 just before its path (phases 4, 6,
+7, each CLI step of 15c and 16b's gapped `blitz`) and read just after it;
+phases 8-14 run none of the kernels. The script prints its seconds, and
+each phase's, before the kernels line. The line before the last is a JSON
+table of the kernels, each with its bound (the least time the card could
+take: int8 tensor operations for minmm and sweep, int32 operations for
+sw_scan, bytes for take and sw_traceback; take's `ms` is device time); the
+last line is {"ok": true, "device": {"platform": "gpu", "kind": ...,
+"count": ...}}.
 """
 from __future__ import annotations
 
 import contextlib
 import hashlib
+import io
 import json
 import logging
 import re
@@ -709,8 +736,15 @@ def _sam_body(path: Path):
     return qn, np.array(flag), rname, np.array(pos), seq, np.array(nm)
 
 
-def kalign_full(torch, dev, card, tmp: Path):
-    """Phase 8b: config #1 at full size through the port's CLI."""
+def config1_files(cfg1: Path) -> tuple[Path, Path]:
+    """Config #1's genome FASTA and its .kix, as 8b writes them."""
+    return cfg1 / "ecoli_sim.fa", cfg1 / "ecoli_sim.kix"
+
+
+def kalign_full(torch, dev, card, tmp: Path, cfg1: Path):
+    """Phase 8b: config #1 at full size through the port's CLI; its genome
+    and the CLI `index`'s .kix are written into `cfg1`, where the later
+    phases on this genome (12b, 13b-d, 16b-c) find them."""
     from kit4b_tpu_torch import cli, dna, native
     from kit4b_tpu_torch.align import kalign
     from kit4b_tpu_torch.index.sfx_index import SfxIndex
@@ -727,8 +761,8 @@ def kalign_full(torch, dev, card, tmp: Path):
     recs = simreads.sim_reads(g, simreads.SimParams(
         n_reads=ECOLI_READS, read_len=READ_LEN, seed=7,
         error_mode="illumina", subs_rate=0.02))
-    fa, reads_fa = tmp / "ecoli_sim.fa", tmp / "reads.fa"
-    kix, sam = tmp / "ecoli_sim.kix", tmp / "out.sam"
+    fa, kix = config1_files(cfg1)
+    reads_fa, sam = tmp / "reads.fa", tmp / "out.sam"
     write_fasta(fa, ["ecoli_sim"], [codes])
     simreads.write_reads(reads_fa, recs)
 
@@ -1471,10 +1505,10 @@ def kalign_full_golden(torch, dev):
 
 
 @contextlib.contextmanager
-def _timed(targets):
+def _timed(targets, nested=False):
     """Seconds spent in each (label, owner, attribute) function for the
     run inside; a call made while another timed call runs counts in the
-    outer one only."""
+    outer one only, or, with `nested`, in every one it passes through."""
     secs = {label: 0.0 for label, _, _ in targets}
     depth = [0]
     saved = [(owner, name, getattr(owner, name))
@@ -1482,7 +1516,7 @@ def _timed(targets):
 
     def wrap(label, fn):
         def timed(*a, **kw):
-            if depth[0]:
+            if depth[0] and not nested:
                 return fn(*a, **kw)
             depth[0] += 1
             t0 = time.perf_counter()
@@ -1586,7 +1620,7 @@ def _truth_share(records, truth_of):
     return acc, at
 
 
-def rescue_full(torch, dev, card, tmp: Path):
+def rescue_full(torch, dev, card, tmp: Path, cfg1: Path):
     """Phases 12b and 12c: config #1's genome with InDel and artefact reads
     through `kalign -y 20 -C 50`, then with introns planted and spliced
     reads through `kalign -l 10000`; the full-stats pass timed beside v5."""
@@ -1598,19 +1632,15 @@ def rescue_full(torch, dev, card, tmp: Path):
     from kit4b_tpu_torch.sim import simreads
     rng = np.random.default_rng(12345)
     codes = rng.integers(0, 4, ECOLI_LEN).astype(np.uint8)
-    fa, kix = tmp / "ecoli_sim.fa", tmp / "ecoli_sim.kix"
+    fa, kix = config1_files(cfg1)
     reads_fa, sam = tmp / "reads.fa", tmp / "out.sam"
-    write_fasta(fa, ["ecoli_sim"], [codes])
     t0 = time.perf_counter()
-    for name, argv in (
-            ("index", ["index", "-i", str(fa), "-o", str(kix)]),
-            ("simreads", ["simreads", "-i", str(fa), "-o", str(reads_fa),
-                          "-n", str(ECOLI_READS), "-l", str(READ_LEN), "-e",
-                          "illumina", "-z", "0.02", "-X", "0.05", "-x", "3",
-                          "-a", "0.02", "-S", "7"])):
-        if cli.main(argv) != 0:
-            raise AssertionError(f"CLI {name} exited non-zero")
-    print(f"config #1 genome (4.6 Mbp, default_rng(12345)) indexed and "
+    if cli.main(["simreads", "-i", str(fa), "-o", str(reads_fa), "-n",
+                 str(ECOLI_READS), "-l", str(READ_LEN), "-e", "illumina",
+                 "-z", "0.02", "-X", "0.05", "-x", "3", "-a", "0.02", "-S",
+                 "7"]) != 0:
+        raise AssertionError("CLI simreads exited non-zero")
+    print(f"config #1 genome (4.6 Mbp, default_rng(12345), 8b's index): "
           f"{ECOLI_READS} reads simulated (-X 0.05 -x 3 -a 0.02): "
           f"{time.perf_counter() - t0} s")
 
@@ -1851,7 +1881,7 @@ def bai_queries(bam: Path, n_windows: int, length: int, rng) -> int:
     return found
 
 
-def opts_full(torch, dev, card, tmp: Path):
+def opts_full(torch, dev, card, tmp: Path, cfg1: Path):
     """Phase 13b: config #1 with the phases, the filters and a sorted BAM
     with its BAI, beside the same run written as SAM."""
     from kit4b_tpu_torch import cli, dna
@@ -1866,12 +1896,9 @@ def opts_full(torch, dev, card, tmp: Path):
     recs = simreads.sim_reads(g, simreads.SimParams(
         n_reads=ECOLI_READS, read_len=READ_LEN, seed=7,
         error_mode="illumina", subs_rate=0.02))
-    fa, reads_fa, kix = tmp / "ecoli_sim.fa", tmp / "reads.fa", \
-        tmp / "ecoli_sim.kix"
-    write_fasta(fa, ["ecoli_sim"], [codes])
+    kix = config1_files(cfg1)[1]
+    reads_fa = tmp / "reads.fa"
     simreads.write_reads(reads_fa, recs)
-    if cli.main(["index", "-i", str(fa), "-o", str(kix)]) != 0:
-        raise AssertionError("CLI index exited non-zero")
     flags = ["-x", "10", "-6", "2", "--mlmode", "3", "-Z", "^ecoli", "-5",
              "4", "-b", str(ECOLI_BATCH)]
     al = kalign.KAligner
@@ -1935,11 +1962,11 @@ def opts_full(torch, dev, card, tmp: Path):
                              f"truth share {at} / {acc} is low")
 
 
-def snp_full(torch, dev, card, tmp: Path):
+def snp_full(torch, dev, card, tmp: Path, cfg1: Path):
     """Phase 13c: config #1's genome with planted SNPs at about 20x
     through kalign -S -g -3 -X --markerfile --snpcentroidfile."""
     from kit4b_tpu_torch import cli
-    fa, kix = tmp / "ecoli_sim.fa", tmp / "ecoli_sim.kix"
+    fa, kix = config1_files(cfg1)
     reads, bed = tmp / "snp_reads.fa", tmp / "snps.bed"
     t0 = time.perf_counter()
     if cli.main(["simreads", "-i", str(fa), "-o", str(reads), "-n",
@@ -1992,7 +2019,7 @@ def snp_full(torch, dev, card, tmp: Path):
                              f"{len(truth)} planted; {lines}")
 
 
-def bisulfite_full(torch, dev, card, tmp: Path):
+def bisulfite_full(torch, dev, card, tmp: Path, cfg1: Path):
     """Phase 13d: index -m 1 on config #1's genome, then kalign
     --bisulfite on converted reads; one bs_pass_compact timed."""
     from kit4b_tpu_torch import cli
@@ -2002,7 +2029,7 @@ def bisulfite_full(torch, dev, card, tmp: Path):
     from kit4b_tpu_torch.io.fasta import Genome
     from kit4b_tpu_torch.ops import seed_extend_fast as F
     from kit4b_tpu_torch.tools.make_kalign_opts_golden import bis_convert
-    fa, kbx = tmp / "ecoli_sim.fa", tmp / "ecoli_sim.kbx"
+    fa, kbx = config1_files(cfg1)[0], tmp / "ecoli_sim.kbx"
     reads, sam = tmp / "bis.fa", tmp / "bis.sam"
     ilog = _PhaseLog()
     logging.getLogger("kit4b_tpu_torch").addHandler(ilog)
@@ -2700,24 +2727,16 @@ def pacbio_full(torch, dev, card, tmp: Path):
     from kit4b_tpu_torch.kernels import sw
     from kit4b_tpu_torch.pacbio import consensus, ecreads, pbassemb, \
         pbfilter, sswd
+    from kit4b_tpu_torch.tools.time_sw import held_batches
     genome, reads, truth, hairpins = _pacbio_readset(tmp)
-    held = {}               # ecreads' first and longest batch
-    batches = [0]
 
-    def spy(fn, keep):
-        def call(probes, plens, targets, tlens, diag0, **kw):
-            batches[0] += 1
-            if keep:
-                b = (probes.copy(), plens.copy(), targets.copy(),
-                     tlens.copy(), diag0.copy(), kw["band"],
-                     (kw["scores"].match, kw["scores"].mismatch,
-                      kw["scores"].gap_open, kw["scores"].gap_ext))
-                held.setdefault("first", b)
-                if "longest" not in held or \
-                        probes.shape[1] > held["longest"][0].shape[1]:
-                    held["longest"] = b
-            return fn(probes, plens, targets, tlens, diag0, **kw)
-        return call
+    def hold(mod, probes, held):
+        """ecreads' first batch and its longest (the first of that width)."""
+        if mod is not ecreads or held and \
+                probes.shape[1] <= held[-1][0].shape[1]:
+            return False
+        del held[1:]
+        return True
     f = tmp
     steps = [("pbfilter", ["pbfilter", "-i", f"{f}/raw.fa", "-o",
                            f"{f}/filt.fa"]),
@@ -2736,44 +2755,43 @@ def pacbio_full(torch, dev, card, tmp: Path):
              ("traceback", sswd, "sw_traceback"),
              ("consensus", consensus.ConsensusBuilder, "add"),
              ("consensus", consensus.ConsensusBuilder, "call")]
-    saved = [(m, n, getattr(m, n)) for m, n in (
-        (sswd, "sw_scan"), (sswd, "sw_traceback"),
-        (ecreads, "banded_sw_batch"), (pbfilter, "banded_sw_batch"),
-        (pbassemb, "banded_sw_batch"))]
+    saved = [(sswd, n, getattr(sswd, n)) for n in (
+        "sw_scan", "sw_traceback")]
     sswd.sw_scan = _synced(torch, sw.sw_scan)
     sswd.sw_traceback = _synced(torch, sw.sw_traceback)
-    for mod in (ecreads, pbfilter, pbassemb):
-        mod.banded_sw_batch = spy(mod.banded_sw_batch, mod is ecreads)
     launches = {"sw_scan": 0, "sw_traceback": 0}
     try:
-        for name, argv in steps:
-            rc = []
-            batches[0] = 0
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
-            reset_launches()
-            with _timed(split) as secs:
-                wall, busy, n_ops = _profiled(
-                    torch, lambda: rc.append(cli.main(argv)))
-            n_scan, n_tb = sw.sw_scan.launches, sw.sw_traceback.launches
-            peak = torch.cuda.max_memory_allocated()
-            if rc != [0]:
-                raise AssertionError(f"CLI {name} exited {rc}")
-            n_out = sum(1 for _ in read_seqs(argv[argv.index("-o") + 1]))
-            print(f"CLI {name} on {card}: wall {wall} s, split (s) "
-                  f"{ {k: v for k, v in secs.items() if v} }; "
-                  f"{batches[0]} SW batches, kernel launches sw_scan "
-                  f"{n_scan} sw_traceback {n_tb}; "
-                  + (f"device busy {busy} s ({busy / wall} of the wall), "
-                     if busy else "device busy not measured, ")
-                  + f"{n_ops} device operations; peak device memory {peak} "
-                  f"bytes; {n_out} records out")
-            if not (n_scan == n_tb == batches[0] > 0):
-                raise AssertionError(f"{name}: {batches[0]} SW batches but "
-                                     f"{n_scan} scan and {n_tb} traceback "
-                                     f"launches")
-            launches["sw_scan"] += n_scan
-            launches["sw_traceback"] += n_tb
+        with held_batches(ecreads, pbfilter, pbassemb, hold=hold) as held:
+            for name, argv in steps:
+                rc = []
+                held.calls = 0
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                reset_launches()
+                with _timed(split) as secs:
+                    wall, busy, n_ops = _profiled(
+                        torch, lambda: rc.append(cli.main(argv)))
+                n_scan = sw.sw_scan.launches
+                n_tb = sw.sw_traceback.launches
+                peak = torch.cuda.max_memory_allocated()
+                if rc != [0]:
+                    raise AssertionError(f"CLI {name} exited {rc}")
+                out = argv[argv.index("-o") + 1]
+                n_out = sum(1 for _ in read_seqs(out))
+                print(f"CLI {name} on {card}: wall {wall} s, split (s) "
+                      f"{ {k: v for k, v in secs.items() if v} }; "
+                      f"{held.calls} SW batches, kernel launches sw_scan "
+                      f"{n_scan} sw_traceback {n_tb}; "
+                      + (f"device busy {busy} s ({busy / wall} of the "
+                         f"wall), " if busy else "device busy not measured, ")
+                      + f"{n_ops} device operations; peak device memory "
+                      f"{peak} bytes; {n_out} records out")
+                if not (n_scan == n_tb == held.calls > 0):
+                    raise AssertionError(
+                        f"{name}: {held.calls} SW batches but {n_scan} scan "
+                        f"and {n_tb} traceback launches")
+                launches["sw_scan"] += n_scan
+                launches["sw_traceback"] += n_tb
     finally:
         for m, n, fn in saved:
             setattr(m, n, fn)
@@ -2795,8 +2813,8 @@ def pacbio_full(torch, dev, card, tmp: Path):
           f"reads); pbassemb {len(ctg)} contigs, longest "
           f"{max(ctg, default=0)}, total {sum(ctg)}; eccontigs "
           f"{len(pol)} polished, total {sum(pol)}")
-    for label in ("first", "longest"):
-        sw_vs_plain(torch, dev, held[label], f"ecreads' {label} batch")
+    for label, batch in (("first", held[0]), ("longest", held[-1])):
+        sw_vs_plain(torch, dev, batch, f"ecreads' {label} batch")
     torch.cuda.empty_cache()
     sha = {n: hashlib.sha256((tmp / n).read_bytes()).hexdigest()
            for n in PB_OUTPUTS}
@@ -2809,6 +2827,376 @@ def pacbio_full(torch, dev, card, tmp: Path):
             f"{len(ec)} of {long_in} reads corrected, identity {raw_id} -> "
             f"{cor_id}, {len(ctg)} contigs")
     return launches, sha
+
+
+# blitz, hrdx, kmerdist and the scorer group (phase 16)
+BLITZ_QUERIES, BLITZ_RANDOM = 1_000, 50     # planted and random queries
+BLITZ_LENS = (1_000, 16_000)
+HRDX_HAP, HRDX_CTG = 2_000_000, (5_000, 60_000)   # a haplotype, contigs
+HRDX_UNIQUE, HRDX_UNIQUE_LEN = 20, 10_000
+BENCH_PROFILES = 20_000     # benchmark -m 1/-m 2: profiles, replayed reads
+RNADE_READS, RNADE_GENES = 50_000, 200
+SBS_ASM, SBS_QUERIES, SBS_TARGETS, SBS_BOOT = 100_000, 2_000, 200, 10
+MAPLOCI_FEATURES = 500
+
+
+def longtail_golden(torch, dev):
+    """Phase 16a: blitz (the small and big sets, gapped and not), hrdx,
+    kmerdist, benchmark modes 0-4, alignsbs, ngsqc, maploci and rnade
+    through the port's CLI on the card against the JAX package's golden,
+    every file byte for byte."""
+    from kit4b_tpu_torch.tools import make_longtail_golden as mg
+    gold = np.load(mg.GOLDEN)
+    work = mg.workload()
+    if mg.inputs_sha256(work) != str(gold["inputs_sha256"]):
+        raise AssertionError("the long-tail golden inputs rebuilt here "
+                             "differ from the ones the golden was made from")
+    t0 = time.perf_counter()
+    out = mg.compute(mg.port_fns(dev), work, big=True)
+    wall = time.perf_counter() - t0
+    bad, reach = mg.differing(out, gold), mg.check_reach(out)
+    print(f"long-tail golden ({wall} s; blitz small and big sets gapped and "
+          f"ungapped, hrdx, kmerdist, benchmark 0-4, alignsbs, ngsqc, "
+          f"maploci, rnade): {len(out)} arrays compared, differing: "
+          f"{bad or 'none'}")
+    if bad or reach:
+        raise AssertionError(f"the long-tail commands differ from the JAX "
+                             f"golden in {bad}; reach {reach}")
+
+
+def _psl_checks(rows, queries, genome):
+    """16b's checks on a gapped PSL: every planted query's best hit (its
+    first row) on its strand, within 50 bp of its truth start, spanning at
+    least 90 % of the query, and carrying its InDel to the base: target
+    gap bases less the deletion equal query gap bases less the insertion,
+    and are at most 2. Such extra bases come in pairs, a base of each
+    around a run of three mismatches, where SWScores(1, -2, -3, -1) scores
+    two 1-base gaps and the two matches they bring (-4) above the
+    mismatches (-6). No row for a random query; every row's blocks,
+    compared base by base with the genome, giving exactly its matches and
+    mismatches. Returns the faults and the names of the best hits with
+    extra gap bases."""
+    best, faults, extra = {}, [], []
+    for r in rows:
+        best.setdefault(r[9], r)
+        q = queries[r[9]]
+        if r[8] == "-":
+            q = _revcomp(q)
+        eq = [q[qb:qb + n] == genome[tb:tb + n] for qb, tb, n in zip(*(
+            [int(x) for x in r[c].rstrip(",").split(",")]
+            for c in (19, 20, 18)))]
+        eq = np.concatenate(eq)
+        if (int(eq.sum()), int((~eq).sum())) != (int(r[0]), int(r[1])):
+            faults.append(f"{r[9]}: blocks give {int(eq.sum())} matches, "
+                          f"{int((~eq).sum())} mismatches, PSL {r[0]}, "
+                          f"{r[1]}")
+    for name, codes in queries.items():
+        if name.startswith("r"):
+            if name in best:
+                faults.append(f"{name}: a random query hit")
+            continue
+        _, _, start, _, strand, d, ins = name.split("|")
+        r = best.get(name)
+        if r is None:
+            faults.append(f"{name}: no hit")
+            continue
+        more_t, more_q = int(r[7]) - int(d), int(r[5]) - int(ins)
+        if more_t or more_q:
+            extra.append(name)
+        if r[8] != strand or abs(int(r[15]) - int(start)) > 50 \
+                or int(r[12]) - int(r[11]) < 0.9 * len(codes) \
+                or more_t != more_q or not 0 <= more_t <= 2:
+            faults.append(f"{name}: best hit {r[8]} {r[15]}-{r[16]}, query "
+                          f"{r[11]}-{r[12]} of {len(codes)}, gap bases "
+                          f"query {r[5]}, target {r[7]}")
+    return faults, extra
+
+
+def blitz_full(torch, dev, card, tmp: Path, cfg1: Path):
+    """Phase 16b: on config #1's genome (4.6 Mbp, default_rng(12345)) and
+    8b's index of it, BLITZ_QUERIES planted queries of 1-16 kbp and
+    BLITZ_RANDOM random ones of 2 kbp through the CLI `blitz` (gapped: one
+    SW batch a query) and `blitz --no-gapped`; the gapped run's wall split
+    into seeding, chaining, the SW scan and traceback, the rest of the SW
+    batches (uploads, the run-length collapse), the block walk and the PSL
+    write, with its SW launches, device busy share and peak memory; the
+    PSL checked by `_psl_checks`; the longest query's batch and the median
+    query's held to the plain versions and timed beside their bounds.
+    Returns the SW launches of the gapped run, the genome and index paths,
+    the genome's codes, the gapped PSL and the queries."""
+    from kit4b_tpu_torch import cli
+    from kit4b_tpu_torch.align import blitz
+    from kit4b_tpu_torch.kernels import sw
+    from kit4b_tpu_torch.pacbio import sswd
+    from kit4b_tpu_torch.tools import make_longtail_golden as mg
+    from kit4b_tpu_torch.tools.time_sw import held_batches
+    codes = np.random.default_rng(12345).integers(0, 4, ECOLI_LEN) \
+        .astype(np.uint8)
+    fa, kix = config1_files(cfg1)
+    queries = dict(mg.planted_queries(
+        np.random.default_rng(SEED + 16), [("ecoli_sim", codes)],
+        BLITZ_QUERIES, BLITZ_RANDOM, BLITZ_LENS))
+    write_fasta(tmp / "queries.fa", list(queries), list(queries.values()))
+    lens = [len(c) for c in queries.values()]
+    print(f"blitz queries: {BLITZ_QUERIES} planted of {min(lens)}-"
+          f"{max(lens)} bp (1 % substitutions, a 10-40 bp deletion in "
+          f"half, an insertion in a quarter, half reverse-complemented) and "
+          f"{BLITZ_RANDOM} random of 2 kbp, {sum(lens)} bp, on 8b's "
+          f"index of config #1's genome")
+    split = [("seeding", blitz, "_seed_hits"),
+             ("chaining", blitz, "_chain_and_score"),
+             ("refinement", blitz, "_refine_gapped"),
+             ("SW batches", sswd, "banded_sw_batch"),
+             ("SW scan", sswd, "sw_scan"),
+             ("traceback", sswd, "sw_traceback"),
+             ("PSL write", blitz, "write_psl")]
+    saved = [(sswd, n, getattr(sswd, n)) for n in (
+        "sw_scan", "sw_traceback")]
+    sswd.sw_scan = _synced(torch, sw.sw_scan)
+    sswd.sw_traceback = _synced(torch, sw.sw_traceback)
+    psl = tmp / "blitz.psl"
+    rc = []
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        with held_batches(sswd) as held, \
+                _timed(split, nested=True) as secs:
+            wall, busy, n_ops = _profiled(torch, lambda: rc.append(cli.main(
+                ["blitz", "-i", str(tmp / "queries.fa"), "-I", str(kix),
+                 "-o", str(psl)])))
+        launches = {"sw_scan": sw.sw_scan.launches,
+                    "sw_traceback": sw.sw_traceback.launches}
+        peak = torch.cuda.max_memory_allocated()
+    finally:
+        for m, n, fn in saved:
+            setattr(m, n, fn)
+    if rc != [0]:
+        raise AssertionError(f"CLI blitz exited {rc}")
+    walk = secs["refinement"] - secs["SW batches"]
+    sw_host = secs["SW batches"] - secs["SW scan"] - secs["traceback"]
+    print(f"CLI blitz (gapped) on {card}: wall {wall} s; seeding "
+          f"{secs['seeding']} s, chaining {secs['chaining']} s, SW scan "
+          f"{secs['SW scan']} s, traceback {secs['traceback']} s, the rest "
+          f"of the SW batches (uploads, collapse) {sw_host} s, block walk "
+          f"{walk} s, PSL write {secs['PSL write']} s; {len(held)} SW "
+          f"batches, launches {launches}; "
+          + (f"device busy {busy} s ({busy / wall} of the wall), "
+             if busy else "device busy not measured, ")
+          + f"{n_ops} device operations; peak device memory {peak} bytes")
+    if not (launches["sw_scan"] == launches["sw_traceback"] == len(held)
+            > 0):
+        raise AssertionError(f"{len(held)} SW batches but {launches} "
+                             f"launches")
+    ung = tmp / "blitz_ungapped.psl"
+    with _timed(split[:2]) as usecs:
+        t0 = time.perf_counter()
+        rc = cli.main(["blitz", "--no-gapped", "-i",
+                       str(tmp / "queries.fa"), "-I", str(kix), "-o",
+                       str(ung)])
+        uwall = time.perf_counter() - t0
+    if rc != 0:
+        raise AssertionError(f"CLI blitz --no-gapped exited {rc}")
+    text = psl.read_text()
+    rows, urows = mg.psl_rows(text), mg.psl_rows(ung.read_text())
+    faults, extra = _psl_checks(rows, queries, codes)
+    n_indel = sum(1 for n in queries if n.startswith("p") and (
+        n.split("|")[5] != "0" or n.split("|")[6] != "0"))
+    print(f"CLI blitz --no-gapped on {card}: wall {uwall} s (seeding "
+          f"{usecs['seeding']} s, chaining {usecs['chaining']} s), "
+          f"{len(urows)} hits of {len({r[9] for r in urows})} queries; "
+          f"gapped: {len(rows)} hits of {len({r[9] for r in rows})} "
+          f"queries; every planted InDel carried to the base ({n_indel}); "
+          f"best hits with a pair of extra gap bases: {extra or 'none'}; "
+          f"faults: {faults[:10] or 'none'}")
+    if faults:
+        raise AssertionError(f"blitz: {len(faults)} faults, {faults[:10]}")
+    by_len = sorted(held, key=lambda b: b[0].shape[1])
+    for label, batch in (("the longest query's", by_len[-1]),
+                         ("the median query's", by_len[len(by_len) // 2])):
+        t = sw_vs_plain(torch, dev, batch, f"blitz, {label} batch",
+                        timed=True)
+        B, Lp, W = t["B"], t["Lp"], t["W"]
+        s_bound, s_by = sw_scan_bound_ms(B, Lp, t["Lt"], W)
+        tb_bound = sw_traceback_bound_ms(t["n"], t["nm"], t["nmm"],
+                                         t["L_OPS"])
+        print(f"blitz SW at {label} shape (B={B} Lp={Lp} Lt={t['Lt']} W={W}"
+              f", layout {t['layout']}) on {card}: sw_scan median "
+              f"{t['scan_ms']} ms of 5 (CUDA events: {t['scan_runs']}), "
+              f"plain {t['scan_plain_ms']} ms, bound {s_bound} ms ({s_by}),"
+              f" kernel at {s_bound / t['scan_ms']} of it; sw_traceback "
+              f"median {t['tb_ms']} ms of 5 ({t['tb_runs']}), plain "
+              f"{t['tb_plain_ms']} ms, bound {tb_bound} ms (bytes), kernel "
+              f"at {tb_bound / t['tb_ms']} of it")
+    del held, by_len
+    torch.cuda.empty_cache()
+    return launches, fa, kix, codes, text, queries
+
+
+def _csv_rows(path: Path) -> list[list[str]]:
+    return [r.split(",") for r in path.read_text().splitlines()[1:]]
+
+
+def _cli_steps(card, steps):
+    """Runs (label, argv) CLI steps in order, each timed; returns their
+    standard output by label."""
+    from kit4b_tpu_torch import cli
+    printed = {}
+    for label, argv in steps:
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main([str(a) for a in argv])
+        print(f"CLI {label} on {card}: {time.perf_counter() - t0} s")
+        if rc != 0:
+            raise AssertionError(f"CLI {label} exited {rc}")
+        printed[label] = buf.getvalue()
+    return printed
+
+
+def longtail_full(torch, dev, card, tmp: Path, fa, kix, codes, psl,
+                  queries):
+    """Phase 16c: hrdx on two 2 Mbp haplotypes cut into contigs with 20
+    unique ones (every unique kept, the kept length 0.9-1.3 x a
+    haplotype); kmerdist on a MAF of 16b's gapped hits, equal to the runs
+    counted from the hits; simreads (100,000 reads of 100 bp) -> kalign on
+    the card -> benchmark -m 4 (>= 99.9 % of aligned reads at their truth),
+    then -m 1 -> -m 2 -> kalign -> -m 3 and -m 0; alignsbs (2,000 queries
+    of 100-150 bp, 200 targets of 2 kbp, 10 bootstraps) on the card;
+    ngsqc -H - on the reads; maploci against 500 BED features, equal to a
+    direct count; rnade on two kalign SAMs against 200 genes."""
+    from kit4b_tpu_torch.io.fasta import read_seqs
+    from kit4b_tpu_torch.tools import make_longtail_golden as mg
+    rng = np.random.default_rng(SEED + 17)
+    ctgs = mg.diploid_contigs(rng, HRDX_HAP, HRDX_CTG, HRDX_UNIQUE,
+                              HRDX_UNIQUE_LEN)
+    write_fasta(tmp / "diploid.fa", [n for n, _ in ctgs],
+                [c for _, c in ctgs])
+    maf = tmp / "blitz.maf"
+    maf.write_text(mg.maf_text(psl, {"ecoli_sim": codes}, queries))
+    asm = codes[:SBS_ASM]
+    write_fasta(tmp / "asm.fa", ["asm"], [asm])
+    qs = [int(x) for x in rng.integers(100, 151, SBS_QUERIES)]
+    q_at = rng.integers(0, SBS_ASM - 150, SBS_QUERIES)
+    write_fasta(tmp / "sbs_q.fa", [f"q{i}" for i in range(SBS_QUERIES)],
+                [asm[s:s + n] for s, n in zip(q_at, qs)])
+    t_at = rng.integers(0, SBS_ASM - 2_000, SBS_TARGETS)
+    write_fasta(tmp / "sbs_t.fa", [f"t{i}" for i in range(SBS_TARGETS)],
+                [asm[s:s + 2_000] for s in t_at])
+    f_at = np.sort(rng.integers(0, ECOLI_LEN - 2_000, MAPLOCI_FEATURES))
+    f_len = rng.integers(100, 2_000, MAPLOCI_FEATURES)
+    (tmp / "feats.bed").write_text("".join(
+        f"ecoli_sim\t{s}\t{s + n}\tf{i}\t0\t{'+-'[i % 2]}\n"
+        for i, (s, n) in enumerate(zip(f_at, f_len))))
+    mg.genes_bed(tmp / "genes.bed", mg.random_genes(rng, RNADE_GENES,
+                                                    ECOLI_LEN),
+                 "ecoli_sim", bed6=None)
+    t = tmp
+    printed = _cli_steps(card, [
+        ("hrdx", ["hrdx", "-i", t / "diploid.fa", "-o", t / "reduced.fa"]),
+        ("kmerdist", ["kmerdist", "-i", maf, "-o", t / "kd.csv"]),
+        ("simreads", ["simreads", "-i", fa, "-o", t / "reads.fq", "-n",
+                      ECOLI_READS, "-l", READ_LEN, "-e", "illumina", "-z",
+                      "0.02", "-S", "7", "-Q"]),
+        ("kalign", ["kalign", "-i", t / "reads.fq", "-I", kix, "-o",
+                    t / "out.sam"]),
+        ("benchmark -m 4", ["benchmark", "-m", "4", "-i", t / "out.sam",
+                            "-o", t / "b4.json"]),
+        ("benchmark -m 1", ["benchmark", "-m", "1", "-i", t / "out.sam",
+                            "--refgenome", fa, "--cigarsfile",
+                            t / "obs.csv", "--maxreads", BENCH_PROFILES]),
+        ("benchmark -m 2", ["benchmark", "-m", "2", "--cigarsfile",
+                            t / "obs.csv", "--refgenome", fa, "-o",
+                            t / "sim.fa", "--maxreads", BENCH_PROFILES,
+                            "--seed", "3"]),
+        ("kalign of the replayed reads", ["kalign", "-i", t / "sim.fa",
+                                          "-I", kix, "-o", t / "sim.sam"]),
+        ("benchmark -m 3", ["benchmark", "-m", "3", "-i", t / "sim.sam",
+                            "--groundtruth", t / "sim.fa", "-o",
+                            t / "b3.json"]),
+        ("benchmark -m 0", ["benchmark", "-m", "0", "-i", t / "reads.fq",
+                            "-o", t / "lim.fq", "--maxreads", "1000"]),
+        ("alignsbs", ["alignsbs", "-p", t / "sbs_q.fa", "-P", t / "asm.fa",
+                      "-i", t / "sbs_t.fa", "-I", t / "asm.fa", "-b",
+                      SBS_BOOT, "-r", "5", "-o", t / "sbs_q.csv", "-O",
+                      t / "sbs_t.csv"]),
+        ("ngsqc -H -", ["ngsqc", "-i", t / "reads.fq", "-o", t / "qc",
+                        "-H", "-"]),
+        ("maploci", ["maploci", "-i", t / "out.sam", "-b", t / "feats.bed",
+                     "-o", t / "maploci.csv"]),
+        ("simreads (rnade's experiment)", [
+            "simreads", "-i", fa, "-o", t / "reads2.fa", "-n", RNADE_READS,
+            "-l", READ_LEN, "-e", "illumina", "-z", "0.02", "-S", "11"]),
+        ("kalign (rnade's experiment)", ["kalign", "-i", t / "reads2.fa",
+                                         "-I", kix, "-o", t / "out2.sam"]),
+        ("rnade", ["rnade", "-i", t / "out.sam", "-I", t / "out2.sam", "-g",
+                   t / "genes.bed", "-o", t / "de.csv", "-O",
+                   t / "bins.csv"])])
+    faults = []
+    kept = {r.name: len(r.codes) for r in read_seqs(t / "reduced.fa")}
+    kept_len = sum(kept.values())
+    lost = [f"u{i}" for i in range(HRDX_UNIQUE) if f"u{i}" not in kept]
+    if lost or not 0.9 * HRDX_HAP <= kept_len <= 1.3 * HRDX_HAP:
+        faults.append(f"hrdx: uniques lost {lost}, kept {kept_len} bp")
+    want = mg.kmer_runs(psl, {"ecoli_sim": codes}, queries, 16)
+    kd = _csv_rows(t / "kd.csv")
+    npos = max(want["positions"], 1)
+    if [(int(k), int(c), p) for k, c, p in kd] != [
+            (k, want["counts"][k], f"{want['counts'][k] / npos:.6f}")
+            for k in range(1, 17)]:
+        faults.append(f"kmerdist {kd} differs from the direct count {want}")
+    b4 = json.loads((t / "b4.json").read_text())
+    b3 = json.loads((t / "b3.json").read_text())
+    if b4["pct_correct_of_aligned"] < 99.9 or b4["aligned"] != b4["reads"] \
+            or b4["reads"] < 0.95 * ECOLI_READS:
+        faults.append(f"benchmark -m 4: {b4}")
+    # -m 3 holds each reverse-strand read's truth loci reversed against
+    # the SAM's forward claim, as the JAX package does (ROADMAP queue C):
+    # its base precision is then about the forward share, and the checks
+    # are on reads and on base recall
+    if b3["scored"] < 0.95 * BENCH_PROFILES or b3["precision_reads"] < 0.99 \
+            or b3["recall_bases"] < 0.99:
+        faults.append(f"benchmark -m 3: {b3}")
+    if sum(1 for _ in read_seqs(t / "lim.fq")) != 1_000:
+        faults.append("benchmark -m 0 kept another count than 1,000")
+    sq, st = _csv_rows(t / "sbs_q.csv"), _csv_rows(t / "sbs_t.csv")
+    q_end = q_at + np.array(qs)
+    over = (t_at[None, :] < q_end[:, None]) & \
+        (t_at[None, :] + 2_000 > q_at[:, None])     # iteration 0, direct
+    if len(sq) != SBS_BOOT + 1 or (int(sq[0][2]), int(st[0][2])) != (
+            int(over.any(axis=1).sum()), int(over.any(axis=0).sum())) \
+            or any(int(r[2]) < 0.9 * SBS_QUERIES for r in sq[1:]) \
+            or any(int(r[2]) < 0.9 * SBS_TARGETS for r in st[1:]):
+        faults.append(f"alignsbs: queries {sq}, targets {st}; iteration 0 "
+                      f"direct {int(over.any(axis=1).sum())} queries, "
+                      f"{int(over.any(axis=0).sum())} targets")
+    qc = json.loads(printed["ngsqc -H -"])
+    if qc["reads"] != ECOLI_READS or qc["max_len"] != READ_LEN:
+        faults.append(f"ngsqc: {qc}")
+    starts = np.sort(np.array([int(r.split("\t")[3]) - 1 for r in (
+        t / "out.sam").read_text().splitlines()
+        if not r.startswith("@") and not int(r.split("\t")[1]) & 4]))
+    direct = {f"f{i}": int(np.searchsorted(starts, e, "left")
+                           - np.searchsorted(starts, s - READ_LEN, "right"))
+              for i, (s, e) in enumerate(zip(f_at, f_at + f_len))}
+    got = {r[0].strip('"'): int(r[1]) for r in _csv_rows(t / "maploci.csv")}
+    if got != {k: v for k, v in direct.items() if v}:
+        faults.append("maploci differs from the direct overlap count")
+    de = _csv_rows(t / "de.csv")
+    folds = [float(r[17]) for r in de if int(r[4])]
+    if len(de) != RNADE_GENES or len(folds) < 0.9 * RNADE_GENES or \
+            np.mean([0.5 < f < 2.0 for f in folds]) < 0.9:
+        faults.append(f"rnade: {len(de)} features, {len(folds)} scored")
+    print(f"16c on {card}: hrdx kept {len(kept)} contigs, {kept_len} bp "
+          f"({kept_len / HRDX_HAP} of a haplotype); kmerdist over "
+          f"{want['blocks']} hits, {want['positions']} columns, 16-mers "
+          f"{want['counts'][16]}; benchmark -m 4 {b4}; -m 3 {b3}; alignsbs "
+          f"queries hitting {[int(r[2]) for r in sq]}, targets hit "
+          f"{[int(r[2]) for r in st]}; ngsqc {qc}; maploci {len(got)} "
+          f"features hit, {sum(got.values())} reads; rnade {len(de)} "
+          f"features, {len(folds)} scored; faults {faults or 'none'}")
+    if faults:
+        raise AssertionError(f"phase 16c: {faults}")
 
 
 def minmm_cases(torch, cases, minmm, minmm_plain) -> int:
@@ -3112,8 +3500,12 @@ def main() -> int:
 
     # --- 8. kalign: the JAX golden, then config #1 at full size -------
     kalign_golden(torch, dev)
+    # config #1's genome and index, written once by 8b and read by 12b,
+    # 13b-d and 16b-c; removed when the run ends
+    config1 = tempfile.TemporaryDirectory(prefix=".chip_smoke_", dir=root)
+    cfg1 = Path(config1.name)
     with tempfile.TemporaryDirectory(prefix=".chip_smoke_", dir=root) as tmp:
-        kalign_full(torch, dev, card, Path(tmp))
+        kalign_full(torch, dev, card, Path(tmp), cfg1)
     done("8")
 
     # --- 9. kmarkers: the JAX golden, the brute force, config #3 ------
@@ -3139,16 +3531,16 @@ def main() -> int:
         kalign_full_golden(torch, dev)
         with tempfile.TemporaryDirectory(prefix=".chip_smoke_",
                                          dir=root) as tmp12:
-            rescue_full(torch, dev, card, Path(tmp12))
+            rescue_full(torch, dev, card, Path(tmp12), cfg1)
         pe_unequal_full(torch, dev, card, Path(tmp))
     done("12")
 
     # --- 13. kalign options, BAM, SNP outputs, bisulfite ----------------
     opts_golden(torch, dev)
     with tempfile.TemporaryDirectory(prefix=".chip_smoke_", dir=root) as tmp:
-        opts_full(torch, dev, card, Path(tmp))
-        snp_full(torch, dev, card, Path(tmp))
-        bisulfite_full(torch, dev, card, Path(tmp))
+        opts_full(torch, dev, card, Path(tmp), cfg1)
+        snp_full(torch, dev, card, Path(tmp), cfg1)
+        bisulfite_full(torch, dev, card, Path(tmp), cfg1)
     done("13")
 
     # --- 14. config #5 and the float device uses ------------------------
@@ -3168,6 +3560,17 @@ def main() -> int:
         raise AssertionError(f"15c's outputs differ from the parent "
                              f"kernels': {pb_sha}")
     done("15")
+
+    # --- 16. blitz, hrdx, kmerdist and the scorer group ------------------
+    longtail_golden(torch, dev)
+    with tempfile.TemporaryDirectory(prefix=".chip_smoke_", dir=root) as tmp:
+        blitz_launches, *blitz_out = blitz_full(torch, dev, card, Path(tmp),
+                                                cfg1)
+        longtail_full(torch, dev, card, Path(tmp), *blitz_out)
+    config1.cleanup()
+    for k in sw_launches:
+        sw_launches[k] += blitz_launches[k]
+    done("16")
     if "jax" in sys.modules or "kit4b_tpu" in sys.modules:
         raise AssertionError("jax or the JAX package kit4b_tpu was imported")
 

@@ -4,11 +4,13 @@ Port of kit4b_tpu/cli.py with the `index` (-m 1 bisulfite too),
 `simreads`, `kalign` (single and paired ends, every flag, --bisulfite),
 `genpba`, `hammings`, `pseudogenome`, `kmarkers`, `prekmarkers`, `filter`,
 `assemb`, `scaffold`, `pescaffold`, `mergeoverlaps`, `rnaexpr`, `genmlds`,
-`sarscov2ml`, `ecreads`, `pbfilter`, `pbassemb` and `eccontigs`
+`sarscov2ml`, `ecreads`, `pbfilter`, `pbassemb`, `eccontigs`, `kmerdist`,
+`blitz`, `hrdx`, `benchmark`, `alignsbs`, `ngsqc`, `maploci` and `rnade`
 subcommands, taking the same flags and writing the same files, plus
 `--device {cuda,cpu}` on the commands that use a device (`kalign`,
 `genpba`, `hammings`, `kmarkers`, `filter` for -D, `scaffold`, `rnaexpr`,
-`sarscov2ml` and the four PacBio commands). The parsers are copies, as is all the port needs
+`sarscov2ml`, the four PacBio commands, `blitz` and `alignsbs`). The
+parsers are copies, as is all the port needs
 of the JAX package: it imports none of it. Flags of paths not ported yet
 parse as in kit4b_tpu and raise NotImplementedError naming their ROADMAP
 item.
@@ -770,6 +772,205 @@ def cmd_eccontigs(args) -> int:
     return 0
 
 
+def cmd_kmerdist(args) -> int:
+    """pacbiokit4b kmerdist equivalent (CMAFKMerDist)."""
+    from .pacbio.kmerdist import kmer_dist, write_kmer_dist
+    d = kmer_dist(args.infile, max_k=args.maxk)
+    write_kmer_dist(args.outfile, d)
+    log.info("kmerdist: %d blocks, %d positions -> %s",
+             d["blocks"], d["positions"], args.outfile)
+    return 0
+
+
+def cmd_blitz(args) -> int:
+    """ngskit4b blitz equivalent (CBlitz local aligner); the gapped
+    refinement's SW batches run on --device."""
+    from .align.blitz import blitz_align, write_psl
+    dev = resolve(args.device)
+    idx = SfxIndex.load(args.sfxfile)
+    recs = [r for p_ in args.infile for r in read_seqs(p_)]
+    hits = blitz_align(idx, recs, stride=args.stride,
+                       min_hits=args.minhits, band=args.band,
+                       min_score=args.minscore, gapped=args.gapped,
+                       device=dev)
+    q_lens = {r.name: len(r.codes) for r in recs}
+    t_lens = {n: int(l) for n, l in zip(idx.genome.names,
+                                        idx.genome.lengths)}
+    write_psl(args.outfile, hits, q_lens, t_lens)
+    log.info("blitz: %d queries, %d hits -> %s", len(recs), len(hits),
+             args.outfile)
+    return 0
+
+
+def cmd_hrdx(args) -> int:
+    """kit4bhrdx equivalent (CHomozyReduce); host only."""
+    from .assembly.hrdx import reduce_homozygous, write_reduced
+    recs = [r for p_ in args.infile for r in read_seqs(p_)]
+    kept, stats = reduce_homozygous(
+        recs, max_homozy_subs=args.maxhomozysubs,
+        min_homozy_len=args.minhomozylen, min_het_len=args.minhetrozylen,
+        min_ctg_len=args.minctglen)
+    write_reduced(args.outfile, kept)
+    log.info("hrdx: %s -> %s", stats, args.outfile)
+    return 0
+
+
+def cmd_benchmark(args) -> int:
+    """ngskit4b benchmark equivalent. Modes (Benchmarker.h:21-26):
+    0 limit raw reads, 1 generate observed CIGARs from alignments,
+    2 simulate reads replaying observed CIGARs, 3 score alignments
+    against ground truth; mode 4 is the simreads-truth scorer
+    (descriptor-based whole-read scoring). Host only."""
+    from .align import magicbench as mb
+    if args.mode == 0:
+        n = mb.limit_reads(args.infile, args.outfile, args.maxreads)
+        log.info("benchmark limitreads: %d reads -> %s", n, args.outfile)
+        return 0
+    if args.mode == 1:
+        g = Genome.load(args.refgenome)
+        profiles = mb.gen_obs_cigars(args.infile, g,
+                                     max_reads=args.maxreads, pe=args.pe)
+        mb.write_obs_cigars(args.cigarsfile, profiles, pe=args.pe)
+        log.info("benchmark gencigars: %d observed profiles -> %s",
+                 len(profiles), args.cigarsfile)
+        return 0
+    if args.mode == 2:
+        from .io.fasta import write_fasta
+        g = Genome.load(args.refgenome)
+        profiles, pe = mb.read_obs_cigars(args.cigarsfile)
+        pe = pe or args.pe
+        se, pe2 = mb.sim_reads_from_profiles(g, profiles, args.maxreads,
+                                             pe=pe, seed=args.seed)
+        write_fasta(args.outfile, se)
+        if pe and args.outpe2:
+            write_fasta(args.outpe2, pe2)
+        log.info("benchmark simreads: %d reads (%d profiles) -> %s",
+                 len(se), len(profiles), args.outfile)
+        return 0
+    if args.mode == 3:
+        truth_files = [args.groundtruth] + \
+            ([args.outpe2] if args.outpe2 else [])
+        gt = mb.load_ground_truth(*truth_files)
+        sc = mb.score_alignments(args.infile, gt, pe=args.pe)
+        res = sc.measures(args.fbetabases, args.fbetareads)
+        res.update(ground_truth=sc.n_ground_truth, scored=sc.n_scored,
+                   bases_correct=sc.bases_correct,
+                   bases_incorrect=sc.bases_incorrect,
+                   bases_unclaimed=sc.bases_unclaimed)
+        out = json.dumps(res, indent=2)
+        if args.outfile:
+            with open(args.outfile, "w") as f:
+                f.write(out + "\n")
+        else:
+            print(out)
+        log.info("benchmark score: Fb(bases)=%.3f Fb(reads)=%.3f",
+                 res["fbeta_bases"], res["fbeta_reads"])
+        return 0
+    from .align.benchmark import score_sam
+    r = score_sam(args.infile, tolerance=args.tolerance)
+    out = json.dumps(r.summary(), indent=2)
+    if args.outfile:
+        with open(args.outfile, "w") as f:
+            f.write(out + "\n")
+    else:
+        print(out)
+    log.info("benchmark: %d reads scored", r.n_reads)
+    return 0
+
+
+def cmd_alignsbs(args) -> int:
+    """ngskit4b alignsbs equivalent (CAlignsBootstrap); the aligner runs
+    on --device."""
+    from .align import alignsbs
+    dev = resolve(args.device)
+    qseqs = list(read_seqs(args.queryseqsfile))
+    tseqs = list(read_seqs(args.targseqsfile))
+    qasm = Genome.load(args.queryassembfile)
+    tasm = Genome.load(args.targassembfile)
+    results = alignsbs.bootstrap_align(
+        qseqs, qasm, tseqs, tasm, n_bootstraps=args.numbootstraps,
+        max_subs=args.maxsubs, seed=args.randseed,
+        sense_only=args.senseonly, device=dev)
+    alignsbs.write_bootstrap_csv(args.qrsltsfile, args.trsltsfile,
+                                 results)
+    log.info("alignsbs: %d iterations -> %s / %s", len(results) - 1,
+             args.qrsltsfile, args.trsltsfile)
+    return 0
+
+
+def cmd_ngsqc(args) -> int:
+    """ngskit4b ngsqc equivalent (CReadStats); host only."""
+    from .align.readstats import compute_readstats, write_readstats_csv
+
+    def stream():
+        for p_ in args.infile:
+            yield from read_seqs(p_)
+    st = compute_readstats(stream(), kmer_len=args.kmerlen)
+    write_readstats_csv(args.outprefix, st, kmer_len=args.kmerlen)
+    if args.contaminants:
+        from .align.readstats import (compute_contaminant_stats,
+                                      write_contaminant_csv)
+        adapters = None
+        if args.contaminants != "-":
+            adapters = {r.name: r.codes
+                        for r in read_seqs(args.contaminants)}
+        cst = compute_contaminant_stats(stream(), adapters,
+                                        min_overlap=args.mincontamlen,
+                                        sub_rate=args.maxcontamsubrate)
+        write_contaminant_csv(f"{args.outprefix}.contaminants.csv", cst)
+        log.info("ngsqc: %d/%d reads with contaminant overlays",
+                 cst["contaminated_reads"], cst["reads"])
+    if args.plots:
+        from .align.readstats import render_readstats_plots
+        paths = render_readstats_plots(args.outprefix, st)
+        log.info("ngsqc: rendered %d plots", len(paths))
+    print(json.dumps(st.summary(), indent=2))
+    log.info("ngsqc: %d reads -> %s.*", st.n_reads, args.outprefix)
+    return 0
+
+
+def cmd_maploci(args) -> int:
+    """ngskit4b maploci equivalent (CMapLoci2Feat); host only."""
+    from .io.bed import BedFile, map_loci_to_features
+    from .io.sam import read_sam
+    bed = BedFile.load(args.bedfile)
+    counts, miss = map_loci_to_features(bed, read_sam(args.infile))
+    with open(args.outfile, "w") as f:
+        f.write('"Feature","Hits"\n')
+        for name in sorted(counts):
+            f.write(f'"{name}",{counts[name]}\n')
+    log.info("maploci: %d features hit, %d loci outside features -> %s",
+             len(counts), miss, args.outfile)
+    return 0
+
+
+def cmd_rnade(args) -> int:
+    """ngskit4b rnade equivalent (CRNA_DE): per-feature binned coverage,
+    Poisson-bootstrapped Pearson/fold/PValue confidence distributions,
+    and the reference DE classification (rnade.cpp); host float64."""
+    from .align.rnade import (load_read_loci, rnade_process,
+                              write_bin_counts_csv, write_rnade_csv)
+    from .io.biobed import load_gene_bed
+    from .tools.convert import read_loci_csv
+    zones = read_loci_csv(args.excludezones) if args.excludezones else None
+    ctrl = load_read_loci(args.control, strand=args.alignstrand,
+                          limit=args.limitaligned, exclude_zones=zones)
+    expr = load_read_loci(args.experiment, strand=args.alignstrand,
+                          limit=args.limitaligned, exclude_zones=zones)
+    genes = load_gene_bed(args.bedfile)
+    feats = rnade_process(
+        ctrl, expr, genes, num_bins=args.numbins, region=args.region,
+        min_feat_cnts=args.minfeatcnts, min_start_loci=args.minstartloci,
+        coalesce_win=args.cowinlen, artifact_thres=args.artifactthres,
+        norm_scale=args.normcnts, feat_strand=args.featstrand,
+        filt_nonaligned=args.nonalign)
+    write_rnade_csv(args.outfile, feats)
+    if args.bincounts:
+        write_bin_counts_csv(args.bincounts, feats)
+    log.info("rnade: %d features -> %s", len(feats), args.outfile)
+    return 0
+
+
 def _kalign_args(p: argparse.ArgumentParser) -> None:
     """kit4b_tpu's kalign flags, copied, plus --device."""
     p.add_argument("-i", "--in", dest="infile", nargs="+", required=True)
@@ -1190,6 +1391,146 @@ def build_parser() -> argparse.ArgumentParser:
                    help=sw_help)
     _common(p)
     p.set_defaults(fn=cmd_eccontigs)
+
+    p = sub.add_parser("kmerdist",
+                       help="exact K-mer distributions from MAF")
+    p.add_argument("-i", "--in", dest="infile", required=True)
+    p.add_argument("-o", "--out", dest="outfile", required=True)
+    p.add_argument("-K", "--maxk", type=int, default=16)
+    _common(p)
+    p.set_defaults(fn=cmd_kmerdist)
+
+    p = sub.add_parser("blitz", help="local-align long queries vs index")
+    p.add_argument("-G", "--gapped", action=argparse.BooleanOptionalAction,
+                   default=True,
+                   help="refine chained blocks with banded affine SW — "
+                        "the reference's path polish always runs "
+                        "HighScoreSW (CBlitz.cpp:1560), so gapped is the "
+                        "default; --no-gapped keeps ungapped chains")
+    p.add_argument("-i", "--in", dest="infile", nargs="+", required=True)
+    p.add_argument("-I", "--sfx", dest="sfxfile", required=True)
+    p.add_argument("-o", "--out", dest="outfile", required=True,
+                   help="PSL output")
+    p.add_argument("-s", "--stride", type=int, default=4)
+    p.add_argument("-c", "--minhits", type=int, default=3)
+    p.add_argument("-b", "--band", type=int, default=12)
+    p.add_argument("-m", "--minscore", type=int, default=50)
+    p.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
+                   help=sw_help)
+    _common(p)
+    p.set_defaults(fn=cmd_blitz)
+
+    p = sub.add_parser("hrdx",
+                       help="homozygotic-region reduction of diploid "
+                            "assemblies")
+    p.add_argument("-i", "--in", dest="infile", nargs="+", required=True)
+    p.add_argument("-o", "--out", dest="outfile", required=True)
+    p.add_argument("-z", "--maxhomozysubs", type=int, default=3)
+    p.add_argument("-Z", "--minhomozylen", type=int, default=75)
+    p.add_argument("-k", "--minhetrozylen", type=int, default=30)
+    p.add_argument("-L", "--minctglen", type=int, default=100)
+    _common(p)
+    p.set_defaults(fn=cmd_hrdx)
+
+    p = sub.add_parser("benchmark",
+                       help="MAGIC benchmark: limit/gencigars/simreads/"
+                            "score (Benchmarker.h modes)")
+    p.add_argument("-m", "--mode", type=int, default=4,
+                   help="0 limitreads, 1 gencigars, 2 simreads, 3 score "
+                        "vs MAGIC ground truth, 4 simreads-descriptor "
+                        "scorer")
+    p.add_argument("-i", "--in", dest="infile", default=None,
+                   help="input SAM (modes 1/3/4) or raw reads (mode 0)")
+    p.add_argument("-o", "--out", dest="outfile", default=None,
+                   help="output reads (modes 0/2) or JSON (modes 3/4)")
+    p.add_argument("-t", "--tolerance", type=int, default=0)
+    p.add_argument("--refgenome", default=None,
+                   help="target genome fasta (modes 1/2)")
+    p.add_argument("--cigarsfile", default=None,
+                   help="observed CIGARs CSV (written mode 1, read mode 2)")
+    p.add_argument("--groundtruth", default=None,
+                   help="simulated reads fasta with ground truth (mode 3)")
+    p.add_argument("--outpe2", default=None,
+                   help="PE2 output reads (mode 2) / PE2 truth (mode 3)")
+    p.add_argument("--pe", action="store_true")
+    p.add_argument("--maxreads", type=int, default=2_000_000)
+    p.add_argument("--seed", type=int, default=1)
+    p.add_argument("-j", "--fbetabases", type=float, default=0.1)
+    p.add_argument("-J", "--fbetareads", type=float, default=0.1)
+    _common(p)
+    p.set_defaults(fn=cmd_benchmark)
+
+    p = sub.add_parser("alignsbs", help="alignment bootstrapper")
+    p.add_argument("-p", "--queryseqsfile", required=True)
+    p.add_argument("-P", "--queryassembfile", required=True)
+    p.add_argument("-i", "--targseqsfile", required=True)
+    p.add_argument("-I", "--targassembfile", required=True)
+    p.add_argument("-b", "--numbootstraps", type=int, default=100)
+    p.add_argument("-s", "--maxsubs", type=int, default=0,
+                   help="max subs per 100bp of query")
+    p.add_argument("-r", "--randseed", type=int, default=0)
+    p.add_argument("-a", "--senseonly", action="store_true")
+    p.add_argument("-o", "--qrsltsfile", required=True)
+    p.add_argument("-O", "--trsltsfile", required=True)
+    p.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
+                   help="cuda runs the aligner's passes on the card; cpu "
+                        "runs the same PyTorch code on the CPU")
+    _common(p)
+    p.set_defaults(fn=cmd_alignsbs)
+
+    p = sub.add_parser("ngsqc", help="readset QC distributions")
+    p.add_argument("-i", "--in", dest="infile", nargs="+", required=True)
+    p.add_argument("-o", "--out", dest="outprefix", required=True,
+                   help="output file prefix")
+    p.add_argument("-K", "--kmerlen", type=int, default=5)
+    p.add_argument("-H", "--contaminants", default=None,
+                   help="contaminant fasta ('-' = builtin Illumina "
+                        "adapters); writes <out>.contaminants.csv")
+    p.add_argument("-z", "--maxcontamsubrate", type=int, default=1,
+                   help="contaminant subs per 25bp of overlap (0..3)")
+    p.add_argument("-Z", "--mincontamlen", type=int, default=5,
+                   help="min contaminant overlap bases")
+    p.add_argument("--plots", action="store_true",
+                   help="render QC plot PNGs (libBKPLPlot parity; needs "
+                        "matplotlib)")
+    _common(p)
+    p.set_defaults(fn=cmd_ngsqc)
+
+    p = sub.add_parser("maploci", help="map aligned loci onto BED features")
+    p.add_argument("-i", "--in", dest="infile", required=True,
+                   help="SAM input")
+    p.add_argument("-b", "--bed", dest="bedfile", required=True)
+    p.add_argument("-o", "--out", dest="outfile", required=True)
+    _common(p)
+    p.set_defaults(fn=cmd_maploci)
+
+    p = sub.add_parser("rnade",
+                       help="RNA-seq differential expression (CRNA_DE)")
+    p.add_argument("-i", "--control", nargs="+", required=True,
+                   help="control read alignment files (SAM/BED/CSV)")
+    p.add_argument("-I", "--experiment", nargs="+", required=True,
+                   help="experiment read alignment files")
+    p.add_argument("-g", "--ingene", dest="bedfile", required=True,
+                   help="gene/feature BED")
+    p.add_argument("-o", "--out", dest="outfile", required=True)
+    p.add_argument("-O", "--bincounts", default=None,
+                   help="per-feature bin counts CSV")
+    p.add_argument("-b", "--numbins", type=int, default=10)
+    p.add_argument("-C", "--minfeatcnts", type=int, default=10)
+    p.add_argument("-r", "--region", type=int, default=1,
+                   help="0 transcript, 1 exons, 2 introns, 3 CDS, "
+                        "4 UTRs, 5 5'UTR, 6 3'UTR")
+    p.add_argument("-s", "--alignstrand", type=int, default=0)
+    p.add_argument("-S", "--featstrand", type=int, default=0)
+    p.add_argument("-c", "--cowinlen", type=int, default=1)
+    p.add_argument("-a", "--artifactthres", type=int, default=20)
+    p.add_argument("-n", "--normcnts", type=float, default=0.0)
+    p.add_argument("--minstartloci", type=int, default=5)
+    p.add_argument("-A", "--nonalign", action="store_true")
+    p.add_argument("-x", "--excludezones", default=None)
+    p.add_argument("-L", "--limitaligned", type=int, default=0)
+    _common(p)
+    p.set_defaults(fn=cmd_rnade)
     return ap
 
 

@@ -1,8 +1,9 @@
-"""BED features for `simreads -t` and `kalign -B`: the port's copy of
-`BedFeature`, `BedFile.load` and `BedFile.overlapping` from
-kit4b_tpu/io/bed.py. A parsed feature table with, per chromosome, the
-features sorted by start and the running maximum of their ends, so an
-overlap query is one searchsorted and a short walk back."""
+"""BED features for `simreads -t`, `kalign -B`, `maploci` and `rnade`:
+the port's copy of `BedFeature`, `BedFile` (load, overlapping, contains),
+`write_bed` and `map_loci_to_features` from kit4b_tpu/io/bed.py. A parsed
+feature table with, per chromosome, the features sorted by start and the
+running maximum of their ends, so an overlap query is one searchsorted and
+a short walk back."""
 from __future__ import annotations
 
 from dataclasses import dataclass
@@ -74,5 +75,35 @@ class BedFile:
         out.reverse()
         return out
 
+    def contains(self, chrom: str, pos: int) -> list[BedFeature]:
+        return self.overlapping(chrom, pos, pos + 1)
+
     def __len__(self) -> int:
         return len(self.features)
+
+
+def write_bed(path, features: list[BedFeature]) -> None:
+    with open(path, "w") as f:
+        for ft in features:
+            f.write(f"{ft.chrom}\t{ft.start}\t{ft.end}\t{ft.name}\t"
+                    f"{ft.score}\t{ft.strand}\n")
+
+
+def map_loci_to_features(bed: "BedFile", sam_records):
+    """maploci equivalent (ngskit4b/MapLoci2Feat.cpp CMapLoci2Feat):
+    classify each mapped SAM record against the feature set; returns
+    (per-feature hit counts dict, n_unmapped_to_feature)."""
+    counts: dict[str, int] = {}
+    n_miss = 0
+    for rec in sam_records:
+        if not rec.is_mapped:
+            continue
+        start = rec.pos - 1
+        feats = bed.overlapping(rec.rname, start, start + len(rec.seq))
+        if not feats:
+            n_miss += 1
+            continue
+        for ft in feats:
+            key = ft.name or f"{ft.chrom}:{ft.start}-{ft.end}"
+            counts[key] = counts.get(key, 0) + 1
+    return counts, n_miss

@@ -30,6 +30,7 @@ contract (`kernels/sw.py`) is the same.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -136,6 +137,39 @@ def on_card(torch, batch, dev):
         pp, tp, np.asarray(plens, np.int32), np.asarray(tlens, np.int32),
         np.asarray(diag0, np.int32))]
     return t, dict(W=W, match=m, mismatch=mm, gap_open=go, gap_ext=ge)
+
+
+@contextlib.contextmanager
+def held_batches(*modules, hold=None):
+    """Replaces `banded_sw_batch` in each of `modules` for the block's
+    length by a wrapper that counts its calls and holds their batches (a
+    copy of the arrays, the band and the scores, as `on_card` takes them);
+    `hold(module, probes, held)`, where given, says which to hold. Yields
+    a list of the held batches, with `calls` the count of all calls."""
+    held = _Held()
+    saved = [(m, m.banded_sw_batch) for m in modules]
+
+    def spy(mod, fn):
+        def call(probes, plens, targets, tlens, diag0, **kw):
+            held.calls += 1
+            if hold is None or hold(mod, probes, held):
+                s = kw["scores"]
+                held.append((probes.copy(), plens.copy(), targets.copy(),
+                             tlens.copy(), diag0.copy(), kw["band"],
+                             (s.match, s.mismatch, s.gap_open, s.gap_ext)))
+            return fn(probes, plens, targets, tlens, diag0, **kw)
+        return call
+    for m, fn in saved:
+        m.banded_sw_batch = spy(m, fn)
+    try:
+        yield held
+    finally:
+        for m, fn in saved:
+            m.banded_sw_batch = fn
+
+
+class _Held(list):
+    calls = 0
 
 
 def time_ms(torch, fn) -> float:

@@ -9,10 +9,17 @@ utils.runtime, utils.summaries and the host functions of kmer.kmarkers
 (pseudogenome, marker FASTA, the prekmarkers walk), the PacBio host code
 (pacbio.consensus, align.blitz's `_seed_hits`, ecreads' read index and
 candidates, pbfilter's `_self_rc_diag`, tools.pacbio_reads' CLR readset);
+the long-tail host code (io.bed's `contains`, `write_bed` and
+`map_loci_to_features`, io.biobed's gene BED reader, tools.convert's loci
+CSV reader, rnade's numeric helpers, magicbench's profile refinement and
+replay, blitz's PSL writer, readstats on empty inputs; the rest of those
+modules in tests/test_torch_blitz.py, test_torch_longtail.py and
+test_torch_scorers.py);
 and the port's own build of the host library (native.py), keyed by its
 sources, flags and CPU. Tests of the index skip when the library cannot be
 built."""
 import copy
+import dataclasses
 import gzip
 import logging
 import sqlite3
@@ -1287,3 +1294,133 @@ def test_consensus_builder_matches():
         np.testing.assert_array_equal(getattr(pb, k), getattr(jb, k))
     for cov in (1, 2, 3, 5):
         np.testing.assert_array_equal(pb.call(cov), jb.call(cov))
+
+
+def test_bed_contains_write_and_map_loci_match(tmp_path):
+    """io.bed's `contains`, `write_bed` and `map_loci_to_features` (the
+    maploci and rnade copies): nested, touching and unnamed features."""
+    from kit4b_tpu.io import bed as jbed
+    from kit4b_tpu_torch.io import bed as pbed
+    feats = [("c1", 100, 300, "gA", 5, "+"), ("c1", 150, 200, "", 0, "-"),
+             ("c1", 300, 400, "gC", 0, "+"), ("c2", 0, 50, "gD", 1, "-")]
+    jb = jbed.BedFile([jbed.BedFeature(*f) for f in feats])
+    pb = pbed.BedFile([pbed.BedFeature(*f) for f in feats])
+    for chrom, pos in (("c1", 99), ("c1", 100), ("c1", 299), ("c1", 300),
+                       ("c1", 170), ("c2", 49), ("c3", 1)):
+        assert [dataclasses.asdict(f) for f in pb.contains(chrom, pos)] == \
+            [dataclasses.asdict(f) for f in jb.contains(chrom, pos)]
+    jbed.write_bed(tmp_path / "j.bed", jb.features)
+    pbed.write_bed(tmp_path / "p.bed", pb.features)
+    assert (tmp_path / "p.bed").read_bytes() == \
+        (tmp_path / "j.bed").read_bytes()
+    sam = tmp_path / "m.sam"
+    with psam.SamWriter(sam, ["c1", "c2"], [1000, 100]) as w:
+        for i, (rname, pos, flag) in enumerate([
+                ("c1", 1, 0), ("c1", 150, 16), ("c1", 290, 0),
+                ("c1", 401, 0), ("c2", 10, 0), ("*", 0, 4)]):
+            w.write(psam.SamAlignment(f"r{i}", flag, rname, pos, 60,
+                                      "20M" if pos else "*", seq="A" * 20))
+    got = pbed.map_loci_to_features(pb, psam.read_sam(sam))
+    assert got == jbed.map_loci_to_features(jb, jsam.read_sam(sam))
+    assert got == ({"gA": 2, "c1:150-200": 1, "gC": 1, "gD": 1}, 2)
+
+
+def test_gene_bed_and_loci_csv_readers_match(tmp_path):
+    from kit4b_tpu.io import biobed as jbio
+    from kit4b_tpu.tools import convert as jconv
+    from kit4b_tpu_torch.io import biobed as pbio
+    from kit4b_tpu_torch.tools import convert as pconv
+    (tmp_path / "g.bed").write_text(
+        "# comment\ntrack name=x\nbrowser position c1\n\n"
+        "c1\t100\t900\tg1\t0\t-\t150\t850\t0\t2\t200,300,\t0,500,\n"
+        "c1 1000 2000 g2\n"
+        "c2\t5\t60\n")
+    for a, b in zip(pbio.load_gene_bed(tmp_path / "g.bed"),
+                    jbio.load_gene_bed(tmp_path / "g.bed")):
+        a, b = dataclasses.asdict(a), dataclasses.asdict(b)
+        for k in ("exon_starts", "exon_ends"):
+            np.testing.assert_array_equal(a.pop(k), b.pop(k))
+        assert a == b
+    (tmp_path / "l.csv").write_text(
+        '"SrcID","ElType","Species","Chrom","Start","End","Len"\n'
+        '1,"exon","sp","c1",10,19,10,"-"\n"2","x","sp",c2,0,4,5\n'
+        'bad,row\n3,"x","sp","c3",7,8,2\n')
+    assert pconv.read_loci_csv(tmp_path / "l.csv") == \
+        jconv.read_loci_csv(tmp_path / "l.csv")
+
+
+def test_rnade_numeric_helpers_match():
+    from kit4b_tpu.align import rnade as jde
+    from kit4b_tpu_torch.align import rnade as pde
+    rng = np.random.default_rng(12)
+    c = rng.poisson(5, (40, 10)).astype(np.float64)
+    e = rng.poisson(3, (40, 10)).astype(np.float64)
+    mask = rng.random((40, 10)) < 0.7
+    mask[0] = False
+    np.testing.assert_array_equal(pde._pearson_rows(c, e, mask),
+                                  jde._pearson_rows(c, e, mask))
+    for i in range(5):
+        assert pde._laplace_pearson(c[i], e[i], mask[i]) == \
+            jde._laplace_pearson(c[i], e[i], mask[i])
+    a, b, cc, d = (rng.integers(0, 50, 30) for _ in range(4))
+    chi = pde._chi2_2x2(a, b, cc, d)
+    np.testing.assert_array_equal(chi, jde._chi2_2x2(a, b, cc, d))
+    np.testing.assert_array_equal(pde._erfc(np.sqrt(chi / 2)),
+                                  jde._erfc(np.sqrt(chi / 2)))
+    np.testing.assert_array_equal(pde._chi2_pvalue_1dof(chi),
+                                  jde._chi2_pvalue_1dof(chi))
+
+
+def test_magicbench_profile_replay_helpers_match():
+    from kit4b_tpu.align import magicbench as jmb
+    from kit4b_tpu_torch.align import magicbench as pmb
+    rng = np.random.default_rng(21)
+    target = rng.integers(0, 4, 400).astype(np.uint8)
+    read = target[50:110].copy()
+    read[[3, 4, 40]] ^= 1
+    for cig, start in (("60M", 50), ("20M2I38M", 50), ("30M5D30M", 50),
+                       ("10M3N50M", 50), ("1P60M", 50), ("5S55M", 50),
+                       ("60M", 380)):
+        ops = pmb.parse_cigar(cig)
+        assert pmb._refine_profile(ops, read, target, start) == \
+            jmb._refine_profile(ops, read, target, start)
+    for prof, start, n in (("20=1X19=", 10, 40), ("5=2I3X5D10=", 7, 20),
+                           ("10=3N5H2S", 0, 20), ("40=", 370, 40),
+                           ("10=", 0, 20)):
+        ops = pmb.parse_cigar(prof)
+        got = pmb._apply_profile(ops, target, start, n)
+        want = jmb._apply_profile(ops, target, start, n)
+        assert (got is None) == (want is None)
+        if got is not None:
+            np.testing.assert_array_equal(got, want)
+
+
+def test_blitz_psl_writer_matches(tmp_path):
+    """write_psl on hand-made hits: blocks given and not, a hit of a
+    query or target missing from the length tables."""
+    from kit4b_tpu.align import blitz as jbl
+    from kit4b_tpu_torch.align import blitz as pbl
+    rows = [("q1", 0, 50, "c1", 100, 150, "+", 48, 2, 92),
+            ("q1", 5, 60, "c2", 10, 70, "-", 50, 3, 90, 1, 1, 5, 10,
+             [(5, 10, 20), (30, 40, 30)]),
+            ("q2", 0, 10, "c9", 0, 10, "+", 10, 0, 10)]
+    out = {}
+    for name, mod in (("j", jbl), ("p", pbl)):
+        hits = [mod.BlitzHit(*r) for r in rows]
+        mod.write_psl(tmp_path / name, hits, {"q1": 60}, {"c1": 500,
+                                                           "c2": 80})
+        out[name] = (tmp_path / name).read_bytes()
+    assert out["p"] == out["j"]
+
+
+def test_readstats_summary_and_empty_inputs_match(tmp_path):
+    from kit4b_tpu.align import readstats as jrs
+    from kit4b_tpu_torch.align import readstats as prs
+    assert prs.ReadStats().summary() == jrs.ReadStats().summary()
+    assert prs.compute_contaminant_stats([]) == \
+        jrs.compute_contaminant_stats([])
+    recs = [pfa.SeqRecord("a", "", np.full(3, 4, np.uint8))]
+    p = prs.compute_readstats(recs, kmer_len=4)
+    j = jrs.compute_readstats([jfa.SeqRecord("a", "", np.full(
+        3, 4, np.uint8))], kmer_len=4)
+    assert p.summary() == j.summary() and p.kmer_counts == j.kmer_counts

@@ -7,9 +7,11 @@ with the -y and -C rescues, with the phases and filters into BAM with a
 BAI, with the SNP side outputs) and paired ends (also of unequal mates),
 `genpba`, `index -m 1` with `kalign --bisulfite`, `pseudogenome`,
 `kmarkers`, `prekmarkers`, `filter`, `assemb`, `mergeoverlaps`,
-`scaffold`, `pescaffold`, `rnaexpr`, `genmlds`, `sarscov2ml` and the
-PacBio commands `pbfilter`, `ecreads`, `pbassemb` and `eccontigs`, with
-`--device cpu` where a command takes one) on a small seeded genome. The
+`scaffold`, `pescaffold`, `rnaexpr`, `genmlds`, `sarscov2ml`, the
+PacBio commands `pbfilter`, `ecreads`, `pbassemb` and `eccontigs`, and
+`blitz`, `hrdx`, `kmerdist`, `benchmark`, `alignsbs`, `ngsqc`, `maploci`
+and `rnade` on the long-tail golden's inputs, with `--device cpu` where a
+command takes one) on a small seeded genome. The
 runs that build a suffix index need the port's host library and skip
 without it. This file imports neither package either:
 
@@ -405,3 +407,18 @@ def test_cli_pacbio_commands_with_both_blocked(tmp_path, host_library):
          "assert 'hp/sub1' in names and 'hp/sub2' in names, names\n"
          "assert len(list(read_seqs('ec.fa'))) >= 10\n"
          "assert len(list(read_seqs('pol.fa'))) >= 1\n", tmp_path)
+
+
+def test_cli_longtail_commands_with_both_blocked(tmp_path, host_library):
+    """blitz (gapped and not), hrdx, kmerdist, benchmark 0-4, alignsbs,
+    ngsqc, maploci and rnade through the CLI on the small inputs of
+    `make_longtail_golden`, their outputs equal to the committed golden."""
+    _run("import numpy as np\n"
+         "import torch\n"
+         "torch.set_num_threads(2)\n"
+         "from kit4b_tpu_torch.tools import make_longtail_golden as mg\n"
+         "out = mg.compute(mg.port_fns('cpu'))\n"
+         "with np.load(mg.GOLDEN) as z:\n"
+         "    bad = mg.differing(out, {k: z[k] for k in z.files})\n"
+         "assert bad == [], bad\n"
+         "assert len(out) >= 35\n", tmp_path)
