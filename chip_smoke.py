@@ -68,8 +68,9 @@ result:
    JAX package's committed golden: tier-1 rows, nar/pos/strand/mm, the
    tier-2 read count and the SAM's SHA-256, all equal. (b) Config #1 at
    full size: the genome and reads of bench.py (4.6 Mbp, 100,000 simreads
-   reads of 100 bp, Illumina-skewed 2 % substitutions) written as FASTA,
-   then the port's CLI `index` and `kalign -b 98304 -M 1`. Checks: the v5
+   reads of 100 bp, Illumina-skewed 2 % substitutions) written as FASTA
+   (the reads also as FASTQ, for 16c), then the port's CLI `index` and
+   `kalign -b 98304 -M 1`. Checks: the v5
    tier 1 ran, the native `pack2bit_u8` and `format_sam_se` were bound,
    >= 99.9 % of accepted reads sit at their QNAME truth locus and strand,
    every accepted read's `NM:i:` equals its mismatches recomputed from the
@@ -261,16 +262,32 @@ result:
    longest query's and the median query's SW batches held to the plain
    versions and timed beside their bounds. (c) hrdx on two 2 Mbp haplotypes
    cut into contigs of 5-60 kbp with 20 unique ones; kmerdist on a MAF of
-   (b)'s hits against a direct count; simreads (100,000 reads) -> kalign ->
-   benchmark -m 4 (>= 99.9 % of aligned reads at their truth), -m 1 -> -m 2
-   -> kalign -> -m 3, -m 0; alignsbs (2,000 queries, 200 targets of 2 kbp,
+   (b)'s hits against a direct count; 8b's 100,000 reads and the mapped
+   records of its SAM (what kalign writes of them at -M 0) -> benchmark
+   -m 4 (>= 99.9 % of aligned reads at their truth), -m 1 -> -m 2 ->
+   kalign -> -m 3, -m 0; alignsbs (2,000 queries, 200 targets of 2 kbp,
    10 bootstraps; iteration 0 against a direct overlap count); ngsqc -H -;
    maploci against a direct count over 500 features; rnade on two kalign
    SAMs against 200 genes; each step timed.
+17. The PBA and haplotype family (host numpy, kalign's passes on the
+   card). (a) The port's CLI on the seeded workload of
+   `kit4b_tpu_torch.tools.make_haplotypes_golden` (every mode of
+   callhaplotypes, pbautils, snpmarkers, snps2pgsnps, lochap2bed,
+   markerseqs, repassemb, pangenome, seghaplotypes, gbsmapsnps and dgts,
+   59 runs) against the JAX package's committed golden: every text file
+   byte for byte, every .npz array by array. (b) `haplotypes_full`:
+   founder A is config #1's genome, founder B A with 0.5 % seeded SNPs,
+   four progeny mosaics of A and B in segments of 100-500 kbp, the last
+   with a heterozygous run; each sample's error-free reads at 5x through
+   the CLI `kalign -S -3` on the card, then every command of the family on
+   the PBAs, the SNP CSVs and a progeny aligned to the A + B pangenome,
+   each step timed and held to the planted truth (its docstring lists the
+   checks and the cuts).
 
 Each kernel's launch counter is set to 0 just before its path (phases 4, 6,
 7, each CLI step of 15c and 16b's gapped `blitz`) and read just after it;
-phases 8-14 run none of the kernels. The script prints its seconds, and
+phases 8-14 and 17 run none of the kernels. The script prints its
+seconds, and
 each phase's, before the kernels line. The line before the last is a JSON
 table of the kernels, each with its bound (the least time the card could
 take: int8 tensor operations for minmm and sweep, int32 operations for
@@ -285,6 +302,7 @@ import hashlib
 import io
 import json
 import logging
+import os
 import re
 import subprocess
 import sys
@@ -741,10 +759,18 @@ def config1_files(cfg1: Path) -> tuple[Path, Path]:
     return cfg1 / "ecoli_sim.fa", cfg1 / "ecoli_sim.kix"
 
 
-def kalign_full(torch, dev, card, tmp: Path, cfg1: Path):
-    """Phase 8b: config #1 at full size through the port's CLI; its genome
-    and the CLI `index`'s .kix are written into `cfg1`, where the later
-    phases on this genome (12b, 13b-d, 16b-c) find them."""
+def config1_reads(cfg1: Path) -> tuple[Path, Path, Path]:
+    """Config #1's 100,000 reads (simreads -e illumina -z 0.02 -S 7) as
+    FASTA and as FASTQ (with their qualities), and 8b's `kalign -M 1` SAM
+    of the FASTA, as 8b writes them."""
+    return cfg1 / "reads.fa", cfg1 / "reads.fq", cfg1 / "out.sam"
+
+
+def kalign_full(torch, dev, card, cfg1: Path):
+    """Phase 8b: config #1 at full size through the port's CLI; its genome,
+    the CLI `index`'s .kix, the reads (FASTA and FASTQ) and the SAM are
+    written into `cfg1`, where the later phases on this genome (12b,
+    13b-d, 16b-c, 17b) find them."""
     from kit4b_tpu_torch import cli, dna, native
     from kit4b_tpu_torch.align import kalign
     from kit4b_tpu_torch.index.sfx_index import SfxIndex
@@ -762,9 +788,10 @@ def kalign_full(torch, dev, card, tmp: Path, cfg1: Path):
         n_reads=ECOLI_READS, read_len=READ_LEN, seed=7,
         error_mode="illumina", subs_rate=0.02))
     fa, kix = config1_files(cfg1)
-    reads_fa, sam = tmp / "reads.fa", tmp / "out.sam"
+    reads_fa, reads_fq, sam = config1_reads(cfg1)
     write_fasta(fa, ["ecoli_sim"], [codes])
     simreads.write_reads(reads_fa, recs)
+    simreads.write_reads(reads_fq, recs, "fastq")
 
     phases = _PhaseLog()
     logging.getLogger("kit4b_tpu_torch").addHandler(phases)
@@ -1882,23 +1909,14 @@ def bai_queries(bam: Path, n_windows: int, length: int, rng) -> int:
 
 
 def opts_full(torch, dev, card, tmp: Path, cfg1: Path):
-    """Phase 13b: config #1 with the phases, the filters and a sorted BAM
-    with its BAI, beside the same run written as SAM."""
-    from kit4b_tpu_torch import cli, dna
+    """Phase 13b: config #1 (8b's reads) with the phases, the filters and a
+    sorted BAM with its BAI, beside the same run written as SAM."""
+    from kit4b_tpu_torch import cli
     from kit4b_tpu_torch.align import kalign
     from kit4b_tpu_torch.io import bam as bam_io
-    from kit4b_tpu_torch.io.fasta import Genome
     from kit4b_tpu_torch.sim import simreads
-    rng = np.random.default_rng(12345)
-    codes = rng.integers(0, 4, ECOLI_LEN).astype(np.uint8)
-    g = Genome(["ecoli_sim"], np.array([0]), np.array([ECOLI_LEN]),
-               np.append(codes, dna.BASE_EOG).astype(np.uint8))
-    recs = simreads.sim_reads(g, simreads.SimParams(
-        n_reads=ECOLI_READS, read_len=READ_LEN, seed=7,
-        error_mode="illumina", subs_rate=0.02))
     kix = config1_files(cfg1)[1]
-    reads_fa = tmp / "reads.fa"
-    simreads.write_reads(reads_fa, recs)
+    reads_fa = config1_reads(cfg1)[0]
     flags = ["-x", "10", "-6", "2", "--mlmode", "3", "-Z", "^ecoli", "-5",
              "4", "-b", str(ECOLI_BATCH)]
     al = kalign.KAligner
@@ -3037,9 +3055,9 @@ def _csv_rows(path: Path) -> list[list[str]]:
     return [r.split(",") for r in path.read_text().splitlines()[1:]]
 
 
-def _cli_steps(card, steps):
-    """Runs (label, argv) CLI steps in order, each timed; returns their
-    standard output by label."""
+def _cli_steps(card, steps, seconds=None):
+    """Runs (label, argv) CLI steps in order, each timed (into `seconds`
+    by label, where given); returns their standard output by label."""
     from kit4b_tpu_torch import cli
     printed = {}
     for label, argv in steps:
@@ -3047,20 +3065,24 @@ def _cli_steps(card, steps):
         t0 = time.perf_counter()
         with contextlib.redirect_stdout(buf):
             rc = cli.main([str(a) for a in argv])
-        print(f"CLI {label} on {card}: {time.perf_counter() - t0} s")
+        s = time.perf_counter() - t0
+        if seconds is not None:
+            seconds[label] = s
+        print(f"CLI {label} on {card}: {s} s")
         if rc != 0:
             raise AssertionError(f"CLI {label} exited {rc}")
         printed[label] = buf.getvalue()
     return printed
 
 
-def longtail_full(torch, dev, card, tmp: Path, fa, kix, codes, psl,
-                  queries):
+def longtail_full(torch, dev, card, tmp: Path, cfg1: Path, fa, kix, codes,
+                  psl, queries):
     """Phase 16c: hrdx on two 2 Mbp haplotypes cut into contigs with 20
     unique ones (every unique kept, the kept length 0.9-1.3 x a
     haplotype); kmerdist on a MAF of 16b's gapped hits, equal to the runs
-    counted from the hits; simreads (100,000 reads of 100 bp) -> kalign on
-    the card -> benchmark -m 4 (>= 99.9 % of aligned reads at their truth),
+    counted from the hits; 8b's 100,000 reads of 100 bp and the mapped
+    records of its SAM (what `kalign` with the default -M 0 writes of
+    them) -> benchmark -m 4 (>= 99.9 % of aligned reads at their truth),
     then -m 1 -> -m 2 -> kalign -> -m 3 and -m 0; alignsbs (2,000 queries
     of 100-150 bp, 200 targets of 2 kbp, 10 bootstraps) on the card;
     ngsqc -H - on the reads; maploci against 500 BED features, equal to a
@@ -3092,14 +3114,13 @@ def longtail_full(torch, dev, card, tmp: Path, fa, kix, codes, psl,
                                                     ECOLI_LEN),
                  "ecoli_sim", bed6=None)
     t = tmp
+    _, reads, sam_m1 = config1_reads(cfg1)
+    with open(sam_m1) as src, open(t / "out.sam", "w") as dst:
+        dst.writelines(ln for ln in src if ln.startswith("@")
+                       or not int(ln.split("\t", 2)[1]) & 4)
     printed = _cli_steps(card, [
         ("hrdx", ["hrdx", "-i", t / "diploid.fa", "-o", t / "reduced.fa"]),
         ("kmerdist", ["kmerdist", "-i", maf, "-o", t / "kd.csv"]),
-        ("simreads", ["simreads", "-i", fa, "-o", t / "reads.fq", "-n",
-                      ECOLI_READS, "-l", READ_LEN, "-e", "illumina", "-z",
-                      "0.02", "-S", "7", "-Q"]),
-        ("kalign", ["kalign", "-i", t / "reads.fq", "-I", kix, "-o",
-                    t / "out.sam"]),
         ("benchmark -m 4", ["benchmark", "-m", "4", "-i", t / "out.sam",
                             "-o", t / "b4.json"]),
         ("benchmark -m 1", ["benchmark", "-m", "1", "-i", t / "out.sam",
@@ -3114,13 +3135,13 @@ def longtail_full(torch, dev, card, tmp: Path, fa, kix, codes, psl,
         ("benchmark -m 3", ["benchmark", "-m", "3", "-i", t / "sim.sam",
                             "--groundtruth", t / "sim.fa", "-o",
                             t / "b3.json"]),
-        ("benchmark -m 0", ["benchmark", "-m", "0", "-i", t / "reads.fq",
+        ("benchmark -m 0", ["benchmark", "-m", "0", "-i", reads,
                             "-o", t / "lim.fq", "--maxreads", "1000"]),
         ("alignsbs", ["alignsbs", "-p", t / "sbs_q.fa", "-P", t / "asm.fa",
                       "-i", t / "sbs_t.fa", "-I", t / "asm.fa", "-b",
                       SBS_BOOT, "-r", "5", "-o", t / "sbs_q.csv", "-O",
                       t / "sbs_t.csv"]),
-        ("ngsqc -H -", ["ngsqc", "-i", t / "reads.fq", "-o", t / "qc",
+        ("ngsqc -H -", ["ngsqc", "-i", reads, "-o", t / "qc",
                         "-H", "-"]),
         ("maploci", ["maploci", "-i", t / "out.sam", "-b", t / "feats.bed",
                      "-o", t / "maploci.csv"]),
@@ -3197,6 +3218,506 @@ def longtail_full(torch, dev, card, tmp: Path, fa, kix, codes, psl,
           f"features, {len(folds)} scored; faults {faults or 'none'}")
     if faults:
         raise AssertionError(f"phase 16c: {faults}")
+
+
+HAP_COV = 5               # phase 17b: reads a base of each sample
+HAP_SNP_RATE = 0.005      # founder B's SNPs against A (config #1's genome)
+HAP_SEG = (100_000, 500_000)    # the progeny's mosaic segments, bp
+HAP_PROGENY = 4           # the last one carries a heterozygous run
+HAP_BIN = 10_000          # callhaplotypes' and seghaplotypes' default bin
+HAP_CUT = 100_000         # the grouping modes' cut of the PBAs, bp
+HAP_QTLS = 2_000          # dgts' QTL loci, from B's planted SNPs
+HAP_GBS = 6_000           # GBS loci, from B's planted SNPs
+
+
+def haplotypes_golden(torch, dev):
+    """Phase 17a: every mode of the PBA and haplotype commands on the
+    seeded workload of `make_haplotypes_golden`, through the port's CLI,
+    against the JAX package's committed golden (host only)."""
+    from kit4b_tpu_torch.tools import make_haplotypes_golden as mg
+    t0 = time.perf_counter()
+    out = mg.compute(mg.port_fns())
+    with np.load(mg.GOLDEN) as z:
+        gold = {k: z[k] for k in z.files}
+    bad = mg.differing(out, gold)
+    print(f"haplotypes golden: {len(out)} arrays of {len(mg.RUNS)} CLI runs "
+          f"in {time.perf_counter() - t0} s; differing: {bad or 'none'}; "
+          f"edges missed: {mg.check_reach(out) or 'none'}")
+    if bad:
+        raise AssertionError(f"the haplotypes golden differs: {bad[:10]}")
+
+
+def hap_mosaic(rng, n: int, het: bool) -> list[tuple[int, int, str]]:
+    """A progeny's planted mosaic of founders A and B over `n` bases:
+    segments of HAP_SEG bp, alternating from a random first founder; with
+    `het`, the second segment is heterozygous ('AB')."""
+    segs, at = [], 0
+    who = "AB"[int(rng.integers(0, 2))]
+    while at < n:
+        end = min(n, at + int(rng.integers(*HAP_SEG)))
+        if n - end < HAP_SEG[0]:
+            end = n
+        segs.append([at, end, who])
+        who = "B" if who == "A" else "A"
+        at = end
+    if het:
+        segs[1][2] = "AB"
+    return [tuple(s) for s in segs]
+
+
+def _hap_sim(job):
+    """Simulates one sample's error-free reads from its haplotype(s) and
+    writes them as FASTA (run in a worker process)."""
+    path, haps, n_reads, seed = job
+    from kit4b_tpu_torch import dna
+    from kit4b_tpu_torch.io.fasta import Genome
+    from kit4b_tpu_torch.sim import simreads
+    recs = []
+    for i, codes in enumerate(haps):
+        g = Genome(["ecoli_sim"], np.array([0]), np.array([len(codes)]),
+                   np.append(codes, dna.BASE_EOG).astype(np.uint8))
+        recs += simreads.sim_reads(g, simreads.SimParams(
+            n_reads=n_reads // len(haps), read_len=READ_LEN,
+            seed=seed + i, error_mode="none"))
+    simreads.write_reads(path, recs)
+    return len(recs)
+
+
+def _bin_truth(segs, n_bins: int) -> list:
+    """Per HAP_BIN bin: the planted label, or None where a switch falls
+    inside the bin."""
+    out = []
+    for b in range(n_bins):
+        lo, hi = b * HAP_BIN, (b + 1) * HAP_BIN
+        labs = {w for s, e, w in segs if s < hi and e > lo}
+        out.append(labs.pop() if len(labs) == 1 else None)
+    return out
+
+
+def haplotypes_full(torch, dev, card, tmp: Path, cfg1: Path):
+    """Phase 17b: the breeder's pipeline on config #1's genome, fed by
+    kalign on the card. Founder A is the genome, founder B A with
+    HAP_SNP_RATE seeded SNPs; HAP_PROGENY progeny are mosaics of A and B
+    in segments of 100-500 kbp, the last with a heterozygous run. Each
+    sample's error-free 100 bp reads (HAP_COV x, the port's simreads)
+    go through one CLI `kalign -S -3` on the card (B's also with -X), and
+    the PBAs, SNP CSVs and a pangenome alignment through every command of
+    the family, each step timed. Checks against the planted truth:
+    callhaplotypes' raw bins and its raw bins under the outlier rule alone
+    (what --wwrlproxwindow 0 writes) at the planted founder outside switch
+    bins (>= 95 %), the heterozygous run called FaFb (>= 90 %, imputed
+    too);
+    the imputed share at the defaults is printed (the runs test spreads a
+    switch bin's FaFb call; ROADMAP.md queue C), as is mode 9's selection
+    by scores; repassemb turning A into B at the SNPs kalign called
+    (>= 99 %) and nowhere else; markerseqs' flanks equal to the genome;
+    pbautils -m 0's bases and -m 4's loci among B's SNPs with their recall
+    (>= 90 % of the covered); seghaplotypes' segments of a progeny aligned
+    to the pangenome (>= 95 % of bins); gbsmapsnps' calls (>= 99 %);
+    dgts' reference at every QTL; snpmarkers on B's SNPs; lochap2bed and
+    snps2pgsnps a row a DiSNP and SNP; concat's and pangenome -m 1's
+    counts.
+
+    Cuts: a random genome; six samples; error-free reads (one error among
+    two to four reads makes a PBA variant at 5x); the grouping modes (3-6,
+    10) on the first HAP_CUT bp of the PBAs (diff_matrix's affine-gap walk
+    and group_kmers step through the loci in Python: their seconds a locus
+    are printed)."""
+    from kit4b_tpu_torch import cli, dna
+    from kit4b_tpu_torch.io.fasta import Genome, read_seqs
+    from kit4b_tpu_torch.kmer import callhaplotypes, haplogroups, pba
+    fa, kix = config1_files(cfg1)
+    rng = np.random.default_rng(SEED + 1700)
+    A = Genome.load(fa).chrom_codes(0).copy()
+    n = len(A)
+    snp_at = np.sort(rng.choice(n, int(n * HAP_SNP_RATE), replace=False))
+    B = A.copy()
+    B[snp_at] = (A[snp_at] + rng.integers(1, 4, len(snp_at))) % 4
+    progeny = [f"P{i + 1}" for i in range(HAP_PROGENY)]
+    mosaics = {p: hap_mosaic(rng, n, i == HAP_PROGENY - 1)
+               for i, p in enumerate(progeny)}
+    het_p = progeny[-1]
+
+    def hap(segs, het_from):
+        mask = np.zeros(n, bool)
+        for s, e, w in segs:
+            mask[s:e] = w == "B" or (w == "AB" and het_from == "B")
+        return np.where(mask, B, A)
+    haps = {"A": [A], "B": [B]}
+    for p in progeny:
+        haps[p] = [hap(mosaics[p], "A")] + (
+            [hap(mosaics[p], "B")] if p == het_p else [])
+    n_reads = HAP_COV * n // READ_LEN
+    t = tmp
+    steps_s = {}
+    t0 = time.perf_counter()
+    with ProcessPoolExecutor(len(haps), mp_context=get_context("spawn")) \
+            as pool:
+        sims = {s: pool.submit(_hap_sim, (t / f"{s}.fa", h, n_reads,
+                                          170 + i))
+                for i, (s, h) in enumerate(haps.items())}
+        pangenome = []
+        for f, p in ((fa, "A"), (t / "B_genome.fa", "B")):
+            if p == "B":
+                write_fasta(f, ["ecoli_sim"], [B])
+            if cli.main(["pangenome", "-m", "0", "-p", p, "-i", str(f),
+                         "-o", str(t / f"pg{p}.fa")]) != 0:
+                raise AssertionError(f"CLI pangenome -m 0 -p {p} failed")
+            pangenome.append((t / f"pg{p}.fa").read_text())
+        (t / "pangenome.fa").write_text("".join(pangenome))
+        n_sim = {s: f.result() for s, f in sims.items()}
+    steps_s["simreads (6 samples at once) and pangenome -m 0"] = \
+        time.perf_counter() - t0
+    # the pangenome's index builds on the host while the card aligns
+    t_pg = time.perf_counter()
+    pg_index = subprocess.Popen(
+        [sys.executable, "-m", "kit4b_tpu_torch", "index", "-i",
+         str(t / "pangenome.fa"), "-o", str(t / "pangenome.kix")],
+        cwd=str(Path(__file__).resolve().parent), stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)
+    try:
+        kalign_s = {}
+        for s in haps:
+            log = _PhaseLog()
+            logging.getLogger("kit4b_tpu_torch").addHandler(log)
+            argv = ["kalign", "-i", str(t / f"{s}.fa"), "-I", str(kix), "-o",
+                    str(t / f"{s}.sam") if s == "B" else os.devnull,
+                    "-b", str(ECOLI_BATCH), "-S", str(t / f"{s}.csv"), "-3",
+                    str(t / f"{s}.pba.npz"), "--device", dev.type] + (
+                        ["-X", str(t / "B")] if s == "B" else [])
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            try:
+                rc = cli.main(argv)
+            finally:
+                logging.getLogger("kit4b_tpu_torch").removeHandler(log)
+            kalign_s[s] = time.perf_counter() - t0
+            if rc != 0:
+                raise AssertionError(f"CLI kalign -S -3 of {s} exited {rc}")
+            print(f"CLI kalign -S -3{' -X' if s == 'B' else ''} of {s} "
+                  f"({n_sim[s]} reads) on {card}: "
+                  f"{kalign_s[s]} s, phases {log.seconds}; classes "
+                  f"{log.stats}")
+        out, _ = pg_index.communicate(timeout=600)
+    finally:
+        if pg_index.poll() is None:
+            pg_index.kill()
+            pg_index.wait()
+    steps_s["kalign -S -3 (6 samples)"] = sum(kalign_s.values())
+    steps_s["kalign runs and the pangenome's index beside them"] = \
+        time.perf_counter() - t_pg
+    if pg_index.returncode != 0:
+        raise AssertionError(f"index of the pangenome exited "
+                             f"{pg_index.returncode}: {out[-2000:]}")
+    print("CLI index of the pangenome (a subprocess beside the kalign "
+          "runs): " + "; ".join(
+              ln.split("INFO: ", 1)[-1].strip() for ln in out.splitlines()
+              if ("phase " in ln and not ln.endswith("start"))
+              or "done in" in ln))
+    # the PBAs in both containers, each named by its sample (kalign -3
+    # names every readset 'readset')
+    pbas = {}
+    for s in haps:
+        pbas[s] = pba.load_pba(t / f"{s}.pba.npz")[1]
+        pba.save_pba_ref(t / f"{s}.pba", pbas[s], readset=s)
+    cut = {}
+    for s in haps:
+        cut[s] = {"ecoli_sim": pbas[s]["ecoli_sim"][:HAP_CUT]}
+        pba.save_pba_ref(t / f"{s}.cut.pba", cut[s], readset=s)
+    named = [f"{s}={t / f'{s}.pba'}" for s in haps]
+    cut_named = [f"{s}={t / f'{s}.cut.pba'}" for s in haps]
+    prog_named = [f"{p}={t / f'{p}.pba.npz'}" for p in progeny]
+    founders = ["A=" + str(t / "A.pba"), "B=" + str(t / "B.pba.npz")]
+    all_pba = [str(t / f"{s}.pba") for s in haps]
+    # GBS genotypes and QTLs at B's planted SNPs
+    def geno(byte):
+        al = [b for i, b in enumerate("ACGT") if (byte >> (6 - 2 * i)) & 3]
+        return "NA" if not al else (al[0] * 2 if len(al) == 1
+                                    else "".join(al[:2]))
+    gbs_at = np.sort(rng.choice(snp_at, HAP_GBS, replace=False))
+    cols = ["A", "B"] + progeny
+    for k, sel in ((1, gbs_at[0::2]), (2, gbs_at[1::2])):
+        (t / f"gbs{k}.csv").write_text(
+            "SNPID,Chrom,Loci," + ",".join(
+                ["FounderA", "FounderB"] + progeny) + "\n" + "".join(
+                f"s{x},chrE,{x}," + ",".join(
+                    geno(int(pbas[c]["ecoli_sim"][x])) for c in cols)
+                + "\n" for x in sel.tolist()))
+    (t / "map.csv").write_text("alias,chrom\nchrE,ecoli_sim\n")
+    qtl_at = np.sort(rng.choice(snp_at, HAP_QTLS, replace=False))
+    (t / "qtl.csv").write_text('"Chrom","Loci","Ref","Alt"\n' + "".join(
+        f'"ecoli_sim",{x},"{"ACGT"[A[x]]}","{"ACGT"[B[x]]}"\n'
+        for x in qtl_at.tolist()))
+    grp = ["-g", "25000", "-n", "1", "--grpdgtsamples", "0.1"]
+    steps = [
+        ("pbautils -m 1", ["pbautils", "-m", "1", "-i", fa, "-o",
+                           t / "ref.pba.npz"]),
+        ("pbautils -m 0", ["pbautils", "-m", "0", "-i", t / "B.pba", "-o",
+                           t / "B.pba.fa"]),
+        ("pbautils -m 2", ["pbautils", "-m", "2", "-i", *all_pba, "-o",
+                           t / "conc.csv"]),
+        ("pbautils -m 3", ["pbautils", "-m", "3", "-i", *all_pba, "-o",
+                           t / "wconc.csv"]),
+        ("pbautils -m 4", ["pbautils", "-m", "4", "-r", t / "ref.pba.npz",
+                           "-i", t / "B.pba", "-o", t / "B.allelic.vcf"]),
+        ("pbautils -m 5", ["pbautils", "-m", "5", "-r", t / "ref.pba.npz",
+                           "-i", *all_pba, "-o", t / "gt.vcf"]),
+        ("pbautils -m 6", ["pbautils", "-m", "6", "-r", t / "ref.pba.npz",
+                           "-i", *all_pba, "--gtprophet", "0.1", "-o",
+                           t / "dip.vcf"]),
+        ("pbautils -m 7", ["pbautils", "-m", "7", "-r", t / "ref.pba.npz",
+                           "-i", *all_pba[:2], "-o", t / "del.vcf"]),
+        ("pbautils -m 8", ["pbautils", "-m", "8", "-i", *all_pba, "-o",
+                           t / "tx.bed"]),
+        ("pbautils -m concat", ["pbautils", "-m", "concat", "-i",
+                                *[t / f"{p}.pba.npz" for p in progeny],
+                                "-o", t / "cat.pba.npz"]),
+        ("pbautils -m coverage", ["pbautils", "-m", "coverage", "-i",
+                                  t / "A.pba.npz", "-o", t / "A.cov.wig"]),
+        ("callhaplotypes -m 2", ["callhaplotypes", "-m", "2", "-c",
+                                 *founders, "-i", *prog_named, "-o",
+                                 t / "ch"]),
+        ("callhaplotypes -m 7", ["callhaplotypes", "-m", "7", "-c",
+                                 *founders, "-i", *prog_named, "-o",
+                                 t / "m7.csv"]),
+        ("callhaplotypes -m 8", ["callhaplotypes", "-m", "8", "-c",
+                                 *named, "-o", t / "m8.csv"]),
+        ("callhaplotypes -m 9", ["callhaplotypes", "-m", "9", "-A",
+                                 t / "m7.csv", "-o", t / "m9"]),
+        ("callhaplotypes -m 11", ["callhaplotypes", "-m", "11", "-A",
+                                  t / "m7.csv", "-r", "^P1$", "-o",
+                                  t / "m11.csv"]),
+        ("callhaplotypes -m 12", ["callhaplotypes", "-m", "12", "-A",
+                                  t / "m7.csv", "-o", t / "m12.csv"]),
+        ("callhaplotypes -m 3 (cut)", ["callhaplotypes", "-m", "3", "-c",
+                                       *cut_named, *grp, "-o",
+                                       t / "m3.csv"]),
+        ("callhaplotypes -m 4 (cut)", ["callhaplotypes", "-m", "4", "-c",
+                                       *cut_named, *grp, "-o",
+                                       t / "m4.csv"]),
+        ("callhaplotypes -m 5 (cut)", ["callhaplotypes", "-m", "5", "-c",
+                                       *cut_named, *grp, "-o",
+                                       t / "m5.csv"]),
+        ("callhaplotypes -m 6 (cut)", ["callhaplotypes", "-m", "6", "-c",
+                                       *cut_named, *grp, "-o",
+                                       t / "m6.wig"]),
+        ("callhaplotypes -m 10 (cut)", ["callhaplotypes", "-m", "10", "-c",
+                                        *cut_named, *grp, "-o",
+                                        t / "m10.csv"]),
+        ("dgts -m 1", ["dgts", "-m", "1", "-Q", t / "qtl.csv", "-D",
+                       t / "m5.csv", "-I", t / "ref.pba.npz", "-i", *named,
+                       "-o", t / "dgts.csv"]),
+        ("snpmarkers", ["snpmarkers", "-c", f"A={t / 'A.csv'}",
+                        f"B={t / 'B.csv'}", "-o", t / "markers.csv"]),
+        ("snps2pgsnps", ["snps2pgsnps", "-i", t / "B.csv", "-o",
+                         t / "B.pgsnp"]),
+        ("snps2pgsnps .vcf", ["snps2pgsnps", "-i", t / "B.csv", "-o",
+                              t / "B.vcf"]),
+        ("markerseqs", ["markerseqs", "-i", t / "B.csv", "-g", fa, "-o",
+                        t / "mseq.csv"]),
+        ("repassemb", ["repassemb", "-i", t / "B.csv", "-g", fa, "-o",
+                       t / "rep.fa"]),
+        ("lochap2bed", ["lochap2bed", "-i", t / "B.disnp.csv", "-o",
+                        t / "B.disnp.bed"]),
+        ("gbsmapsnps -m 0", ["gbsmapsnps", "-i", t / "gbs1.csv", "-I",
+                             t / "map.csv", "-o", t / "hap1.csv"]),
+        ("gbsmapsnps -m 0 (second half)", [
+            "gbsmapsnps", "-i", t / "gbs2.csv", "-I", t / "map.csv", "-o",
+            t / "hap2.csv"]),
+        ("gbsmapsnps -m 1", ["gbsmapsnps", "-m", "1", "-i", t / "hap1.csv",
+                             "-I", t / "hap2.csv", "-o", t / "comb.csv"])]
+    t0 = time.perf_counter()
+    cmd_s = {}
+    _cli_steps(card, steps, cmd_s)
+    steps_s["the family's commands on the PBAs"] = time.perf_counter() - t0
+    seg_p = progeny[0]
+    t0 = time.perf_counter()
+    _cli_steps(card, [
+        (f"kalign of {seg_p} onto the pangenome", [
+            "kalign", "-i", t / f"{seg_p}.fa", "-I", t / "pangenome.kix",
+            "-o", t / "pg.sam", "-b", ECOLI_BATCH, "--device", dev.type]),
+        ("pangenome -m 1", ["pangenome", "-m", "1", "-p", "A", "-i",
+                            t / "pg.sam", "-o", t / "pgA.sam"]),
+        ("pangenome -m 2", ["pangenome", "-m", "2", "-i", t / "pg.sam",
+                            "-o", t / "pg2.wig"]),
+        ("pangenome -m 3", ["pangenome", "-m", "3", "-i", t / "pg.sam",
+                            "-o", t / "pg3.wig"]),
+        ("seghaplotypes", ["seghaplotypes", "-i", t / "pg.sam", "-o",
+                           t / "seg.bed"])])
+    steps_s["pangenome kalign, pangenome 1-3, seghaplotypes"] = \
+        time.perf_counter() - t0
+    # the cost of the grouping modes' per-locus Python walks
+    mats = np.stack([cut[s]["ecoli_sim"] for s in haps])
+    t0 = time.perf_counter()
+    haplogroups.diff_matrix(mats, affine_gap_len=3)
+    affine_s = (time.perf_counter() - t0) / HAP_CUT
+
+    faults = []
+    n_bins = -(-n // HAP_BIN)
+    share = {}       # per output: bins at the planted founder, bins checked
+    het_bins = {}    # per output: the heterozygous run's bins called FaFb
+    for key, pat in (("raw", "ch.{}.raw.csv"), ("imputed", "ch.{}.csv"),
+                     ("outliers only", "ch.{}.raw.csv")):
+        ok = n_chk = het_ok = n_het = 0
+        for p in progeny:
+            truth = _bin_truth(mosaics[p], n_bins)
+            calls = [r[3].strip('"') for r in _csv_rows(t / pat.format(p))]
+            if key == "outliers only":   # what --wwrlproxwindow 0 writes
+                calls = [c.call for c in callhaplotypes.impute_outliers([
+                    callhaplotypes.BinCall("", i * HAP_BIN, 0, c, {}, 0)
+                    for i, c in enumerate(calls)])]
+            if len(calls) != n_bins:
+                faults.append(f"callhaplotypes {key}: {len(calls)} bins")
+            for want, got in zip(truth, calls):
+                if want == "AB":
+                    n_het += 1
+                    het_ok += got == "FaFb"
+                elif want is not None:
+                    n_chk += 1
+                    ok += got == want
+        share[key], het_bins[key] = (ok, n_chk), (het_ok, n_het)
+    # the runs test spreads a switch bin's FaFb call over its neighbours,
+    # then the second pass over whole segments (ROADMAP.md queue C): the
+    # imputed share is printed, and held on the raw calls and on the
+    # outlier rule alone
+    for key in ("raw", "outliers only"):
+        ok, n_chk = share[key]
+        if ok < 0.95 * n_chk:
+            faults.append(f"callhaplotypes {key}: {ok} of {n_chk} bins at "
+                          "the planted founder")
+    for key in ("raw", "imputed", "outliers only"):
+        ok, n_het = het_bins[key]
+        if ok < 0.9 * n_het:
+            faults.append(f"callhaplotypes {key}: {ok} of {n_het} bins of "
+                          "the heterozygous run called FaFb")
+    b_snps = [(int(r[4]), r[12].strip('"')) for r in _csv_rows(t / "B.csv")]
+    called_at = np.array([x for x, _ in b_snps], np.int64)
+    rep = next(iter(read_seqs(t / "rep.fa"))).codes
+    planted = np.zeros(n, bool)
+    planted[snp_at] = True
+    turned = int((rep[called_at] == B[called_at]).sum())
+    others = np.ones(n, bool)
+    others[called_at] = False
+    if turned < 0.99 * len(called_at) or \
+            not np.array_equal(rep[others], A[others]) or \
+            not planted[called_at].all():
+        faults.append(f"repassemb: {turned} of {len(called_at)} called loci "
+                      f"turned to B, others changed "
+                      f"{int((rep[others] != A[others]).sum())}, called "
+                      f"loci not planted {int((~planted[called_at]).sum())}")
+    flank_bad = 0
+    mseq = _csv_rows(t / "mseq.csv")
+    for r in mseq:
+        x = int(r[2])
+        five, three = r[3].strip('"'), r[6].strip('"')
+        flank_bad += (five != dna.decode(A[max(0, x - 25):x])
+                      or three != dna.decode(A[x + 1:x + 26])
+                      or r[4].strip('"') != "ACGT"[A[x]])
+    if flank_bad or len(mseq) != len(b_snps):
+        faults.append(f"markerseqs: {flank_bad} of {len(mseq)} flanks "
+                      "differ from the genome")
+    vcf_at = np.array([int(ln.split("\t")[1]) - 1 for ln in (
+        t / "B.allelic.vcf").read_text().splitlines()
+        if not ln.startswith("#")], np.int64)
+    covered = snp_at[pbas["B"]["ecoli_sim"][snp_at] > 0]
+    recall = np.isin(covered, vcf_at).mean()
+    if not planted[vcf_at].all() or recall < 0.9:
+        faults.append(f"pbautils -m 4: {int((~planted[vcf_at]).sum())} loci "
+                      f"not planted, recall {recall}")
+    bfa = next(iter(read_seqs(t / "B.pba.fa"))).codes
+    bcov = pbas["B"]["ecoli_sim"] > 0
+    if not np.array_equal(bfa[bcov], B[bcov]):
+        faults.append("pbautils -m 0: covered bases differ from B")
+    seg_truth = _bin_truth(mosaics[seg_p], n_bins)
+    seg_called = {"A": np.zeros(n_bins, bool), "B": np.zeros(n_bins, bool)}
+    for f in ("A", "B"):
+        for ln in (t / f"seg.bed.{f}.bed").read_text().splitlines()[1:]:
+            c = ln.split("\t")
+            seg_called[f][int(c[1]) // HAP_BIN:-(-int(c[2]) // HAP_BIN)] = \
+                True
+    seg_ok = seg_n = 0
+    for b, want in enumerate(seg_truth):
+        if want is None:
+            continue
+        seg_n += 1
+        seg_ok += {f for f in "AB" if seg_called[f][b]} == set(want)
+    if seg_ok < 0.95 * seg_n:
+        faults.append(f"seghaplotypes: {seg_ok} of {seg_n} bins of {seg_p} "
+                      "at its mosaic")
+    sel = [ln.split(",") for ln in (t / "m9.selected.csv").read_text()
+           .splitlines()[1:]]
+    m9_ok = m9_n = 0
+    for r in sel:
+        lo, size = int(r[2]), int(r[3])
+        for j, p in enumerate(progeny[:-1]):
+            labs = {w for s, e, w in mosaics[p] if s < lo + size and e > lo}
+            if len(labs) == 1:
+                m9_n += 1
+                m9_ok += r[4 + j].strip('"') == labs.pop()
+    code = {"A": 1, "B": 2}
+    gbs_ok = gbs_n = 0
+    comb = _csv_rows(t / "comb.csv")
+    for r in comb:
+        x = int(r[2])
+        for j, p in enumerate(progeny[:-1]):
+            call = int(r[5 + j])
+            want = [w for s, e, w in mosaics[p] if s <= x < e][0]
+            if call != -1:
+                gbs_n += 1
+                gbs_ok += call == code[want]
+    if gbs_ok < 0.99 * gbs_n or len(comb) != len(_csv_rows(
+            t / "hap1.csv")) + len(_csv_rows(t / "hap2.csv")):
+        faults.append(f"gbsmapsnps: {gbs_ok} of {gbs_n} calls at the planted "
+                      f"founder, {len(comb)} combined rows")
+    dg = _csv_rows(t / "dgts.csv")
+    qtl_rows = [r for r in dg if r[3] == "2"]
+    if len(qtl_rows) != HAP_QTLS or any(r[13] != "0" for r in qtl_rows):
+        faults.append(f"dgts: {len(qtl_rows)} QTL rows, "
+                      f"{sum(r[13] != '0' for r in qtl_rows)} whose "
+                      "reference mismatches the QTL's")
+    mk = _csv_rows(t / "markers.csv")
+    mk_at = np.array([int(r[2]) for r in mk], np.int64)
+    if not len(mk) or not planted[mk_at].all():
+        faults.append(f"snpmarkers: {len(mk)} markers, "
+                      f"{int((~planted[mk_at]).sum())} off B's SNPs")
+    di = len(_csv_rows(t / "B.disnp.csv"))
+    bed = len((t / "B.disnp.bed").read_text().splitlines())
+    vcf = sum(1 for ln in (t / "B.vcf").read_text().splitlines()
+              if not ln.startswith("#"))
+    if bed != di or vcf != len(b_snps):
+        faults.append(f"lochap2bed {bed} of {di} DiSNPs, snps2pgsnps .vcf "
+                      f"{vcf} of {len(b_snps)} SNPs")
+    cat = pba.load_pba(t / "cat.pba.npz")[1]["ecoli_sim"]
+    if len(cat) != n:
+        faults.append(f"concat: {len(cat)} loci")
+    pg_kept = sum(1 for ln in (t / "pgA.sam").read_text().splitlines()
+                  if not ln.startswith("@"))
+    pg_all = [ln.split("\t") for ln in (t / "pg.sam").read_text()
+              .splitlines() if not ln.startswith("@")]
+    if pg_kept != sum(r[2].startswith("A|#") for r in pg_all):
+        faults.append("pangenome -m 1 kept another count than A's records")
+    m3 = _csv_rows(t / "m3.csv")
+    print(f"17b on {card}: genome {n} bp, B {len(snp_at)} SNPs, progeny "
+          f"segments {[len(mosaics[p]) for p in progeny]}, {n_reads} reads "
+          f"a sample; steps {steps_s}; callhaplotypes -m 2's bins at the planted "
+          f"founder outside switch bins (of those checked) {share}, the "
+          f"heterozygous run's bins called FaFb {het_bins}; kalign called {len(b_snps)} of "
+          f"B's SNPs, repassemb turned {turned}; markerseqs {len(mseq)} "
+          f"flanks, {flank_bad} differ; pbautils -m 4 {len(vcf_at)} loci, "
+          f"recall {recall} of {len(covered)} covered; seghaplotypes "
+          f"{seg_ok} of {seg_n} bins; mode 9's selection by scores at the "
+          f"planted founder in {m9_ok} of {m9_n} bins; gbsmapsnps "
+          f"{gbs_ok} of {gbs_n}; dgts {len(dg)} rows; snpmarkers {len(mk)}; "
+          f"pangenome kalign {len(pg_all)} records; mode 3 {len(m3)} groups "
+          f"over {-(-HAP_CUT // 25_000)} bins; seconds a locus over {len(haps)} "
+          f"samples: diff_matrix's affine-gap walk {affine_s}, callhaplotypes"
+          f" -m 3 {cmd_s['callhaplotypes -m 3 (cut)'] / HAP_CUT}, -m 10 "
+          f"(group_kmers) {cmd_s['callhaplotypes -m 10 (cut)'] / HAP_CUT}; "
+          f"faults "
+          f"{faults or 'none'}")
+    if faults:
+        raise AssertionError(f"phase 17b: {faults}")
+    return steps_s
 
 
 def minmm_cases(torch, cases, minmm, minmm_plain) -> int:
@@ -3500,12 +4021,11 @@ def main() -> int:
 
     # --- 8. kalign: the JAX golden, then config #1 at full size -------
     kalign_golden(torch, dev)
-    # config #1's genome and index, written once by 8b and read by 12b,
-    # 13b-d and 16b-c; removed when the run ends
+    # config #1's genome, index, reads and SAM, written once by 8b and
+    # read by 12b, 13b-d, 16b-c and 17b; removed when the run ends
     config1 = tempfile.TemporaryDirectory(prefix=".chip_smoke_", dir=root)
     cfg1 = Path(config1.name)
-    with tempfile.TemporaryDirectory(prefix=".chip_smoke_", dir=root) as tmp:
-        kalign_full(torch, dev, card, Path(tmp), cfg1)
+    kalign_full(torch, dev, card, cfg1)
     done("8")
 
     # --- 9. kmarkers: the JAX golden, the brute force, config #3 ------
@@ -3566,11 +4086,17 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix=".chip_smoke_", dir=root) as tmp:
         blitz_launches, *blitz_out = blitz_full(torch, dev, card, Path(tmp),
                                                 cfg1)
-        longtail_full(torch, dev, card, Path(tmp), *blitz_out)
-    config1.cleanup()
+        longtail_full(torch, dev, card, Path(tmp), cfg1, *blitz_out)
     for k in sw_launches:
         sw_launches[k] += blitz_launches[k]
     done("16")
+
+    # --- 17. the PBA and haplotype family: golden, the pipeline ---------
+    haplotypes_golden(torch, dev)
+    with tempfile.TemporaryDirectory(prefix=".chip_smoke_", dir=root) as tmp:
+        haplotypes_full(torch, dev, card, Path(tmp), cfg1)
+    config1.cleanup()
+    done("17")
     if "jax" in sys.modules or "kit4b_tpu" in sys.modules:
         raise AssertionError("jax or the JAX package kit4b_tpu was imported")
 

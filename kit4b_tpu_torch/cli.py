@@ -5,7 +5,10 @@ Port of kit4b_tpu/cli.py with the `index` (-m 1 bisulfite too),
 `genpba`, `hammings`, `pseudogenome`, `kmarkers`, `prekmarkers`, `filter`,
 `assemb`, `scaffold`, `pescaffold`, `mergeoverlaps`, `rnaexpr`, `genmlds`,
 `sarscov2ml`, `ecreads`, `pbfilter`, `pbassemb`, `eccontigs`, `kmerdist`,
-`blitz`, `hrdx`, `benchmark`, `alignsbs`, `ngsqc`, `maploci` and `rnade`
+`blitz`, `hrdx`, `benchmark`, `alignsbs`, `ngsqc`, `maploci`, `rnade`,
+`callhaplotypes`, `snpmarkers`, `pbautils`, `snps2pgsnps`, `lochap2bed`,
+`markerseqs`, `repassemb`, `pangenome`, `seghaplotypes`, `gbsmapsnps`,
+`dgts` and `locmarkers` (which refuses where the JAX package fails)
 subcommands, taking the same flags and writing the same files, plus
 `--device {cuda,cpu}` on the commands that use a device (`kalign`,
 `genpba`, `hammings`, `kmarkers`, `filter` for -D, `scaffold`, `rnaexpr`,
@@ -971,6 +974,411 @@ def cmd_rnade(args) -> int:
     return 0
 
 
+def cmd_callhaplotypes(args) -> int:
+    """ngskit4b callhaplotypes equivalent. Modes (CallHaplotypes.cpp -m,
+    CallHaplotypes.h:98-113): 0 imputed matrix, 1 + raw matrices,
+    2 + GWAS; 3 allelic haplotype grouping, 4 coverage grouping,
+    5 group DGTs, 6 groupings to WIG, 7 src-vs-refs / 8 refs-vs-refs
+    allelic association scores, 9 grouping by scores, 10 group
+    segregating K-mers, 11 filter scores, 12 filter + transform."""
+    from .utils.runtime import log
+    if args.mode in (7, 8):
+        from .kmer.allelescores import gen_allele_scores
+        from .kmer.pba import load_pba_any
+        refs = {}
+        for spec in args.founder:
+            name, path = spec.split("=", 1)
+            refs[name] = load_pba_any(path)[1]
+        srcs = {}
+        for spec in (args.progeny_list or []) if args.mode == 7 else []:
+            name, path = spec.split("=", 1)
+            srcs[name] = load_pba_any(path)[1]
+        if args.mode == 7 and not srcs:
+            raise SystemExit("mode 7 needs source PBAs via -i NAME=pba")
+        n = gen_allele_scores(refs, srcs, args.outfile,
+                              bin_size=args.grphapbinsize or 100_000)
+        log.info("callhaplotypes mode %d: %d score rows -> %s",
+                 args.mode, n, args.outfile)
+        return 0
+    if args.mode == 9:
+        from .kmer.allelescores import group_allele_scores
+        res = group_allele_scores(args.allelescorefile, args.outfile,
+                                  min_unpruned=args.minunprunedrefs,
+                                  max_unpruned=args.maxunprunedrefs)
+        log.info("callhaplotypes mode 9: %d srcs x %d refs, %d bins, "
+                 "%d refs pruned -> %s{.csv,.selected.csv,.imputation*}",
+                 len(res["srcs"]), len(res["refs"]), res["bins"],
+                 int(res["pruned"].sum()), args.outfile)
+        return 0
+    if args.mode in (11, 12):
+        from .kmer.allelescores import (filter_allele_scores,
+                                        filter_transform_allele_scores)
+        fn = (filter_allele_scores if args.mode == 11
+              else filter_transform_allele_scores)
+        n = fn(args.allelescorefile, args.outfile,
+               src_res=args.filtsrcpbascores or None,
+               ref_res=args.filtrefpbascores or None)
+        log.info("callhaplotypes mode %d: %d rows -> %s", args.mode, n,
+                 args.outfile)
+        return 0
+    if args.mode in (3, 4, 5, 6, 10):
+        import numpy as np
+        from .kmer import haplogroups as hgm
+        from .kmer.pba import load_pba_any as load_pba
+        names, mats = [], []
+        chrom = None
+        for spec in args.founder:
+            name, path = spec.split("=", 1)
+            names.append(name)
+            _, chroms = load_pba(path)
+            if chrom is None:
+                chrom = sorted(chroms)[0] if args.chrom is None \
+                    else args.chrom
+            mats.append(chroms[chrom])
+        pbas = np.stack(mats)
+        bins = []
+        bs = args.grphapbinsize or pbas.shape[1]
+        for start in range(0, pbas.shape[1], bs):
+            seg = pbas[:, start:start + bs]
+            bins.append(hgm.gen_haplotype_groups(
+                seg, chrom, start,
+                coverage_mode=args.mode == 4,
+                affine_gap_len=args.affinegaplen,
+                min_dist=args.mincentclustdist,
+                max_dist=args.maxcentclustdist,
+                max_groups=args.maxclustgrps, phases=args.gpphases))
+        if args.mode in (3, 4):
+            hgm.report_groups_csv(args.outfile, bins, names)
+        elif args.mode == 5:
+            dgts = []
+            for hg_bin in bins:
+                seg = pbas[:, hg_bin.start:hg_bin.start + hg_bin.num_loci]
+                dgts.extend(hgm.bin_dgts(
+                    hg_bin, seg, min_members=args.grpdgtmbrs,
+                    min_prop=args.grpdgtsamples,
+                    min_fmeasure=args.grpdgtfmeasure,
+                    max_report=args.maxreportgrpdgts))
+            hgm.write_dgts_csv(args.outfile, dgts)
+            log.info("callhaplotypes mode 5: %d DGT loci", len(dgts))
+        elif args.mode == 6:
+            hgm.groupings_to_wig(args.outfile, bins)
+        else:
+            rows = []
+            for hg_bin in bins:
+                seg = pbas[:, hg_bin.start:hg_bin.start + hg_bin.num_loci]
+                rows.extend(hgm.group_kmers(
+                    hg_bin, seg, kmer_size=args.kmersize,
+                    min_hamming=args.minkmerhamming,
+                    max_nocov=args.kmernonecoverage,
+                    min_members=args.grpdgtmbrs))
+            with open(args.outfile, "w") as f:
+                f.write('"Chrom","Loci","MinHamming","MaxHamming"\n')
+                for r in rows:
+                    f.write(f'"{chrom}",{r["loci"]},{r["min_hamming"]},'
+                            f'{r["max_hamming"]}\n')
+            log.info("callhaplotypes mode 10: %d group KMers", len(rows))
+        log.info("callhaplotypes mode %d: %d bins, %d samples -> %s",
+                 args.mode, len(bins), len(names), args.outfile)
+        return 0
+    # modes 0/1/2: two-founder progeny calling; 1 adds raw matrices,
+    # 2 adds GWAS files (CallHaplotypes.cpp:2218-2254)
+    import os as _os
+    from .kmer.callhaplotypes import (call_haplotypes, write_haplotype_calls,
+                                      write_haplotype_matrix,
+                                      write_haplotypes_gwas)
+    founders = {}
+    for spec in args.founder:
+        name, path = spec.split("=", 1)
+        founders[name] = path
+    fnames = tuple(founders)
+    progeny = args.progeny_list or []
+    if not progeny:
+        raise SystemExit("modes 0-2 need progeny PBA(s) via -i")
+    raw_by_prog, imp_by_prog = {}, {}
+    for spec in progeny:
+        if "=" in spec:
+            pname, ppath = spec.split("=", 1)
+        else:
+            pname, ppath = _os.path.basename(spec).split(".")[0], spec
+        raw, calls = call_haplotypes(
+            ppath, founders, bin_size=args.binsize, min_loci=args.minloci,
+            ww_prox_window=args.wwrlproxwindow, return_raw=True)
+        raw_by_prog[pname] = raw
+        imp_by_prog[pname] = calls
+        write_haplotype_calls(f"{args.outfile}.{pname}.csv"
+                              if len(progeny) > 1 else args.outfile, calls)
+        if args.mode >= 1:
+            write_haplotype_calls(f"{args.outfile}.{pname}.raw.csv", raw)
+        if args.mode >= 2:
+            write_haplotypes_gwas(
+                f"{args.outfile}.{pname}.raw.gwas", raw, fnames)
+            write_haplotypes_gwas(
+                f"{args.outfile}.{pname}.imputed.gwas", calls, fnames)
+    if args.mode >= 1:
+        write_haplotype_matrix(f"{args.outfile}.raw.matrix.csv",
+                               raw_by_prog, fnames)
+    write_haplotype_matrix(f"{args.outfile}.matrix.csv", imp_by_prog,
+                           fnames)
+    from collections import Counter
+    log.info("callhaplotypes mode %d: %s -> %s", args.mode,
+             {p: dict(Counter(c.call for c in cs))
+              for p, cs in imp_by_prog.items()}, args.outfile)
+    return 0
+
+def cmd_snpmarkers(args) -> int:
+    """ngskit4b snpmarkers equivalent (CMarkers)."""
+    from .kmer.snpmarkers import find_snp_markers, write_snp_markers_csv
+    from .utils.runtime import log
+    csvs = {}
+    for spec in args.cultivar:
+        name, path = spec.split("=", 1)
+        csvs[name] = path
+    markers = find_snp_markers(csvs, min_cov=args.mincov,
+                               min_purity=args.purity / 100.0)
+    write_snp_markers_csv(args.outfile, markers, list(csvs))
+    log.info("snpmarkers: %d markers across %d cultivars -> %s",
+             len(markers), len(csvs), args.outfile)
+    return 0
+
+def cmd_pbautils(args) -> int:
+    """ngskit4b pbautils equivalent (pbautils.cpp modes): 0 PBA->fasta,
+    1 fasta->PBA, 2 PBA concordance, 3 WIG concordance, 4 allelic
+    variant VCF, 5 genotype VCF, 6 diplotype-only VCF, 7 deletion VCF,
+    8 transcribed-segment BED; plus concat/coverage extensions."""
+    from .kmer import pbautils2 as pu
+    from .kmer.pba import concat_pba, pba_coverage_wig
+    from .kmer.pba import load_pba_any as load_pba
+    from .utils.runtime import log
+    mode = args.mode
+    if mode == "concat":
+        concat_pba(args.infile, args.outfile)
+    elif mode == "coverage":
+        pba_coverage_wig(args.infile[0], args.outfile)
+    elif mode == "0":
+        _, chroms = load_pba(args.infile[0])
+        n = pu.pba_to_fasta(chroms, args.outfile)
+        log.info("pbautils fasta: %d chroms", n)
+    elif mode == "1":
+        from .io.fasta import Genome
+        from .kmer.pba import save_pba
+        import numpy as np
+        g = Genome.load(*args.infile)
+        chroms = pu.fasta_to_pba(g)
+        save_pba(args.outfile, g,
+                 np.concatenate([chroms[n] for n in g.names]),
+                 readset="assembly")
+    elif mode in ("2", "3"):
+        samples = {}
+        for p_ in args.infile:
+            rs, chroms = load_pba(p_)
+            samples[rs] = chroms
+        rows = pu.pba_concordance(samples) if mode == "2" else \
+            pu.wig_concordance(samples)
+        pu.write_concordance_csv(args.outfile, rows)
+    elif mode == "4":
+        if not args.refpba:
+            raise ValueError("mode 4 requires --refpba")
+        _, ref = load_pba(args.refpba)
+        _, smp = load_pba(args.infile[0])
+        n = pu.allelic_vcf(ref, smp, args.outfile)
+        log.info("pbautils allelic VCF: %d variant loci", n)
+    elif mode in ("5", "6", "7"):
+        if not args.refpba:
+            raise ValueError(f"mode {mode} requires --refpba")
+        _, ref = load_pba(args.refpba)
+        samples = {}
+        for p_ in args.infile:
+            rs, chroms = load_pba(p_)
+            samples[rs] = chroms
+        n = pu.genotype_vcf(ref, samples, args.outfile,
+                            diplotype_only=mode == "6",
+                            deletions=mode == "7",
+                            max_na_prop=args.gtpropna,
+                            min_het_prop=args.gtprophet
+                            if mode == "6" else 0.0)
+        log.info("pbautils genotype VCF mode %s: %d loci", mode, n)
+    elif mode == "8":
+        samples = {}
+        for p_ in args.infile:
+            rs, chroms = load_pba(p_)
+            samples[rs] = chroms
+        n = pu.transcribed_bed(samples, args.outfile)
+        log.info("pbautils BED: %d segments", n)
+    else:
+        raise ValueError(f"unknown pbautils mode {args.mode}")
+    log.info("pbautils %s -> %s", args.mode, args.outfile)
+    return 0
+
+def cmd_snps2pgsnps(args) -> int:
+    """ngskit4b snps2pgsnps equivalent (CSNPs2pgSNPs)."""
+    from .tools.snpsfmt import read_snps_csv, write_pgsnp
+    from .utils.runtime import log
+    snps = read_snps_csv(args.infile)
+    if args.outfile.endswith(".vcf"):
+        from .align.snp import SnpCall, write_snps_vcf
+        calls = []
+        for s in snps:
+            cnts = np.array(s["counts"], np.int64)
+            ref_i = "ACGTN".index(s["ref"])
+            cnts[ref_i] = s["bases"] - s["mm"]
+            calls.append(SnpCall(s["chrom"], s["loci"], ref_i, cnts,
+                                 s["bases"], s["mm"], 0.0, s["pvalue"]))
+        write_snps_vcf(args.outfile, calls)
+    else:
+        write_pgsnp(args.outfile, snps, track=args.track,
+                    min_count=args.mincount)
+    log.info("snps2pgsnps: %d SNPs -> %s", len(snps), args.outfile)
+    return 0
+
+def cmd_lochap2bed(args) -> int:
+    """ngskit4b lochap2bed equivalent (Di/TriSNP haplotypes -> BED)."""
+    from .tools.snpsfmt import lochap_to_bed
+    from .utils.runtime import log
+    n = lochap_to_bed(args.infile, args.outfile)
+    log.info("lochap2bed: %d haplotypes -> %s", n, args.outfile)
+    return 0
+
+def cmd_markerseqs(args) -> int:
+    """ngskit4b markerseqs equivalent (CMarkerSeq)."""
+    from .io.fasta import Genome
+    from .tools.snpsfmt import (marker_seqs, read_snps_csv,
+                                write_marker_seqs_csv)
+    from .utils.runtime import log
+    g = Genome.load(args.genome)
+    m = marker_seqs(g, read_snps_csv(args.infile), flank=args.flank)
+    write_marker_seqs_csv(args.outfile, m)
+    log.info("markerseqs: %d markers -> %s", len(m), args.outfile)
+    return 0
+
+def cmd_repassemb(args) -> int:
+    """ngskit4b repassemb equivalent (replace bases w/ major alleles)."""
+    from .io.fasta import Genome, SeqRecord, write_fasta
+    from .tools.snpsfmt import read_snps_csv, replace_assembly_alleles
+    from .utils.runtime import log
+    g = Genome.load(args.genome)
+    n = replace_assembly_alleles(g, read_snps_csv(args.infile),
+                                 min_prop=args.minprop)
+    recs = []
+    for ci, name in enumerate(g.names):
+        s = int(g.starts[ci])
+        recs.append(SeqRecord(name, "", g.seq[s: s + int(g.lengths[ci])]))
+    write_fasta(args.outfile, recs)
+    log.info("repassemb: %d bases replaced -> %s", n, args.outfile)
+    return 0
+
+def cmd_pangenome(args) -> int:
+    """ngskit4b pangenome equivalent (CPangenome modes 0-3)."""
+    from .tools import pangenes
+    from .utils.runtime import log
+    if args.mode == 0:
+        n = pangenes.prefix_fasta(args.infile, args.outfile, args.prefix)
+        log.info("pangenome: prefixed %d descriptors -> %s", n,
+                 args.outfile)
+    elif args.mode == 1:
+        st = pangenes.filter_sam_prefix(args.infile, args.outfile,
+                                        args.prefix)
+        log.info("pangenome: %s -> %s", st, args.outfile)
+    else:
+        n = pangenes.binned_wiggle(
+            args.infile, args.outfile, bin_kbp=args.binsizekbp,
+            unique_loci=(args.mode == 3),
+            track_name=args.prefix or "pangenome")
+        log.info("pangenome: %d wiggle bins -> %s", n, args.outfile)
+    return 0
+
+def cmd_seghaplotypes(args) -> int:
+    """ngskit4b seghaplotypes equivalent (CSegHaplotypes,
+    seghaplotypes.cpp:887 GenBinnedSegments): founder-tagged SAM ->
+    smoothed per-founder bins -> seed + interpolation calling -> score-run
+    BEDs split per founder (plus raw-alignment BEDs)."""
+    from .tools.seghaps import run_seghaplotypes
+    from .utils.runtime import log
+    res = run_seghaplotypes(
+        args.infile, args.outfile, bin_size_kbp=args.binsizekbp,
+        min_bin_score=args.minbinscore, min_bin_prop=args.minbinprop,
+        snp_marker_mult=args.snpmarkermult,
+        unique_loci=(args.mode == 0), dont_score=args.noscore,
+        no_split=args.split, snp_markers=args.snpmarkers,
+        alignment_beds=args.alignbeds, track_name=args.trackname,
+        track_descr=args.trackdescr)
+    log.info("seghaplotypes: %d alignments, founders %s, %d bins called "
+             "-> %s", res["n_alignments"], res["founders"],
+             res["called_bins"], list(res["beds"]))
+    return 0
+
+def cmd_gbsmapsnps(args) -> int:
+    """ngskit4b gbsmapsnps equivalent (CGBSmapSNPs)."""
+    from .kmer import gbs
+    from .utils.runtime import log
+    if args.mode == 0:
+        cmap = gbs.load_chrom_map(args.cnmap) if args.cnmap else None
+        founders, progenies, rows = gbs.map_gbs_snps(args.infile, cmap)
+        gbs.write_haplotype_matrix(args.outfile, founders, progenies,
+                                   rows, expr_id=args.exprid)
+        reports = gbs.write_progeny_reports(args.outfile, founders,
+                                            progenies, rows,
+                                            expr_id=args.exprid)
+        log.info("gbsmapsnps: %d loci x %d progenies -> %s (+%d progeny "
+                 "reports)", len(rows), len(progenies), args.outfile,
+                 len(reports))
+    else:
+        st = gbs.combine_matrices(args.infile, args.cnmap, args.outfile)
+        log.info("gbsmapsnps combine: %s -> %s", st, args.outfile)
+    return 0
+
+def cmd_dgts(args) -> int:
+    """ngskit4b dgts equivalent (CDGTvQTLs): mode 0 QTL-only, mode 1
+    DGT and QTL loci, classified against a reference-assembly PBA with
+    coverage / homozygosity / ref-mismatch characterisation
+    (CDGTvQTLs.cpp AnalyseInstance)."""
+    from .kmer import dgtqtl
+    from .kmer.pba import load_pba_any as load_pba
+    from .utils.runtime import log
+    instances = dgtqtl.load_qtl_alleles(args.qtlsfile) \
+        if args.qtlsfile else []
+    if args.mode >= 1 and args.dgtsfile:
+        instances.extend(dgtqtl.load_dgt_loci(args.dgtsfile))
+    sample_pbas = {}
+    for spec in args.samplefiles:
+        name = spec.split("=", 1)[0] if "=" in spec else spec
+        path = spec.split("=", 1)[1] if "=" in spec else spec
+        _, chroms = load_pba(path)
+        sample_pbas[name] = chroms
+    if args.refpba:
+        _, ref = load_pba(args.refpba)
+    else:
+        # without an explicit reference, synthesize one from QTL refs:
+        # the first sample stands in (flagged in the output semantics)
+        ref = sample_pbas[next(iter(sample_pbas))]
+    rows = dgtqtl.analyse_dgt_qtls(instances, ref, sample_pbas,
+                                   mode=args.mode,
+                                   min_coverage=args.mincovp,
+                                   homoz_prop=args.homozp)
+    dgtqtl.write_dgt_qtl_csv(args.outfile, rows)
+    log.info("dgts: %d loci x %d samples -> %s", len(rows),
+             len(sample_pbas), args.outfile)
+    return 0
+
+
+def cmd_locmarkers(args) -> int:
+    """ngskit4b locmarkers equivalent (CLocKMers over an index's chosen
+    chromosomes). The JAX package computes the markers, then fails on
+    `write_markers_fasta(..., cultivar=)`, a parameter that function does
+    not take (TypeError; kit4b_tpu/cli_tools.py:406 against
+    kit4b_tpu/kmer/kmarkers.py:302), and writes no file. The port refuses
+    before it loads the index, so that neither package writes markers
+    until both are mended: `find_cultivar_markers` and
+    `write_markers_fasta` without `cultivar=` are held equal at function
+    level (ROADMAP.md queue C)."""
+    raise ValueError(
+        "locmarkers: the JAX package's locmarkers fails with TypeError "
+        "after computing its markers (write_markers_fasta() takes no "
+        "cultivar=; ROADMAP.md queue C, '`locmarkers` raises `TypeError`'"
+        "); the port refuses likewise and writes nothing. kmarkers -t "
+        "computes the same markers")
+
+
+
 def _kalign_args(p: argparse.ArgumentParser) -> None:
     """kit4b_tpu's kalign flags, copied, plus --device."""
     p.add_argument("-i", "--in", dest="infile", nargs="+", required=True)
@@ -1531,6 +1939,197 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-L", "--limitaligned", type=int, default=0)
     _common(p)
     p.set_defaults(fn=cmd_rnade)
+
+    p = sub.add_parser("callhaplotypes",
+                       help="founder/progeny haplotype calls + grouping")
+    p.add_argument("-m", "--mode", type=int, default=0,
+                   help="0 imputed matrix, 1 +raw matrices, 2 +GWAS, "
+                        "3 allelic grouping, 4 coverage grouping, "
+                        "5 group DGTs, 6 WIG, 7 src-vs-refs scores, "
+                        "8 refs-vs-refs scores, 9 grouping by scores, "
+                        "10 group KMers, 11 filter scores, "
+                        "12 filter+transform scores")
+    p.add_argument("-i", "--progeny", dest="progeny_list", nargs="+",
+                   default=None, metavar="[NAME=]pba",
+                   help="progeny/source PBA(s)")
+    p.add_argument("-c", "--founder", nargs="*", default=[],
+                   metavar="NAME=pba",
+                   help="founder/reference PBAs (two for modes 0-2)")
+    p.add_argument("-A", "--allelescorefile", default=None,
+                   help="scores CSV from mode 7/8 (modes 9/11/12)")
+    p.add_argument("--minunprunedrefs", type=int, default=1,
+                   help="mode 9: prune while >= this many refs remain")
+    p.add_argument("-P", "--maxunprunedrefs", type=int, default=4,
+                   help="mode 9: prune until <= this many refs remain")
+    p.add_argument("-r", "--filtsrcpbascores", nargs="*", default=[],
+                   help="modes 11/12: retain source PBA name regexes")
+    p.add_argument("-R", "--filtrefpbascores", nargs="*", default=[],
+                   help="modes 11/12: retain reference PBA name regexes")
+    p.add_argument("-o", "--out", dest="outfile", required=True)
+    p.add_argument("-b", "--binsize", type=int, default=10_000)
+    p.add_argument("--minloci", type=int, default=5)
+    p.add_argument("--wwrlproxwindow", type=int, default=1_000_000,
+                   help="Wald-Wolfowitz runs-test proximal window "
+                        "(0 disables het imputation)")
+    p.add_argument("-C", "--chrom", default=None,
+                   help="grouping modes: process this chromosome")
+    p.add_argument("-a", "--affinegaplen", type=int, default=3)
+    p.add_argument("-g", "--grphapbinsize", type=int, default=0,
+                   help="grouping bin size (0 = one bin per chrom)")
+    p.add_argument("-G", "--maxclustgrps", type=int, default=5)
+    p.add_argument("-p", "--gpphases", type=int, default=10)
+    p.add_argument("-d", "--mincentclustdist", type=int, default=5)
+    p.add_argument("-D", "--maxcentclustdist", type=int, default=10_000)
+    p.add_argument("-n", "--grpdgtmbrs", type=int, default=10)
+    p.add_argument("--grpdgtsamples", type=float, default=0.10)
+    p.add_argument("-Q", "--grpdgtfmeasure", type=float, default=0.90)
+    p.add_argument("-N", "--maxreportgrpdgts", type=int,
+                   default=10_000_000)
+    p.add_argument("-k", "--kmersize", type=int, default=25)
+    p.add_argument("-K", "--minkmerhamming", type=int, default=2)
+    p.add_argument("-U", "--kmernonecoverage", type=int, default=0)
+    _common(p)
+    p.set_defaults(fn=cmd_callhaplotypes)
+
+    p = sub.add_parser("snpmarkers",
+                       help="cross-cultivar SNP-derived markers")
+    p.add_argument("-c", "--cultivar", nargs="+", required=True,
+                   metavar="NAME=snps.csv")
+    p.add_argument("-o", "--out", dest="outfile", required=True)
+    p.add_argument("-m", "--mincov", type=int, default=5)
+    p.add_argument("-p", "--purity", type=float, default=80.0,
+                   help="min major-allele percent")
+    _common(p)
+    p.set_defaults(fn=cmd_snpmarkers)
+
+    p = sub.add_parser("pbautils", help="PBA utilities (pbautils.cpp)")
+    p.add_argument("-m", "--mode", required=True,
+                   choices=["0", "1", "2", "3", "4", "5", "6", "7", "8",
+                            "concat", "coverage"],
+                   help="0 PBA->fasta, 1 fasta->PBA, 2/3 concordance, "
+                        "4 allelic VCF, 5/6/7 genotype VCFs, 8 BED")
+    p.add_argument("-i", "--in", dest="infile", nargs="+", required=True)
+    p.add_argument("-o", "--out", dest="outfile", required=True)
+    p.add_argument("-r", "--refpba", default=None,
+                   help="reference assembly PBA (modes 4-7)")
+    p.add_argument("--gtpropna", type=float, default=0.5)
+    p.add_argument("--gtprophet", type=float, default=0.0)
+    _common(p)
+    p.set_defaults(fn=cmd_pbautils)
+
+    p = sub.add_parser("snps2pgsnps",
+                       help="kalign SNP CSV -> UCSC pgSnp (or .vcf)")
+    p.add_argument("-i", "--in", dest="infile", required=True)
+    p.add_argument("-o", "--out", dest="outfile", required=True)
+    p.add_argument("-t", "--track", default="kit4b_tpu")
+    p.add_argument("-c", "--mincount", type=int, default=1)
+    _common(p)
+    p.set_defaults(fn=cmd_snps2pgsnps)
+
+    p = sub.add_parser("lochap2bed",
+                       help="Di/TriSNP local haplotypes CSV -> BED")
+    p.add_argument("-i", "--in", dest="infile", required=True)
+    p.add_argument("-o", "--out", dest="outfile", required=True)
+    _common(p)
+    p.set_defaults(fn=cmd_lochap2bed)
+
+    p = sub.add_parser("markerseqs",
+                       help="marker flank sequences around SNP loci")
+    p.add_argument("-i", "--in", dest="infile", required=True,
+                   help="kalign SNP CSV")
+    p.add_argument("-g", "--genome", required=True)
+    p.add_argument("-o", "--out", dest="outfile", required=True)
+    p.add_argument("-l", "--flank", type=int, default=25)
+    _common(p)
+    p.set_defaults(fn=cmd_markerseqs)
+
+    p = sub.add_parser("repassemb",
+                       help="replace assembly bases with SNP major alleles")
+    p.add_argument("-i", "--in", dest="infile", required=True,
+                   help="kalign SNP CSV")
+    p.add_argument("-g", "--genome", required=True)
+    p.add_argument("-o", "--out", dest="outfile", required=True)
+    p.add_argument("-p", "--minprop", type=float, default=0.5)
+    _common(p)
+    p.set_defaults(fn=cmd_repassemb)
+
+    p = sub.add_parser("pangenome",
+                       help="founder-tagged pangenome processing")
+    p.add_argument("-m", "--mode", type=int, default=0,
+                   help="0 prefix fasta, 1 filter SAM by prefix, "
+                        "2 wiggle all, 3 wiggle unique loci")
+    p.add_argument("-p", "--prefix", default="",
+                   help="founder/descriptor prefix")
+    p.add_argument("-b", "--binsizekbp", type=int, default=10)
+    p.add_argument("-i", "--in", dest="infile", required=True)
+    p.add_argument("-o", "--out", dest="outfile", required=True)
+    _common(p)
+    p.set_defaults(fn=cmd_pangenome)
+
+    p = sub.add_parser("seghaplotypes",
+                       help="pangenome founder segment calling -> BED")
+    p.add_argument("-m", "--mode", type=int, default=0,
+                   help="0 unique loci bins, 1 all alignments")
+    p.add_argument("-s", "--split", action="store_true",
+                   help="don't split output files by haplotype tag")
+    p.add_argument("-n", "--noscore", action="store_true",
+                   help="don't score haplotype segment bins")
+    p.add_argument("-b", "--binsizekbp", type=int, default=10)
+    p.add_argument("--minbinscore", type=int, default=10)
+    p.add_argument("-M", "--minbinprop", type=float, default=0.3)
+    p.add_argument("-c", "--snpmarkermult", type=int, default=25)
+    p.add_argument("-I", "--snpmarkers", default=None,
+                   help="snpmarkers CSV (SNP marker loci association)")
+    p.add_argument("--alignbeds", action="store_true",
+                   help="also write per-founder raw-alignment BEDs")
+    p.add_argument("-t", "--trackname", default="seghaps")
+    p.add_argument("-d", "--trackdescr", default="founder segments")
+    p.add_argument("-i", "--in", dest="infile", nargs="+", required=True)
+    p.add_argument("-o", "--out", dest="outfile", required=True)
+    _common(p)
+    p.set_defaults(fn=cmd_seghaplotypes)
+
+    p = sub.add_parser("gbsmapsnps",
+                       help="GBS SNP calls -> founder haplotype matrix")
+    p.add_argument("-m", "--mode", type=int, default=0,
+                   help="0 map SNPs to haplotypes, 1 combine matrices")
+    p.add_argument("-e", "--exprid", type=int, default=1)
+    p.add_argument("-i", "--in", dest="infile", required=True,
+                   help="-m0: GBS SNP CSV; -m1: matrix M1")
+    p.add_argument("-I", "--cnmap", default=None,
+                   help="-m0: chrom name map CSV; -m1: matrix M2")
+    p.add_argument("-o", "--out", dest="outfile", required=True)
+    _common(p)
+    p.set_defaults(fn=cmd_gbsmapsnps)
+
+    p = sub.add_parser("dgts", help="DGT/QTL allele analysis over PBAs")
+    p.add_argument("-m", "--mode", type=int, default=0,
+                   help="0 QTL-only, 1 DGT and QTL loci")
+    p.add_argument("-Q", "--qtlsfile", default=None,
+                   help="QTL alleles CSV (chrom,loci,ref[,alt])")
+    p.add_argument("-D", "--dgtsfile", default=None,
+                   help="DGT loci CSV (callhaplotypes mode 5 output)")
+    p.add_argument("-I", "--refpba", default=None,
+                   help="reference assembly PBA (pbautils -m1 output)")
+    p.add_argument("-i", "--samplefiles", nargs="+", required=True,
+                   help="sample PBA files (name=path or path)")
+    p.add_argument("-k", "--mincovp", type=float, default=0.8)
+    p.add_argument("-p", "--homozp", type=float, default=0.95)
+    p.add_argument("-o", "--out", dest="outfile", required=True)
+    _common(p)
+    p.set_defaults(fn=cmd_dgts)
+
+    p = sub.add_parser("locmarkers", help="cultivar marker K-mers")
+    p.add_argument("-m", "--mode", type=int, default=0)
+    p.add_argument("-k", "--kmer", type=int, default=50)
+    p.add_argument("-K", "--minhamming", type=int, default=2)
+    p.add_argument("-c", "--cultivar", required=True)
+    p.add_argument("-C", "--chromnames", required=True)
+    p.add_argument("-i", "--in", dest="infile", required=True)
+    p.add_argument("-o", "--markers", dest="outfile", required=True)
+    p.add_argument("-O", "--markerreads", default=None)
+    _common(p)
+    p.set_defaults(fn=cmd_locmarkers)
     return ap
 
 

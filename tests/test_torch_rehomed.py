@@ -1424,3 +1424,39 @@ def test_readstats_summary_and_empty_inputs_match(tmp_path):
     j = jrs.compute_readstats([jfa.SeqRecord("a", "", np.full(
         3, 4, np.uint8))], kmer_len=4)
     assert p.summary() == j.summary() and p.kmer_counts == j.kmer_counts
+
+
+HAPLOTYPE_MODULES = ("kmer/pba.py", "kmer/pbautils2.py",
+                     "kmer/callhaplotypes.py", "kmer/haplogroups.py",
+                     "kmer/allelescores.py", "kmer/dgtqtl.py",
+                     "kmer/snpmarkers.py", "kmer/gbs.py",
+                     "tools/snpsfmt.py", "tools/pangenes.py",
+                     "tools/seghaps.py")
+
+
+@pytest.mark.parametrize("path", HAPLOTYPE_MODULES)
+def test_haplotype_modules_are_copies(path):
+    """The PBA and haplotype family's modules, copied whole: the same code
+    statement for statement (only the module docstring says it is the
+    port's), so every tie rule, rounding and iteration order is the JAX
+    package's; tests/test_torch_haplotypes.py runs them side by side."""
+    import ast
+    import importlib
+    from pathlib import Path
+    repo = Path(__file__).resolve().parent.parent
+
+    def body(pkg):
+        tree = ast.parse((repo / pkg / path).read_text())
+        doc = tree.body[0]
+        assert isinstance(doc, ast.Expr) and isinstance(doc.value,
+                                                        ast.Constant)
+        return [ast.dump(n) for n in tree.body[1:]], doc.value.value
+    jb, _ = body("kit4b_tpu")
+    pb, pdoc = body("kit4b_tpu_torch")
+    assert pb == jb
+    assert "port's copy of kit4b_tpu/" + path in " ".join(pdoc.split())
+    name = path[:-3].replace("/", ".")
+    jm = importlib.import_module(f"kit4b_tpu.{name}")
+    pm = importlib.import_module(f"kit4b_tpu_torch.{name}")
+    public = sorted(n for n in vars(jm) if not n.startswith("__"))
+    assert sorted(n for n in vars(pm) if not n.startswith("__")) == public

@@ -10,8 +10,13 @@ BAI, with the SNP side outputs) and paired ends (also of unequal mates),
 `scaffold`, `pescaffold`, `rnaexpr`, `genmlds`, `sarscov2ml`, the
 PacBio commands `pbfilter`, `ecreads`, `pbassemb` and `eccontigs`, and
 `blitz`, `hrdx`, `kmerdist`, `benchmark`, `alignsbs`, `ngsqc`, `maploci`
-and `rnade` on the long-tail golden's inputs, with `--device cpu` where a
-command takes one) on a small seeded genome. The
+and `rnade` on the long-tail golden's inputs, and the PBA and haplotype
+family `callhaplotypes`, `pbautils`, `snpmarkers`, `snps2pgsnps`,
+`lochap2bed`, `markerseqs`, `repassemb`, `pangenome`, `seghaplotypes`,
+`gbsmapsnps` and `dgts` on the haplotypes golden's inputs (modules
+kmer.pba, pbautils2, callhaplotypes, haplogroups, allelescores, dgtqtl,
+snpmarkers, gbs, tools.snpsfmt, pangenes, seghaps), with `--device cpu`
+where a command takes one) on a small seeded genome. The
 runs that build a suffix index need the port's host library and skip
 without it. This file imports neither package either:
 
@@ -422,3 +427,18 @@ def test_cli_longtail_commands_with_both_blocked(tmp_path, host_library):
          "    bad = mg.differing(out, {k: z[k] for k in z.files})\n"
          "assert bad == [], bad\n"
          "assert len(out) >= 35\n", tmp_path)
+
+
+def test_cli_haplotype_commands_with_both_blocked(tmp_path):
+    """Every mode of callhaplotypes, pbautils, snpmarkers, snps2pgsnps,
+    lochap2bed, markerseqs, repassemb, pangenome, seghaplotypes,
+    gbsmapsnps and dgts through the CLI on the inputs of
+    `make_haplotypes_golden`, their outputs equal to the committed golden
+    (host numpy only: no index, no device)."""
+    _run("import numpy as np\n"
+         "from kit4b_tpu_torch.tools import make_haplotypes_golden as mg\n"
+         "out = mg.compute(mg.port_fns())\n"
+         "with np.load(mg.GOLDEN) as z:\n"
+         "    bad = mg.differing(out, {k: z[k] for k in z.files})\n"
+         "assert bad == [], bad\n"
+         "assert len(out) >= 140\n", tmp_path)
