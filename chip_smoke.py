@@ -25,7 +25,8 @@ result:
    bound.
 3. `hammings_exhaustive_mxu` on the card against the numpy oracle on a
    2 kbp seeded genome with N bases and an EOS, K 7 and 25, antisense on
-   and off: exact equality.
+   and off: exact equality (the four oracles run in worker processes from
+   the start, beside phases 1 and 2).
 4. The CLI end to end: `hammings -K 25 -n NUMNODES -N 1` on a seeded
    synthetic genome with the 16 nuclear chromosome lengths of
    S. cerevisiae R64 (12,071,326 bp), with planted near-copies and N runs.
@@ -275,7 +276,8 @@ result:
    callhaplotypes, pbautils, snpmarkers, snps2pgsnps, lochap2bed,
    markerseqs, repassemb, pangenome, seghaplotypes, gbsmapsnps and dgts,
    59 runs) against the JAX package's committed golden: every text file
-   byte for byte, every .npz array by array. (b) `haplotypes_full`:
+   byte for byte, every .npz array by array (`host_golden`, in a worker
+   process beside phase 16). (b) `haplotypes_full`:
    founder A is config #1's genome, founder B A with 0.5 % seeded SNPs,
    four progeny mosaics of A and B in segments of 100-500 kbp, the last
    with a heterozygous run; each sample's error-free reads at 5x through
@@ -283,10 +285,22 @@ result:
    the PBAs, the SNP CSVs and a progeny aligned to the A + B pangenome,
    each step timed and held to the planted truth (its docstring lists the
    checks and the cuts).
+18. The converters and file tools (host only). (a) The port's CLI on the
+   seeded workload of `kit4b_tpu_torch.tools.make_convert_golden` (every
+   command of ROADMAP item 19(c1), each mode and each flag that picks
+   another code path, 92 runs) against the JAX package's committed golden:
+   text byte for byte, a .npz array by array, a SQLite database by its
+   dump (`host_golden`, in a worker process beside phase 16). (b)
+   `convert_full`: `genbioseq`, `quickcount -l 1 -L 5`,
+   `fasta2bed` and `genbiobed` on config #1's genome, `fasta2nxx` and
+   `xfasta` on 8b's reads, `splitmultifasta`, `psl2csv` and `psl2sqlite`
+   on 16b's queries and PSL, `snps2sqlite` and `snpm2sqlite` on 17b's CSVs,
+   `de2sqlite` on 16c's rnade CSV, each command timed and held to a direct
+   count of its input (its docstring lists the checks).
 
 Each kernel's launch counter is set to 0 just before its path (phases 4, 6,
 7, each CLI step of 15c and 16b's gapped `blitz`) and read just after it;
-phases 8-14 and 17 run none of the kernels. The script prints its
+phases 8-14, 17 and 18 run none of the kernels. The script prints its
 seconds, and
 each phase's, before the kernels line. The line before the last is a JSON
 table of the kernels, each with its bound (the least time the card could
@@ -3230,21 +3244,28 @@ HAP_QTLS = 2_000          # dgts' QTL loci, from B's planted SNPs
 HAP_GBS = 6_000           # GBS loci, from B's planted SNPs
 
 
-def haplotypes_golden(torch, dev):
-    """Phase 17a: every mode of the PBA and haplotype commands on the
-    seeded workload of `make_haplotypes_golden`, through the port's CLI,
-    against the JAX package's committed golden (host only)."""
-    from kit4b_tpu_torch.tools import make_haplotypes_golden as mg
+def host_golden(name: str) -> str:
+    """Phases 17a and 18a: the host-only golden of
+    `kit4b_tpu_torch.tools.make_<name>_golden` (every mode of the PBA and
+    haplotype commands; every converter and file tool) through the port's
+    CLI against the JAX package's committed file, every text byte for
+    byte, every .npz array by array, every SQLite database by its dump.
+    main() runs it in a worker process beside phase 16. Returns the line
+    to print; raises if an array differs."""
+    import importlib
+    import sqlite3
+    mg = importlib.import_module(f"kit4b_tpu_torch.tools.make_{name}_golden")
     t0 = time.perf_counter()
     out = mg.compute(mg.port_fns())
     with np.load(mg.GOLDEN) as z:
         gold = {k: z[k] for k in z.files}
     bad = mg.differing(out, gold)
-    print(f"haplotypes golden: {len(out)} arrays of {len(mg.RUNS)} CLI runs "
-          f"in {time.perf_counter() - t0} s; differing: {bad or 'none'}; "
-          f"edges missed: {mg.check_reach(out) or 'none'}")
     if bad:
-        raise AssertionError(f"the haplotypes golden differs: {bad[:10]}")
+        raise AssertionError(f"the {name} golden differs: {bad[:10]}")
+    return (f"{name} golden: {len(out)} arrays of {len(mg.RUNS)} CLI runs in "
+            f"{time.perf_counter() - t0} s in a worker process (SQLite "
+            f"{sqlite3.sqlite_version}); differing: none; edges missed: "
+            f"{mg.check_reach(out) or 'none'}")
 
 
 def hap_mosaic(rng, n: int, het: bool) -> list[tuple[int, int, str]]:
@@ -3720,6 +3741,142 @@ def haplotypes_full(torch, dev, card, tmp: Path, cfg1: Path):
     return steps_s
 
 
+# the converters and file tools (phase 18)
+
+XFASTA_PATTERN = r"^lcl\|[0-9]*7\|"   # 18b: a tenth of 8b's reads by id
+
+
+def _db_count(path: Path, table: str) -> int:
+    import sqlite3
+    con = sqlite3.connect(path)
+    try:
+        return con.execute(f"SELECT COUNT(*) FROM {table}").fetchone()[0]
+    finally:
+        con.close()
+
+
+def convert_full(card, tmp: Path, cfg1: Path, t16: Path, t17: Path) -> dict:
+    """Phase 18b: the converters on files earlier phases wrote, each
+    command timed: `genbioseq` of config #1's genome, loaded back equal to
+    `Genome.load` of its FASTA; `quickcount` k 1..5 on it, each k's counts
+    summing to its windows of valid bases counted directly and k 1's equal
+    to a bincount; `fasta2nxx` and `xfasta` on 8b's 100,000 reads against
+    their lengths and names; `fasta2bed` -> `genbiobed` of the genome,
+    equal to `BedFile.load` of the BED; `splitmultifasta` on 16b's 1,050
+    queries, the files' records in order equal to the input's; `psl2csv`
+    and `psl2sqlite` on 16b's PSL, a row a PSL line; `snps2sqlite` and
+    `snpm2sqlite` on 17b's SNP and marker CSVs and `de2sqlite` on 16c's
+    rnade CSV, a row a CSV row (snpm2sqlite: a locus a row, and a marker
+    row for each column it reads as a cultivar, queue C). Returns the
+    seconds of each command."""
+    from kit4b_tpu_torch.io.bed import BedFile
+    from kit4b_tpu_torch.io.fasta import Genome, read_seqs
+    fa, _ = config1_files(cfg1)
+    reads_fa, _, _ = config1_reads(cfg1)
+    queries, psl, de = t16 / "queries.fa", t16 / "blitz.psl", t16 / "de.csv"
+    snps, markers = t17 / "B.csv", t17 / "markers.csv"
+    t = tmp
+    seconds = {}
+    printed = _cli_steps(card, [
+        ("genbioseq", ["genbioseq", "-i", fa, "-o", t / "g.seq"]),
+        ("quickcount", ["quickcount", "-i", fa, "-o", t / "qc.csv", "-l",
+                        "1", "-L", "5"]),
+        ("fasta2nxx", ["fasta2nxx", "-i", reads_fa, "-o", t / "nxx.json"]),
+        ("xfasta", ["xfasta", "-i", reads_fa, "-o", t / "x.fa", "-p",
+                    XFASTA_PATTERN]),
+        ("fasta2bed", ["fasta2bed", "-i", fa, "-o", t / "g.bed"]),
+        ("genbiobed", ["genbiobed", "-i", t / "g.bed", "-o", t / "g.biobed"]),
+        ("splitmultifasta", ["splitmultifasta", "-i", queries, "-o",
+                             t / "split"]),
+        ("psl2csv", ["psl2csv", "-i", psl, "-o", t / "psl.csv"]),
+        ("psl2sqlite", ["psl2sqlite", "-i", psl, "-o", t / "psl.db"]),
+        ("snps2sqlite", ["snps2sqlite", "-i", snps, "-o", t / "snps.db"]),
+        ("snpm2sqlite", ["snpm2sqlite", "-i", markers, "-o", t / "mk.db"]),
+        ("de2sqlite", ["de2sqlite", "-i", de, "-o", t / "de.db"])], seconds)
+    faults = []
+    g = Genome.load(fa)
+    back = Genome.load_bioseq(t / "g.seq.npz")
+    if back.names != g.names or not all(np.array_equal(
+            getattr(back, k), getattr(g, k))
+            for k in ("starts", "lengths", "seq")):
+        faults.append("genbioseq's container differs from the FASTA")
+    codes = g.seq[int(g.starts[0]):int(g.starts[0] + g.lengths[0])]
+    valid = (codes <= 3).astype(np.int64)
+    counts = {}
+    for r in _csv_rows(t / "qc.csv"):
+        counts.setdefault(int(r[0]), {})[r[1].strip('"')] = int(r[2])
+    for k in range(1, 6):
+        want = int((np.convolve(valid, np.ones(k, np.int64), "valid")
+                    == k).sum())
+        if sum(counts.get(k, {}).values()) != want:
+            faults.append(f"quickcount k {k}: "
+                          f"{sum(counts.get(k, {}).values())} of {want}")
+    ones = np.bincount(codes[codes <= 3], minlength=4)
+    if [counts[1].get(b, 0) for b in "ACGT"] != ones.tolist():
+        faults.append("quickcount k 1 differs from a bincount")
+    names, lens = zip(*((r.name, len(r.codes)) for r in read_seqs(reads_fa)))
+    lens = np.sort(lens)[::-1]
+    n50 = int(lens[np.searchsorted(np.cumsum(lens), lens.sum() / 2)])
+    nxx = json.loads(printed["fasta2nxx"])
+    if nxx != json.loads((t / "nxx.json").read_text()) or \
+            nxx["seqs"] != len(lens) or nxx["total_bp"] != lens.sum() or \
+            nxx["N50"] != n50:
+        faults.append(f"fasta2nxx: {nxx}")
+    pat = re.compile(XFASTA_PATTERN)
+    want_x = [n for n in names if pat.search(n)]
+    got_x = [r.name for r in read_seqs(t / "x.fa")]
+    if got_x != want_x or not 0.05 * len(lens) < len(got_x) < 0.2 * len(lens):
+        faults.append(f"xfasta kept {len(got_x)} of {len(want_x)}")
+    bed = BedFile.load(t / "g.bed").features
+    with np.load(t / "g.biobed.npz") as z:
+        biobed = list(zip(*(z[k].tolist() for k in (
+            "chrom", "start", "end", "name", "score", "strand"))))
+    if biobed != [(f.chrom, f.start, f.end, f.name, f.score, f.strand)
+                  for f in bed] or \
+            [(f.chrom, f.end) for f in bed] != [("ecoli_sim", ECOLI_LEN)]:
+        faults.append(f"genbiobed {biobed} against the BED {bed}")
+    q_in = [(r.name, r.codes.tobytes()) for r in read_seqs(queries)]
+    q_out = []
+    for name, _ in q_in:
+        q_out += [(r.name, r.codes.tobytes()) for r in read_seqs(
+            t / "split" / f"{name.replace('/', '_')}.fa")]
+    n_split = sum(1 for _ in (t / "split").iterdir())
+    if q_out != q_in or n_split != len(q_in):
+        faults.append(f"splitmultifasta: {n_split} files of {len(q_in)} "
+                      f"queries")
+    psl_rows = [ln for ln in psl.read_text().splitlines()
+                if ln.split("\t")[0].isdigit() and ln.count("\t") >= 20]
+    n_csv = len(_csv_rows(t / "psl.csv"))
+    n_db = _db_count(t / "psl.db", "TblAlignments")
+    if not n_csv == n_db == len(psl_rows) > 0:
+        faults.append(f"psl2csv {n_csv}, psl2sqlite {n_db} of "
+                      f"{len(psl_rows)} PSL lines")
+    n_snps = len(_csv_rows(snps))
+    if _db_count(t / "snps.db", "TblSnps") != n_snps or n_snps == 0:
+        faults.append(f"snps2sqlite: {_db_count(t / 'snps.db', 'TblSnps')} "
+                      f"of {n_snps} SNP rows")
+    mk_head = markers.read_text().splitlines()[0].split(",")
+    n_mk, n_cols = len(_csv_rows(markers)), len(mk_head) - 3
+    if _db_count(t / "mk.db", "TblLoci") != n_mk or n_mk == 0 or \
+            _db_count(t / "mk.db", "TblMarkers") != n_mk * n_cols:
+        faults.append(f"snpm2sqlite: {_db_count(t / 'mk.db', 'TblLoci')} "
+                      f"loci of {n_mk} marker rows")
+    n_de = len(_csv_rows(de))
+    if _db_count(t / "de.db", "TblDE") != n_de or n_de == 0:
+        faults.append(f"de2sqlite: {_db_count(t / 'de.db', 'TblDE')} of "
+                      f"{n_de} DE rows")
+    print(f"18b on {card}: genbioseq {len(g.seq)} codes; quickcount k 1..5 "
+          f"{[sum(counts.get(k, {}).values()) for k in range(1, 6)]}; "
+          f"fasta2nxx {nxx}; xfasta {len(got_x)} reads; splitmultifasta "
+          f"{n_split} files; psl2csv / psl2sqlite {n_csv} / {n_db} rows; "
+          f"snps2sqlite {n_snps}, snpm2sqlite {n_mk} loci x {n_cols} "
+          f"columns, de2sqlite {n_de}; seconds {seconds} (sum "
+          f"{sum(seconds.values())}); faults {faults or 'none'}")
+    if faults:
+        raise AssertionError(f"phase 18b: {faults}")
+    return seconds
+
+
 def minmm_cases(torch, cases, minmm, minmm_plain) -> int:
     """Phase 2: the min-match kernel against its plain version, bit for
     bit, on (label, own rows, partner, diag, span_lo, span_cnt, row_base)
@@ -3806,6 +3963,27 @@ def main() -> int:
     dev = torch.device("cuda")
     rng = np.random.default_rng(SEED)
 
+    # --- the phase-4 genome and its node geometry ---------------------
+    chroms, planted = synthetic_r64(rng)
+    G = sum(len(c) + 1 for c in chroms)        # one EOS/EOG after each
+    Gp = _round_up(max(G, max(T, S)), max(T, S))
+    n_spans = Gp // S
+    cnt = n_spans // NUMNODES                  # node 1: spans [0, cnt)
+    seq = np.concatenate([np.append(c, 7) for c in chroms]).astype(np.uint8)
+    seq[-1] = 0x0F
+
+    # phase 3's genome, and its numpy oracles (the longest host work of
+    # phases 1-3) started in worker processes to run beside phases 1 and 2
+    g = rng.integers(0, 4, 2000).astype(np.uint8)
+    g[700] = 7                                  # EOS
+    g[rng.integers(0, 2000, 12)] = 4            # N bases
+    g[1500:1560] = g[200:260]                   # a repeat: distance 0
+    g[1530] = (g[1530] + 1) % 4                 # and 1
+    combos = [(k, anti) for k in (7, 25) for anti in (True, False)]
+    pool = ProcessPoolExecutor(len(combos), mp_context=get_context("spawn"))
+    oracles = [pool.submit(hammings_oracle, g, k, anti)
+               for k, anti in combos]
+
     # --- 1. card, toolkit, kernel build -------------------------------
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -3841,15 +4019,6 @@ def main() -> int:
                                  f"{spills}")
 
     done("1")
-
-    # --- the phase-4 genome and its node geometry ---------------------
-    chroms, planted = synthetic_r64(rng)
-    G = sum(len(c) + 1 for c in chroms)        # one EOS/EOG after each
-    Gp = _round_up(max(G, max(T, S)), max(T, S))
-    n_spans = Gp // S
-    cnt = n_spans // NUMNODES                  # node 1: spans [0, cnt)
-    seq = np.concatenate([np.append(c, 7) for c in chroms]).astype(np.uint8)
-    seq[-1] = 0x0F
 
     # --- 2. kernel vs plain at the main path's shapes -----------------
     ext = torch.from_numpy(np.concatenate(
@@ -3922,17 +4091,8 @@ def main() -> int:
     done("2")
 
     # --- 3. the engine on the card vs the numpy oracle ----------------
-    g = rng.integers(0, 4, 2000).astype(np.uint8)
-    g[700] = 7                                  # EOS
-    g[rng.integers(0, 2000, 12)] = 4            # N bases
-    g[1500:1560] = g[200:260]                   # a repeat: distance 0
-    g[1530] = (g[1530] + 1) % 4                 # and 1
-    combos = [(k, anti) for k in (7, 25) for anti in (True, False)]
     oracle_results = {}     # phase 6 holds the sweep engine to them too
-    with ProcessPoolExecutor(len(combos), mp_context=get_context("spawn")) \
-            as pool:
-        oracles = [pool.submit(hammings_oracle, g, k, anti)
-                   for k, anti in combos]
+    with pool:
         for (k, anti), fut in zip(combos, oracles):
             got = hammings_exhaustive_mxu(g, k, antisense=anti, device=dev)
             want = oracle_results[k, anti] = fut.result()
@@ -4082,21 +4242,35 @@ def main() -> int:
     done("15")
 
     # --- 16. blitz, hrdx, kmerdist and the scorer group ------------------
+    # 17a's and 18a's goldens (host only) run in worker processes beside
+    # it; 16's and 17's directories live on until phase 18 has read them
+    goldens = ProcessPoolExecutor(2, mp_context=get_context("spawn"))
+    host_goldens = {n: goldens.submit(host_golden, n)
+                    for n in ("haplotypes", "convert")}
     longtail_golden(torch, dev)
-    with tempfile.TemporaryDirectory(prefix=".chip_smoke_", dir=root) as tmp:
-        blitz_launches, *blitz_out = blitz_full(torch, dev, card, Path(tmp),
-                                                cfg1)
-        longtail_full(torch, dev, card, Path(tmp), cfg1, *blitz_out)
+    keep16 = tempfile.TemporaryDirectory(prefix=".chip_smoke_", dir=root)
+    t16 = Path(keep16.name)
+    blitz_launches, *blitz_out = blitz_full(torch, dev, card, t16, cfg1)
+    longtail_full(torch, dev, card, t16, cfg1, *blitz_out)
     for k in sw_launches:
         sw_launches[k] += blitz_launches[k]
     done("16")
 
     # --- 17. the PBA and haplotype family: golden, the pipeline ---------
-    haplotypes_golden(torch, dev)
-    with tempfile.TemporaryDirectory(prefix=".chip_smoke_", dir=root) as tmp:
-        haplotypes_full(torch, dev, card, Path(tmp), cfg1)
-    config1.cleanup()
+    print(host_goldens["haplotypes"].result())
+    keep17 = tempfile.TemporaryDirectory(prefix=".chip_smoke_", dir=root)
+    t17 = Path(keep17.name)
+    haplotypes_full(torch, dev, card, t17, cfg1)
     done("17")
+
+    # --- 18. the converters and file tools: golden, earlier files -------
+    with goldens:
+        print(host_goldens["convert"].result())
+    with tempfile.TemporaryDirectory(prefix=".chip_smoke_", dir=root) as tmp:
+        convert_full(card, Path(tmp), cfg1, t16, t17)
+    for kept in (keep16, keep17, config1):
+        kept.cleanup()
+    done("18")
     if "jax" in sys.modules or "kit4b_tpu" in sys.modules:
         raise AssertionError("jax or the JAX package kit4b_tpu was imported")
 

@@ -8,8 +8,16 @@ Port of kit4b_tpu/cli.py with the `index` (-m 1 bisulfite too),
 `blitz`, `hrdx`, `benchmark`, `alignsbs`, `ngsqc`, `maploci`, `rnade`,
 `callhaplotypes`, `snpmarkers`, `pbautils`, `snps2pgsnps`, `lochap2bed`,
 `markerseqs`, `repassemb`, `pangenome`, `seghaplotypes`, `gbsmapsnps`,
-`dgts` and `locmarkers` (which refuses where the JAX package fails)
-subcommands, taking the same flags and writing the same files, plus
+`dgts`, `locmarkers` (which refuses where the JAX package fails), the
+converters and file tools `bed2csv`, `csv2bed`, `csv2fasta`,
+`splitmultifasta`, `quickcount`, `gengenomefromagp`, `ufilter`,
+`usimdiffexpr`, `gennormwiggle`, `fasta2bed`, `fasta2pe`, `fasta2nxx`,
+`xfasta`, `xroiseqs`, `genbiobed`, `genbioseq`, `snps2sqlite`,
+`snpm2sqlite`, `de2sqlite` and `psl2sqlite`, and those of `cli_tools.py`
+(`csvfilter`, `csvmerge`, `csv2feat`, `csv2stats`, `processcsvfiles`,
+`genhyperdropouts`, `bedfilter`, `bedmerge`, `gfffilter`, `gtffilter`,
+`blast2csv`, `psl2csv`), taking the same flags and writing the same
+files, plus
 `--device {cuda,cpu}` on the commands that use a device (`kalign`,
 `genpba`, `hammings`, `kmarkers`, `filter` for -D, `scaffold`, `rnaexpr`,
 `sarscov2ml`, the four PacBio commands, `blitz` and `alignsbs`). The
@@ -1379,6 +1387,269 @@ def cmd_locmarkers(args) -> int:
 
 
 
+# --- converters and file tools (ROADMAP item 19(c1)) ---------------
+
+def cmd_bed2csv(args) -> int:
+    from .tools.convert import bed2csv
+    n = bed2csv(args.infile, args.outfile, el_type=args.eltype,
+                species=args.species)
+    log.info("bed2csv: %d loci -> %s", n, args.outfile)
+    return 0
+
+
+def cmd_csv2bed(args) -> int:
+    from .tools.convert import csv2bed
+    n = csv2bed(args.infile, args.outfile)
+    log.info("csv2bed: %d features -> %s", n, args.outfile)
+    return 0
+
+
+def cmd_csv2fasta(args) -> int:
+    from .tools.convert import csv2fasta
+    g = Genome.load(args.genome)
+    n = csv2fasta(args.infile, g, args.outfile)
+    log.info("csv2fasta: %d sequences -> %s", n, args.outfile)
+    return 0
+
+
+def cmd_splitmultifasta(args) -> int:
+    from .tools.convert import split_multifasta
+    n = split_multifasta(args.infile, args.outdir, args.maxper)
+    log.info("splitmultifasta: %d files -> %s", n, args.outdir)
+    return 0
+
+
+def cmd_quickcount(args) -> int:
+    from .tools.convert import quickcount, write_quickcount_csv
+    counts = quickcount(read_seqs(args.infile), min_k=args.minnmerlen,
+                        max_k=args.maxnmerlen)
+    write_quickcount_csv(args.outfile, counts)
+    log.info("quickcount: k=%d..%d -> %s", args.minnmerlen,
+             args.maxnmerlen, args.outfile)
+    return 0
+
+
+def cmd_gengenomefromagp(args) -> int:
+    from .tools.convert import gen_genome_from_agp
+    contigs = {}
+    for p_ in args.infile:
+        for rec in read_seqs(p_):
+            contigs[rec.name] = rec.codes
+    n = gen_genome_from_agp(args.agpfile, contigs, args.outfile)
+    log.info("gengenomefromagp: %d objects -> %s", n, args.outfile)
+    return 0
+
+
+def cmd_ufilter(args) -> int:
+    """ufilter/filterreads loci filtering."""
+    from .tools.convert import filter_loci, read_loci_csv, write_loci_csv
+    loci = read_loci_csv(args.infile)
+    kept = filter_loci(
+        loci, strand=args.strand or None,
+        chrom_include=args.include, chrom_exclude=args.exclude,
+        min_len=args.minlength, trunc_len=args.trunclength,
+        ofs=args.offset, delta_len=args.deltalen)
+    write_loci_csv(args.outfile, kept)
+    if args.filtoutfile:
+        keys = {(e["srcid"], e["chrom"]) for e in kept}
+        write_loci_csv(args.filtoutfile,
+                       [e for e in loci
+                        if (e["srcid"], e["chrom"]) not in keys])
+    log.info("ufilter: %d/%d kept -> %s", len(kept), len(loci),
+             args.outfile)
+    return 0
+
+
+def cmd_usimdiffexpr(args) -> int:
+    from .tools.convert import sim_diff_expr, write_sim_counts
+    cols, de_idx = sim_diff_expr(
+        n_transcripts=args.ntranscripts, n_reps=args.nreplicates,
+        total_counts=args.ncounts * 1_000_000, de_pct=args.trans,
+        vary_counts_pct=args.rcounts, mode=args.mode, seed=args.seed)
+    write_sim_counts(args.outfile, cols,
+                     sep="\t" if args.format == 1 else ",")
+    if args.defile:
+        with open(args.defile, "w") as f:
+            f.write('"Transcript"\n')
+            for i in sorted(de_idx):
+                f.write(f'"T{i + 1}"\n')
+    log.info("usimdiffexpr: %d transcripts x %d cols -> %s",
+             args.ntranscripts, len(cols), args.outfile)
+    return 0
+
+
+def cmd_gennormwiggle(args) -> int:
+    """genNormWiggle: per-million-normalized read-start or coverage
+    wiggle from a BED/CSV loci file."""
+    from .io.bed import BedFile
+    from .tools.convert import read_loci_csv
+    if args.infile.endswith(".bed"):
+        loci = [(ft.chrom, ft.start, ft.end)
+                for ft in BedFile.load(args.infile).features]
+    else:
+        loci = [(e["chrom"], e["start"], e["end"] + 1)
+                for e in read_loci_csv(args.infile)]
+    per: dict = {}
+    maxend: dict = {}
+    for chrom, s, e in loci:
+        maxend[chrom] = max(maxend.get(chrom, 0), e)
+    for chrom, n in maxend.items():
+        per[chrom] = np.zeros(n, np.float64)
+    for chrom, s, e in loci:
+        if args.mode == 0:
+            per[chrom][s] += 1
+        else:
+            per[chrom][s:e] += 1
+    scale = 1e6 / max(len(loci), 1)
+    with open(args.outfile, "w") as f:
+        f.write('track type=wiggle_0 name="normwiggle"\n')
+        for chrom in sorted(per):
+            cov = per[chrom] * scale
+            nz = np.nonzero(cov)[0]
+            if not len(nz):
+                continue
+            f.write(f"variableStep chrom={chrom}\n")
+            for p in nz:
+                f.write(f"{p + 1} {cov[p]:.3f}\n")
+    log.info("gennormwiggle: %d loci -> %s", len(loci), args.outfile)
+    return 0
+
+
+def cmd_fasta2bed(args) -> int:
+    """ngskit4b fasta2bed equivalent: sequence names+lengths -> BED."""
+    n = 0
+    with open(args.outfile, "w") as f:
+        for p_ in args.infile:
+            for rec in read_seqs(p_):
+                f.write(f"{rec.name}\t0\t{len(rec.codes)}\t{rec.name}"
+                        f"\t0\t+\n")
+                n += 1
+    log.info("fasta2bed: %d sequences -> %s", n, args.outfile)
+    return 0
+
+
+def cmd_fasta2pe(args) -> int:
+    """FastaToPE equivalent: split interleaved fasta/fastq into mate files."""
+    from .io.fasta import write_fasta
+    recs = list(read_seqs(args.infile))
+    r1 = recs[0::2]
+    r2 = recs[1::2]
+    write_fasta(args.out1, r1)
+    write_fasta(args.out2, r2)
+    log.info("fasta2pe: %d pairs -> %s / %s", len(r2), args.out1, args.out2)
+    return 0
+
+
+def cmd_fasta2nxx(args) -> int:
+    """ngskit4b fasta2nxx equivalent: Nxx + length stats over multifasta."""
+    lens = sorted((len(r.codes) for p_ in args.infile
+                   for r in read_seqs(p_)), reverse=True)
+    total = sum(lens)
+    out = {"seqs": len(lens), "total_bp": total,
+           "min": lens[-1] if lens else 0, "max": lens[0] if lens else 0,
+           "mean": round(total / max(1, len(lens)), 1)}
+    acc = 0
+    targets = {f"N{p}": total * p / 100 for p in range(10, 100, 10)}
+    for ln in lens:
+        acc += ln
+        for name, thr in list(targets.items()):
+            if acc >= thr:
+                out[name] = ln
+                del targets[name]
+    print(json.dumps(out, indent=2))
+    if args.outfile:
+        with open(args.outfile, "w") as f:
+            json.dump(out, f, indent=2)
+    return 0
+
+
+def cmd_xfasta(args) -> int:
+    """ngskit4b xfasta equivalent: extract fasta subset by name regex or
+    length bounds."""
+    import re as _re
+    from .io.fasta import write_fasta
+    pat = _re.compile(args.pattern) if args.pattern else None
+    out = []
+    for p_ in args.infile:
+        for rec in read_seqs(p_):
+            if pat and not pat.search(rec.name):
+                continue
+            if len(rec.codes) < args.minlen:
+                continue
+            if args.maxlen and len(rec.codes) > args.maxlen:
+                continue
+            out.append(rec)
+    write_fasta(args.outfile, out)
+    log.info("xfasta: %d seqs -> %s", len(out), args.outfile)
+    return 0
+
+
+def cmd_xroiseqs(args) -> int:
+    """ngskit4b xroiseqs equivalent (extract ROI fasta from assembly)."""
+    from .io.bed import BedFile
+    from .io.fasta import SeqRecord, write_fasta
+    g = Genome.load(args.genome)
+    bed = BedFile.load(args.infile)
+    name_to_ci = {n: i for i, n in enumerate(g.names)}
+    recs = []
+    for ft in bed.features:
+        ci = name_to_ci.get(ft.chrom)
+        if ci is None:
+            continue
+        s = int(g.starts[ci])
+        ln = int(g.lengths[ci])
+        a, b = max(0, ft.start), min(ln, ft.end)
+        if b <= a:
+            continue
+        nm = ft.name or f"{ft.chrom}:{a}-{b}"
+        seq = g.seq[s + a: s + b]
+        if ft.strand == "-":
+            seq = np.where(seq[::-1] < 4, 3 - seq[::-1], seq[::-1])
+        recs.append(SeqRecord(nm, f"{ft.chrom}:{a}-{b}({ft.strand})",
+                              seq.astype(np.uint8)))
+    write_fasta(args.outfile, recs)
+    log.info("xroiseqs: %d regions -> %s", len(recs), args.outfile)
+    return 0
+
+
+def cmd_genbiobed(args) -> int:
+    """ngskit4b genbiobed equivalent (BED -> pre-parsed binary)."""
+    from .io.bed import BedFile
+    bed = BedFile.load(args.infile)
+    np.savez_compressed(
+        args.outfile, magic=np.array("kit4b_tpu.biobed.v1"),
+        chrom=np.array([f.chrom for f in bed.features]),
+        start=np.array([f.start for f in bed.features], np.int64),
+        end=np.array([f.end for f in bed.features], np.int64),
+        name=np.array([f.name for f in bed.features]),
+        score=np.array([f.score for f in bed.features], np.int64),
+        strand=np.array([f.strand for f in bed.features]))
+    log.info("genbiobed: %d features -> %s", len(bed.features),
+             args.outfile)
+    return 0
+
+
+def cmd_genbioseq(args) -> int:
+    """ngskit4b genbioseq equivalent (fasta -> pre-parsed bioseq)."""
+    g = Genome.load(*args.infiles)
+    g.save_bioseq(args.outfile)
+    log.info("genbioseq: %d seqs (%d bp) -> %s", len(g.names),
+             g.total_len, args.outfile)
+    return 0
+
+
+def cmd_tosqlite(args) -> int:
+    """snps2sqlite / snpm2sqlite / de2sqlite / psl2sqlite equivalents."""
+    from .tools import tosqlite
+    fn = {"snps": tosqlite.snps_to_sqlite,
+          "markers": tosqlite.markers_to_sqlite,
+          "de": tosqlite.de_to_sqlite,
+          "psl": tosqlite.psl_to_sqlite}[args.kind]
+    n = fn(args.infile, args.outfile, experiment=args.experimentname,
+           descr=args.experimentdescr or "")
+    log.info("%s2sqlite: %d rows -> %s", args.kind, n, args.outfile)
+    return 0
+
 def _kalign_args(p: argparse.ArgumentParser) -> None:
     """kit4b_tpu's kalign flags, copied, plus --device."""
     p.add_argument("-i", "--in", dest="infile", nargs="+", required=True)
@@ -2130,6 +2401,167 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-O", "--markerreads", default=None)
     _common(p)
     p.set_defaults(fn=cmd_locmarkers)
+
+    p = sub.add_parser("bed2csv", help="BED -> element loci CSV")
+    p.add_argument("-i", "--in", dest="infile", required=True)
+    p.add_argument("-o", "--out", dest="outfile", required=True)
+    p.add_argument("-t", "--eltype", default="element")
+    p.add_argument("-s", "--species", default="")
+    _common(p)
+    p.set_defaults(fn=cmd_bed2csv)
+
+    p = sub.add_parser("csv2bed", help="element loci CSV -> BED")
+    p.add_argument("-i", "--in", dest="infile", required=True)
+    p.add_argument("-o", "--out", dest="outfile", required=True)
+    _common(p)
+    p.set_defaults(fn=cmd_csv2bed)
+
+    p = sub.add_parser("csv2fasta",
+                       help="extract element sequences at loci CSV")
+    p.add_argument("-i", "--in", dest="infile", required=True)
+    p.add_argument("-g", "--genome", required=True)
+    p.add_argument("-o", "--out", dest="outfile", required=True)
+    _common(p)
+    p.set_defaults(fn=cmd_csv2fasta)
+
+    p = sub.add_parser("splitmultifasta",
+                       help="split multifasta into per-seq files")
+    p.add_argument("-i", "--in", dest="infile", required=True)
+    p.add_argument("-o", "--outdir", required=True)
+    p.add_argument("-n", "--maxper", type=int, default=1)
+    _common(p)
+    p.set_defaults(fn=cmd_splitmultifasta)
+
+    p = sub.add_parser("quickcount", help="N-mer distributions")
+    p.add_argument("-i", "--in", dest="infile", required=True)
+    p.add_argument("-o", "--out", dest="outfile", required=True)
+    p.add_argument("-l", "--minnmerlen", type=int, default=1)
+    p.add_argument("-L", "--maxnmerlen", type=int, default=5)
+    _common(p)
+    p.set_defaults(fn=cmd_quickcount)
+
+    p = sub.add_parser("gengenomefromagp",
+                       help="assemble chrom fasta from AGP + contigs")
+    p.add_argument("-i", "--in", dest="infile", nargs="+",
+                   required=True, help="contig fasta file(s)")
+    p.add_argument("-I", "--agp", dest="agpfile", required=True)
+    p.add_argument("-o", "--out", dest="outfile", required=True)
+    _common(p)
+    p.set_defaults(fn=cmd_gengenomefromagp)
+
+    p = sub.add_parser("ufilter",
+                       help="filter element loci CSV "
+                            "(strand/chrom/len/offset)")
+    p.add_argument("-i", "--in", dest="infile", required=True)
+    p.add_argument("-o", "--out", dest="outfile", required=True)
+    p.add_argument("-O", "--filtout", dest="filtoutfile", default=None,
+                   help="write filtered-out loci here")
+    p.add_argument("-s", "--strand", default="",
+                   help="'+' or '-' only")
+    p.add_argument("-Z", "--include", nargs="+", default=None)
+    p.add_argument("-z", "--exclude", nargs="+", default=None)
+    p.add_argument("-l", "--minlength", type=int, default=30)
+    p.add_argument("-T", "--trunclength", type=int, default=0)
+    p.add_argument("-u", "--offset", type=int, default=0)
+    p.add_argument("-U", "--deltalen", type=int, default=0)
+    _common(p)
+    p.set_defaults(fn=cmd_ufilter)
+
+    p = sub.add_parser("usimdiffexpr",
+                       help="simulate DE transcript counts matrix")
+    p.add_argument("-o", "--out", dest="outfile", required=True)
+    p.add_argument("-t", "--ntranscripts", type=int, default=1000)
+    p.add_argument("-n", "--ncounts", type=int, default=50,
+                   help="total counts in millions")
+    p.add_argument("-r", "--nreplicates", type=int, default=2)
+    p.add_argument("-e", "--trans", type=int, default=0,
+                   help="%% of transcripts differentially expressed")
+    p.add_argument("-R", "--rcounts", type=int, default=10)
+    p.add_argument("-m", "--mode", type=int, default=0,
+                   help="0 uniform, 1 linear random, 2 profiled")
+    p.add_argument("-M", "--format", type=int, default=0,
+                   help="0 CSV, 1 tab-delimited")
+    p.add_argument("-d", "--defile", default=None,
+                   help="write true-DE transcript list here")
+    p.add_argument("--seed", type=int, default=1)
+    _common(p)
+    p.set_defaults(fn=cmd_usimdiffexpr)
+
+    p = sub.add_parser("gennormwiggle",
+                       help="normalized read-start/coverage wiggle")
+    p.add_argument("-i", "--in", dest="infile", required=True,
+                   help="loci CSV or BED")
+    p.add_argument("-m", "--mode", type=int, default=0,
+                   help="0 read starts, 1 coverage")
+    p.add_argument("-o", "--out", dest="outfile", required=True)
+    _common(p)
+    p.set_defaults(fn=cmd_gennormwiggle)
+
+    p = sub.add_parser("fasta2bed",
+                       help="sequence names+lengths -> BED")
+    p.add_argument("-i", "--in", dest="infile", required=True, nargs="+")
+    p.add_argument("-o", "--out", dest="outfile", required=True)
+    _common(p)
+    p.set_defaults(fn=cmd_fasta2bed)
+
+    p = sub.add_parser("fasta2pe", help="split interleaved reads into mates")
+    p.add_argument("-i", "--in", dest="infile", required=True)
+    p.add_argument("-o", "--out1", required=True)
+    p.add_argument("-O", "--out2", required=True)
+    _common(p)
+    p.set_defaults(fn=cmd_fasta2pe)
+
+    p = sub.add_parser("fasta2nxx", help="Nxx/length stats over multifasta")
+    p.add_argument("-i", "--in", dest="infile", nargs="+", required=True)
+    p.add_argument("-o", "--out", dest="outfile", default=None)
+    _common(p)
+    p.set_defaults(fn=cmd_fasta2nxx)
+
+    p = sub.add_parser("xfasta", help="extract fasta subset")
+    p.add_argument("-i", "--in", dest="infile", nargs="+", required=True)
+    p.add_argument("-o", "--out", dest="outfile", required=True)
+    p.add_argument("-p", "--pattern", default=None)
+    p.add_argument("-l", "--minlen", type=int, default=0)
+    p.add_argument("-L", "--maxlen", type=int, default=0)
+    _common(p)
+    p.set_defaults(fn=cmd_xfasta)
+
+    p = sub.add_parser("xroiseqs",
+                       help="extract ROI fasta from assembly via BED")
+    p.add_argument("-i", "--in", dest="infile", required=True,
+                   help="regions BED")
+    p.add_argument("-g", "--genome", required=True)
+    p.add_argument("-o", "--out", dest="outfile", required=True)
+    _common(p)
+    p.set_defaults(fn=cmd_xroiseqs)
+
+    p = sub.add_parser("genbiobed",
+                       help="BED -> pre-parsed binary features")
+    p.add_argument("-i", "--in", dest="infile", required=True)
+    p.add_argument("-o", "--out", dest="outfile", required=True)
+    _common(p)
+    p.set_defaults(fn=cmd_genbiobed)
+
+    p = sub.add_parser("genbioseq",
+                       help="fasta -> pre-parsed bioseq container")
+    p.add_argument("-i", "--in", dest="infiles", required=True, nargs="+")
+    p.add_argument("-o", "--out", dest="outfile", required=True)
+    _common(p)
+    p.set_defaults(fn=cmd_genbioseq)
+
+    for kind, src in (("snps", "kalign SNP CSV"),
+                      ("markers", "snpmarkers CSV"),
+                      ("de", "rnade DE CSV"), ("psl", "blitz PSL")):
+        p = sub.add_parser(f"{kind}2sqlite" if kind != "markers"
+                           else "snpm2sqlite",
+                           help=f"{src} -> SQLite database")
+        p.add_argument("-i", "--in", dest="infile", required=True)
+        p.add_argument("-o", "--out", dest="outfile", required=True)
+        _common(p)
+        p.set_defaults(fn=cmd_tosqlite, kind=kind)
+
+    from .cli_tools import register as _register_tools
+    _register_tools(sub, _common)
     return ap
 
 

@@ -1,5 +1,5 @@
 """FASTA/FASTQ streaming reader and writers (gzip-transparent), the
-port's own copy of kit4b_tpu/io/fasta.py (tests/test_torch_rehomed.py
+port's copy of kit4b_tpu/io/fasta.py (tests/test_torch_rehomed.py
 holds it equal to the original).
 
 Capability parity with the reference's CFasta (libkit4b/Fasta.cpp,
@@ -277,3 +277,20 @@ class Genome:
         """Map concatenated positions -> (chrom_idx, offset_in_chrom)."""
         idx = np.searchsorted(self.starts, concat_pos, side="right") - 1
         return idx, np.asarray(concat_pos) - self.starts[idx]
+
+    def save_bioseq(self, path) -> None:
+        """Pre-parsed binary container (.seq equivalent — CBioSeqFile,
+        libkit4b/BioSeqFile.cpp; built by genbioseq): the parsed genome as
+        a compressed array bundle for fast reloads."""
+        np.savez_compressed(path, magic=np.array("kit4b_tpu.bioseq.v1"),
+                            names=np.array(self.names),
+                            starts=self.starts, lengths=self.lengths,
+                            seq=self.seq)
+
+    @classmethod
+    def load_bioseq(cls, path) -> "Genome":
+        z = np.load(path, allow_pickle=False)
+        if str(z["magic"]) != "kit4b_tpu.bioseq.v1":
+            raise ValueError(f"not a kit4b_tpu bioseq file: {path}")
+        return cls([str(n) for n in z["names"]], z["starts"],
+                   z["lengths"], z["seq"])

@@ -68,7 +68,11 @@ def sw_scan_plain(probes: torch.Tensor, targets: torch.Tensor,
     probe (no cell can match) and a row leaves the carried H and E as it
     found them, every later row repeats that row exactly: the rest of the
     pointer array is that row's bytes and the best cell does not move, so
-    the loop stops there."""
+    the loop stops after the chunk that holds that row. A chunk reads its
+    first row from a device scalar and writes only into buffers made
+    before it, so on a CUDA device the chunks after the first replay as
+    one captured CUDA graph (`_replayed`), with one read of the host a
+    chunk."""
     B, Lp = probes.shape
     Lt = targets.shape[1]
     dev = probes.device
@@ -90,26 +94,31 @@ def sw_scan_plain(probes: torch.Tensor, targets: torch.Tensor,
     bk = torch.zeros(B, **i32)
     ptrs = torch.empty((Lp, B, W), dtype=torch.uint8, device=dev) \
         if traceback else None
+    R = min(CHUNK_ROWS, Lp)
     if traceback:
-        R = min(CHUNK_ROWS, Lp)
         dirb = torch.empty((R, B, W), dtype=torch.uint8, device=dev)
         usedf, eext, fext = (torch.empty((R, B, W), dtype=torch.bool,
                                          device=dev) for _ in range(3))
-    last_probe_row = int(plens.max()) if B else 0
-    steady = False
-    for i0 in range(0, Lp, CHUNK_ROWS):
-        R = min(CHUNK_ROWS, Lp - i0)
-        rows = torch.arange(i0, i0 + R, **i32)
-        cols = base + rows[None, :, None]                      # [B, R, W]
+        packed = torch.empty((R, B, W), dtype=torch.uint8, device=dev)
+    last_probe_row = torch.tensor(int(plens.max()) if B else 0, **i32)
+    first = torch.zeros((), **i32)             # the chunk's first row
+    steady_at = torch.full((), -1, **i32)      # the first steady row
+    row_of = torch.arange(R, **i32)
+
+    def chunk(n: int) -> None:
+        """Rows [first, first + n): the carried state, and the pointer
+        bytes into `packed`."""
+        rows = first + row_of[:n]
+        cols = base + rows[None, :, None]                      # [B, n, W]
         tb = torch.gather(targets, 1, cols.clamp(0, Lt - 1).view(B, -1)
-                          .long()).view(B, R, W)
-        pb = probes[:, i0:i0 + R, None]
+                          .long()).view(B, n, W)
+        pb = torch.gather(probes, 1, rows.clamp(max=Lp - 1).long()[None]
+                          .expand(B, n))[:, :, None]
         okp = (rows[None, :, None] < plens[:, None, None]) & (pb < 4) \
             & (cols >= 0) & (cols < tlens[:, None, None]) & (tb < 4)
         subs = torch.where(okp, torch.where(pb == tb, *score), neg)
-        done = R
-        for r in range(R):
-            i = i0 + r
+        for r in range(n):
+            i = rows[r]
             e_open = Hup + gap_open
             e_ext = Eup + gap_ext
             E = torch.maximum(e_open, e_ext)
@@ -122,33 +131,67 @@ def sw_scan_plain(probes: torch.Tensor, targets: torch.Tensor,
             rk = Hf.argmax(1).to(torch.int32)
             rb = Hf.amax(1)
             improve = rb > best
-            best = torch.maximum(best, rb)
-            bi.masked_fill_(improve, i)
-            bk = torch.where(improve, rk, bk)
+            torch.maximum(best, rb, out=best)
+            bi.copy_(torch.where(improve, i, bi))
+            bk.copy_(torch.where(improve, rk, bk))
             if traceback:
                 dirb[r] = torch.where(H0 == 0, 0,
                                       torch.where(H0 == diag, 1, 2))
                 torch.gt(F, H0, out=usedf[r])
                 torch.ge(e_ext, e_open, out=eext[r])
                 torch.gt(Mx, Xx, out=fext[r])
-            steady = i >= last_probe_row and torch.equal(Hf, H) \
-                and torch.equal(E, Eb[:, :W])
+            steady = (steady_at < 0) & (i >= last_probe_row) \
+                & (Hf == H).all() & (E == Eb[:, :W]).all()
+            steady_at.copy_(torch.where(steady, i, steady_at))
             H.copy_(Hf)
             Eb[:, :W] = E
-            if steady:
-                done = r + 1
-                break
         if traceback:
-            ptrs[i0:i0 + done] = (dirb[:done] | (usedf[:done].to(torch.uint8)
-                                                 << 2)
-                                  | (eext[:done].to(torch.uint8) << 3)
-                                  | (fext[:done].to(torch.uint8) << 4))
-        if steady:
-            if traceback:
+            torch.bitwise_or(dirb[:n] | (usedf[:n].to(torch.uint8) << 2)
+                             | (eext[:n].to(torch.uint8) << 3),
+                             fext[:n].to(torch.uint8) << 4, out=packed[:n])
+
+    full = _replayed(lambda: chunk(R), dev if B else torch.device("cpu"))
+    for i0 in range(0, Lp, R):
+        n = min(R, Lp - i0)
+        first.fill_(i0)
+        if n == R:
+            full()
+        else:
+            chunk(n)
+        at = int(steady_at)
+        done = n if at < 0 else at - i0 + 1
+        if traceback:
+            ptrs[i0:i0 + done] = packed[:done]
+            if at >= 0:
                 ptrs[i0 + done:] = ptrs[i0 + done - 1]
+        if at >= 0:
             break
     return best, bi, bk, ptrs
 
+
+def _replayed(step, dev: torch.device):
+    """`step` as a callable that runs it: on a CUDA device the first call
+    runs it on a side stream and captures it as a CUDA graph, and later
+    calls replay the graph; elsewhere every call runs it. `step` must read
+    its inputs from tensors and write only into tensors made before it."""
+    if dev.type != "cuda":
+        return step
+    graph = None
+
+    def call():
+        nonlocal graph
+        if graph is not None:
+            graph.replay()
+            return
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            step()
+        torch.cuda.current_stream(dev).wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            step()
+    return call
 
 def _walk_tables(dev: torch.device):
     """(next state, op, stop) of one step of the traceback for each index
@@ -179,8 +222,9 @@ def traceback_plain(ptrs: torch.Tensor, probes: torch.Tensor,
     `_traceback_dev` of kit4b_tpu/pacbio/sswd.py. Every lane steps in
     lockstep through `_walk_tables`, a lane that has stopped keeps its
     state, and the host reads whether any lane still walks every
-    CHECK_EVERY steps. Returns ops ([B, L_OPS] int8), n, ps, ts, nm, nmm
-    ([B] int32)."""
+    CHECK_EVERY steps (on a CUDA device those steps replay as one captured
+    CUDA graph after their first run, `_replayed`). Returns ops ([B,
+    L_OPS] int8), n, ps, ts, nm, nmm ([B] int32)."""
     Lp, B, _ = ptrs.shape
     Lq, Lt = probes.shape[1], targets.shape[1]
     dev = ptrs.device
@@ -199,7 +243,8 @@ def traceback_plain(ptrs: torch.Tensor, probes: torch.Tensor,
         k = c - i - d0
         return ~stop & (i >= 0) & (c >= 0) & (k >= 0) & (k < W) \
             & (n < L_OPS)
-    while bool(walking().any()):
+
+    def steps():
         for _ in range(CHECK_EVERY):
             act = walking()
             k = (c - i - d0).clamp(0, W - 1)
@@ -210,21 +255,23 @@ def traceback_plain(ptrs: torch.Tensor, probes: torch.Tensor,
             m_op = emit & (op == 1)
             match = probes[lanes, i.clamp(0, Lq - 1)] \
                 == targets[lanes, c.clamp(0, Lt - 1)]
-            nm += m_op & match
-            nmm += m_op & ~match
+            nm.add_(m_op & match)
+            nmm.add_(m_op & ~match)
             slot = n.clamp(max=L_OPS - 1)[:, None]
             ops.scatter_(1, slot, torch.where(
                 emit[:, None], op.to(torch.int8)[:, None],
                 ops.gather(1, slot)))
-            n += emit
-            i -= (emit & (op != 3)).long()
-            c -= (emit & (op != 2)).long()
-            state = torch.where(act, nxt[t], state)
-            stop = stop | (act & stops[t])
+            n.add_(emit)
+            i.sub_((emit & (op != 3)).long())
+            c.sub_((emit & (op != 2)).long())
+            state.copy_(torch.where(act, nxt[t], state))
+            stop.logical_or_(act & stops[t])
+    run = _replayed(steps, dev if B else torch.device("cpu"))
+    while bool(walking().any()):
+        run()
     i32 = torch.int32
     return (ops, n.to(i32), (i + 1).to(i32), (c + 1).to(i32), nm.to(i32),
             nmm.to(i32))
-
 
 def _block_threads(W: int, P: int, C: int) -> int:
     """Threads a block of the scan: the pair's warps of 32 x C columns

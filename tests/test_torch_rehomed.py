@@ -15,6 +15,8 @@ CSV reader, rnade's numeric helpers, magicbench's profile refinement and
 replay, blitz's PSL writer, readstats on empty inputs; the rest of those
 modules in tests/test_torch_blitz.py, test_torch_longtail.py and
 test_torch_scorers.py);
+the modules of the converters and file tools, each held statement for
+statement, with the `.seq` and `.biobed` files loading in either package;
 and the port's own build of the host library (native.py), keyed by its
 sources, flags and CPU. Tests of the index skip when the library cannot be
 built."""
@@ -1434,12 +1436,9 @@ HAPLOTYPE_MODULES = ("kmer/pba.py", "kmer/pbautils2.py",
                      "tools/seghaps.py")
 
 
-@pytest.mark.parametrize("path", HAPLOTYPE_MODULES)
-def test_haplotype_modules_are_copies(path):
-    """The PBA and haplotype family's modules, copied whole: the same code
-    statement for statement (only the module docstring says it is the
-    port's), so every tie rule, rounding and iteration order is the JAX
-    package's; tests/test_torch_haplotypes.py runs them side by side."""
+def _assert_copy(path):
+    """The port's `path` is the JAX package's, statement for statement:
+    only the module docstring differs, and it names the original."""
     import ast
     import importlib
     from pathlib import Path
@@ -1460,3 +1459,84 @@ def test_haplotype_modules_are_copies(path):
     pm = importlib.import_module(f"kit4b_tpu_torch.{name}")
     public = sorted(n for n in vars(jm) if not n.startswith("__"))
     assert sorted(n for n in vars(pm) if not n.startswith("__")) == public
+    return jm, pm
+
+
+@pytest.mark.parametrize("path", HAPLOTYPE_MODULES)
+def test_haplotype_modules_are_copies(path):
+    """The PBA and haplotype family's modules, copied whole: the same code
+    statement for statement (only the module docstring says it is the
+    port's), so every tie rule, rounding and iteration order is the JAX
+    package's; tests/test_torch_haplotypes.py runs them side by side."""
+    _assert_copy(path)
+
+
+CONVERT_MODULES = ("io/fasta.py", "io/biobed.py", "io/gff.py",
+                   "tools/convert.py", "tools/csvtools.py",
+                   "tools/bedtools2.py", "tools/blastpsl.py",
+                   "tools/tosqlite.py")
+
+
+@pytest.mark.parametrize("path", CONVERT_MODULES)
+def test_converter_modules_are_copies(path):
+    """The modules of the converters and file tools, copied whole (io.fasta
+    now with `Genome.save_bioseq` and `load_bioseq`, io.biobed with
+    `RegionClassifier` and `region_mask_from_ordinals`);
+    tests/test_torch_convert_cli.py runs them side by side through both
+    CLIs."""
+    jm, pm = _assert_copy(path)
+    if path == "io/fasta.py":
+        import inspect
+        for meth in ("save_bioseq", "load_bioseq"):
+            assert inspect.getsource(getattr(pm.Genome, meth)) == \
+                inspect.getsource(getattr(jm.Genome, meth))
+
+
+@pytest.mark.parametrize("writer", ["jax", "port"])
+def test_bioseq_loads_in_either_package(tmp_path, writer):
+    """A `.seq` container (`Genome.save_bioseq`, the file `genbioseq`
+    writes) from either package loads in the other: the magic
+    "kit4b_tpu.bioseq.v1" is a file format both share, like `.kix`."""
+    rng = np.random.default_rng(16)
+    recs = [(f"c{i}", jdna.encode(_random_bases(rng, n)))
+            for i, n in enumerate((700, 90, 5))]
+    src, dst = (jfa, pfa) if writer == "jax" else (pfa, jfa)
+    g = src.Genome.from_records([src.SeqRecord(n, "", c) for n, c in recs])
+    path = tmp_path / "g.seq.npz"
+    g.save_bioseq(path)
+    back = dst.Genome.load_bioseq(path)
+    want = src.Genome.load_bioseq(path)
+    assert back.names == want.names == g.names
+    for k in ("starts", "lengths", "seq"):
+        np.testing.assert_array_equal(getattr(back, k), getattr(g, k))
+        assert getattr(back, k).dtype == getattr(want, k).dtype
+    with np.load(path) as z:
+        np.savez_compressed(tmp_path / "bad.npz", **{
+            **z, "magic": np.array("kit4b_tpu.bioseq.v2")})
+    with pytest.raises(ValueError, match="not a kit4b_tpu bioseq file"):
+        dst.Genome.load_bioseq(tmp_path / "bad.npz")
+
+
+@pytest.mark.parametrize("writer", ["jax", "port"])
+def test_biobed_loads_in_either_package(tmp_path, writer):
+    """The `.biobed` arrays `genbiobed` writes, from either package's CLI,
+    hold the features the other package's `BedFile.load` reads from the
+    BED, field by field."""
+    from kit4b_tpu.cli import main as jax_main
+    from kit4b_tpu.io.bed import BedFile as JBed
+    from kit4b_tpu_torch.cli import main as port_main
+    from kit4b_tpu_torch.io.bed import BedFile as PBed
+    bed = tmp_path / "f.bed"
+    bed.write_text("track name=x\nc1\t10\t60\tfa\t7\t-\nc2 5 45\n"
+                   "c1\t100\t101\t\t.\t+\nc9\t0\t9\tfz\t3.5\t+\n")
+    main, reader = (jax_main, PBed) if writer == "jax" else (port_main, JBed)
+    assert main(["genbiobed", "-i", str(bed), "-o", str(tmp_path / "f")]) \
+        == 0
+    with np.load(tmp_path / "f.npz", allow_pickle=False) as z:
+        assert str(z["magic"]) == "kit4b_tpu.biobed.v1"
+        got = list(zip(*(z[k].tolist() for k in ("chrom", "start", "end",
+                                                  "name", "score",
+                                                  "strand"))))
+    want = [(f.chrom, f.start, f.end, f.name, f.score, f.strand)
+            for f in reader.load(bed).features]
+    assert got == want and len(want) == 4

@@ -15,8 +15,11 @@ family `callhaplotypes`, `pbautils`, `snpmarkers`, `snps2pgsnps`,
 `lochap2bed`, `markerseqs`, `repassemb`, `pangenome`, `seghaplotypes`,
 `gbsmapsnps` and `dgts` on the haplotypes golden's inputs (modules
 kmer.pba, pbautils2, callhaplotypes, haplogroups, allelescores, dgtqtl,
-snpmarkers, gbs, tools.snpsfmt, pangenes, seghaps), with `--device cpu`
-where a command takes one) on a small seeded genome. The
+snpmarkers, gbs, tools.snpsfmt, pangenes, seghaps), and the converters
+and file tools on the converters golden's inputs (modules tools.convert,
+csvtools, bedtools2, blastpsl, tosqlite, io.gff, io.biobed and the `.seq`
+container of io.fasta), with `--device cpu` where a command takes one)
+on a small seeded genome. The
 runs that build a suffix index need the port's host library and skip
 without it. This file imports neither package either:
 
@@ -442,3 +445,16 @@ def test_cli_haplotype_commands_with_both_blocked(tmp_path):
          "    bad = mg.differing(out, {k: z[k] for k in z.files})\n"
          "assert bad == [], bad\n"
          "assert len(out) >= 140\n", tmp_path)
+
+
+def test_cli_converter_commands_with_both_blocked(tmp_path):
+    """Every converter and file tool through the CLI on the inputs of
+    `make_convert_golden`, their outputs equal to the committed golden
+    (host only: no index, no device)."""
+    _run("import numpy as np\n"
+         "from kit4b_tpu_torch.tools import make_convert_golden as mg\n"
+         "out = mg.compute(mg.port_fns())\n"
+         "with np.load(mg.GOLDEN) as z:\n"
+         "    bad = mg.differing(out, {k: z[k] for k in z.files})\n"
+         "assert bad == [], bad\n"
+         "assert len(out) >= 120\n", tmp_path)
