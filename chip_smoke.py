@@ -118,7 +118,8 @@ result:
    committed golden: tier-1 rows with and without tier 2, the pair rows
    each escalation stage took, the PePair stream and the SAM and VCF
    SHA-256, all equal. (b) BASELINE config #4 at full size through the
-   CLI: `make_chr21_like(40.0)` (seed 21) as FASTA, `index`, `simreads -p
+   CLI: `make_chr21_like(40.0)` (seed 21) as FASTA and `index` (both in a
+   worker process beside phases 9-10, `config4_index`), `simreads -p
    -n 65536 -l 150 -j 250 -J 600 -e illumina -z 0.01 -N 1000 -S 9 -u` (SNPs
    planted by the CLI at 0.001 with seed 9), `kalign -u -U 1 -d 200 -D 700
    -b 16384 -S out.vcf`. Checks: >= 80 % of pairs accepted and >= 98 % of
@@ -171,7 +172,8 @@ result:
    and function; the same run to SAM, whose records, sorted, must equal
    the BAM's, and 1,000 random windows queried through the BAI, each
    returning exactly the records that overlap it. (c) The same genome,
-   `simreads -n 920000 -N 1000` (about 20x), `kalign -S out.vcf -g -3 -X
+   `simreads -n 920000 -N 1000` (about 20x; in a worker process beside
+   13a-b), `kalign -S out.vcf -g -3 -X
    --markerfile --snpcentroidfile`: wall, `snp call`, SNP recall and
    precision against the planted SNPs. (d) `index -m 1` on that genome
    (lut_k 16: two radix-3 LUTs of 3^16 + 1 entries), the build split into
@@ -297,10 +299,23 @@ result:
    on 16b's queries and PSL, `snps2sqlite` and `snpm2sqlite` on 17b's CSVs,
    `de2sqlite` on 16c's rnade CSV, each command timed and held to a direct
    count of its input (its docstring lists the checks).
+19. The alignment-block, region, RAD-seq, loci-statistics, DNA-structure
+   and GO commands (host only). (a) The port's CLI on the seeded workload
+   of `kit4b_tpu_torch.tools.make_hosttools_golden` (every command of
+   ROADMAP item 19(c2) and 19(c3), each mode and each flag that picks
+   another code path, 111 runs) against the JAX package's committed
+   golden: text byte for byte (a file of more than 64 KiB by its
+   SHA-256; `goassoc`'s p-values in this host's scipy's digits), a .npz
+   array by array (`host_golden`, in a worker process beside phase 16).
+   (b) `hosttools_full`: `genwiggle`, `locateroi`, `filtchrom` and
+   `gendeseq` on 8b's SAM, `ssr` on config #1's genome with planted
+   repeats and `fasta2struct` on its chromosome, each command timed and
+   held to a direct count of its input (its docstring lists the checks,
+   and the commands left to the golden).
 
 Each kernel's launch counter is set to 0 just before its path (phases 4, 6,
 7, each CLI step of 15c and 16b's gapped `blitz`) and read just after it;
-phases 8-14, 17 and 18 run none of the kernels. The script prints its
+phases 8-14 and 17-19 run none of the kernels. The script prints its
 seconds, and
 each phase's, before the kernels line. The line before the last is a JSON
 table of the kernels, each with its bound (the least time the card could
@@ -1302,9 +1317,46 @@ def _vcf_calls(path: Path):
     return calls
 
 
-def pe_full(torch, dev, card, tmp: Path):
+def cli_logged(argv) -> tuple[int, float, dict]:
+    """The port's CLI on `argv`, its PhaseTimer phases kept: (exit code,
+    wall seconds, seconds by phase). main() runs host-only steps through
+    it in a worker process beside card work."""
+    from kit4b_tpu_torch import cli
+    phases = _PhaseLog()
+    logging.getLogger("kit4b_tpu_torch").addHandler(phases)
+    try:
+        t0 = time.perf_counter()
+        rc = cli.main([str(a) for a in argv])
+        return rc, time.perf_counter() - t0, phases.seconds
+    finally:
+        logging.getLogger("kit4b_tpu_torch").removeHandler(phases)
+
+
+def config4_files(tmp: Path) -> tuple[Path, Path]:
+    """Config #4's genome FASTA and its .kix in phase 11's directory."""
+    return tmp / "chr21s.fa", tmp / "chr21s.kix"
+
+
+def config4_index(tmp: Path) -> dict:
+    """Phase 11b's host work: config #4's genome (`make_chr21_like`, seed
+    21) written as FASTA and indexed by the CLI `index`. main() runs it in
+    a worker process beside phases 9-10. Returns its length, its N count
+    and the seconds of each step."""
+    from kit4b_tpu_torch.tools.config4 import make_chr21_like
+    t0 = time.perf_counter()
+    seq, n = make_chr21_like(CONFIG4_MBP)
+    fa, kix = config4_files(tmp)
+    write_fasta(fa, ["chr21s"], [seq[:n]])
+    genome_s = time.perf_counter() - t0
+    rc, wall, phases = cli_logged(["index", "-i", fa, "-o", kix])
+    return dict(n=n, n_N=int((seq == 4).sum()), genome_s=genome_s, rc=rc,
+                index_s=wall, phases=phases)
+
+
+def pe_full(torch, dev, card, tmp: Path, index_job):
     """Phase 11b: BASELINE config #4 at full size through the port's CLI
-    (index, simreads -p, kalign -u), then its passes timed."""
+    (index, simreads -p, kalign -u), then its passes timed. The genome and
+    its index are `config4_index`'s, whose future `index_job` is."""
     from kit4b_tpu_torch import cli
     from kit4b_tpu_torch.align import kalign, pe
     from kit4b_tpu_torch.index.sfx_index import SfxIndex
@@ -1312,21 +1364,23 @@ def pe_full(torch, dev, card, tmp: Path):
     from kit4b_tpu_torch.ops import pe_packed, seed_extend_fast
     from kit4b_tpu_torch.ops.seed_extend_deep import deep_pe_pass_planes
     from kit4b_tpu_torch.sim import simreads
-    from kit4b_tpu_torch.tools.config4 import make_chr21_like
     t0 = time.perf_counter()
-    seq, n = make_chr21_like(CONFIG4_MBP)
-    fa, kix = tmp / "chr21s.fa", tmp / "chr21s.kix"
-    write_fasta(fa, ["chr21s"], [seq[:n]])
+    job = index_job.result()
+    waited = time.perf_counter() - t0
+    if job["rc"] != 0:
+        raise AssertionError(f"CLI index exited {job['rc']}")
+    n = job["n"]
+    fa, kix = config4_files(tmp)
     r1, r2, bed = tmp / "r1.fa", tmp / "r2.fa", tmp / "snps.bed"
     sam, vcf = tmp / "pe.sam", tmp / "pe.vcf"
     print(f"config #4 genome (make_chr21_like({CONFIG4_MBP}), seed 21, "
-          f"{n} bp, {int((seq == 4).sum())} N) written: "
-          f"{time.perf_counter() - t0} s")
+          f"{n} bp, {job['n_N']} N) written: {job['genome_s']} s; CLI "
+          f"index: {job['index_s']} s, phases {job['phases']}; both in a "
+          f"worker process beside phases 9-10, waited for {waited} s")
     phases = _PhaseLog()
     logging.getLogger("kit4b_tpu_torch").addHandler(phases)
     walls = {}
     for name, argv in (
-            ("index", ["index", "-i", str(fa), "-o", str(kix)]),
             ("simreads", ["simreads", "-i", str(fa), "-o", str(r1), "-O",
                           str(r2), "-p", "-n", str(PE_PAIRS), "-l",
                           str(PE_LEN), "-j", "250", "-J", "600", "-e",
@@ -1994,19 +2048,28 @@ def opts_full(torch, dev, card, tmp: Path, cfg1: Path):
                              f"truth share {at} / {acc} is low")
 
 
-def snp_full(torch, dev, card, tmp: Path, cfg1: Path):
+def snp_reads_argv(tmp: Path, cfg1: Path) -> list:
+    """Phase 13c's `simreads`: 920,000 reads of config #1's genome with
+    1,000 planted SNPs a Mbp, their truth in a BED."""
+    fa, _ = config1_files(cfg1)
+    return ["simreads", "-i", fa, "-o", tmp / "snp_reads.fa", "-n",
+            SNP_READS, "-l", READ_LEN, "-e", "illumina", "-z", "0.01", "-N",
+            1000, "-u", tmp / "snps.bed", "-S", 13]
+
+
+def snp_full(torch, dev, card, tmp: Path, cfg1: Path, reads_job):
     """Phase 13c: config #1's genome with planted SNPs at about 20x
-    through kalign -S -g -3 -X --markerfile --snpcentroidfile."""
+    through kalign -S -g -3 -X --markerfile --snpcentroidfile. The reads
+    are `snp_reads_argv`'s, run by `cli_logged` in a worker process beside
+    13a-b; `reads_job` is its future."""
     from kit4b_tpu_torch import cli
     fa, kix = config1_files(cfg1)
     reads, bed = tmp / "snp_reads.fa", tmp / "snps.bed"
     t0 = time.perf_counter()
-    if cli.main(["simreads", "-i", str(fa), "-o", str(reads), "-n",
-                 str(SNP_READS), "-l", str(READ_LEN), "-e", "illumina",
-                 "-z", "0.01", "-N", "1000", "-u", str(bed), "-S",
-                 "13"]) != 0:
+    rc, t_sim, _ = reads_job.result()
+    waited = time.perf_counter() - t0
+    if rc != 0:
         raise AssertionError("CLI simreads -N 1000 exited non-zero")
-    t_sim = time.perf_counter() - t0
     out = {k: tmp / k for k in ("snp.sam", "out.vcf", "cov.wig",
                                 "out.pba.npz", "m.fa", "c.csv")}
     log = _PhaseLog()
@@ -2038,7 +2101,8 @@ def snp_full(torch, dev, card, tmp: Path, cfg1: Path):
              if k not in ("snp.sam", "out.pba.npz")}
     for k in ("dsnp.disnp.csv", "dsnp.trisnp.csv"):
         lines[k] = sum(1 for _ in open(tmp / k))
-    print(f"simreads -n {SNP_READS} -N 1000 ({t_sim} s), then CLI kalign -S "
+    print(f"simreads -n {SNP_READS} -N 1000 ({t_sim} s in a worker process "
+          f"beside 13a-b, waited for {waited} s), then CLI kalign -S "
           f"-g -3 -X --markerfile --snpcentroidfile on {card}: wall {wall} s"
           f" ({SNP_READS / wall} reads/s), phases {log.seconds}; classes "
           f"{log.stats}; peak device memory {peak} bytes; SNPs: "
@@ -3245,13 +3309,16 @@ HAP_GBS = 6_000           # GBS loci, from B's planted SNPs
 
 
 def host_golden(name: str) -> str:
-    """Phases 17a and 18a: the host-only golden of
+    """Phases 17a, 18a and 19a: the host-only golden of
     `kit4b_tpu_torch.tools.make_<name>_golden` (every mode of the PBA and
-    haplotype commands; every converter and file tool) through the port's
-    CLI against the JAX package's committed file, every text byte for
-    byte, every .npz array by array, every SQLite database by its dump.
-    main() runs it in a worker process beside phase 16. Returns the line
-    to print; raises if an array differs."""
+    haplotype commands; every converter and file tool; every
+    alignment-block, region, RAD-seq, loci-statistics, DNA-structure and
+    GO command) through the port's CLI against the JAX package's committed
+    file, every text byte for byte (`goassoc`'s hypergeometric p-values
+    too, whose digits are this host's scipy's: the line names its
+    version), every .npz array by array, every SQLite database by its
+    dump. main() runs it in a worker process beside phase 16. Returns the
+    line to print; raises if an array differs."""
     import importlib
     import sqlite3
     mg = importlib.import_module(f"kit4b_tpu_torch.tools.make_{name}_golden")
@@ -3260,12 +3327,16 @@ def host_golden(name: str) -> str:
     with np.load(mg.GOLDEN) as z:
         gold = {k: z[k] for k in z.files}
     bad = mg.differing(out, gold)
+    note = ""
+    if name == "hosttools":
+        import scipy
+        note = f"; scipy {scipy.__version__}"
     if bad:
         raise AssertionError(f"the {name} golden differs: {bad[:10]}")
     return (f"{name} golden: {len(out)} arrays of {len(mg.RUNS)} CLI runs in "
             f"{time.perf_counter() - t0} s in a worker process (SQLite "
-            f"{sqlite3.sqlite_version}); differing: none; edges missed: "
-            f"{mg.check_reach(out) or 'none'}")
+            f"{sqlite3.sqlite_version}{note}); differing: none; edges "
+            f"missed: {mg.check_reach(out) or 'none'}")
 
 
 def hap_mosaic(rng, n: int, het: bool) -> list[tuple[int, int, str]]:
@@ -3877,6 +3948,201 @@ def convert_full(card, tmp: Path, cfg1: Path, t16: Path, t17: Path) -> dict:
     return seconds
 
 
+# the alignment-block, region, RAD-seq, loci-statistics, DNA-structure
+# and GO commands (phase 19)
+
+SSR_PLANTED, SSR_STRIDE = 300, 15_000   # 19b: repeats planted, bp apart
+DE_FEATURES = 200                       # 19b: gendeseq's BED features
+STRUCT_SAMPLE = 10_000                  # 19b: fasta2struct lines checked
+
+
+def _runs(mask: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """[start, end) of each run of True in `mask`."""
+    d = np.diff(np.concatenate([[0], mask.astype(np.int8), [0]]))
+    return np.nonzero(d == 1)[0], np.nonzero(d == -1)[0]
+
+
+def _primitive_unit(rng, u: int) -> np.ndarray:
+    """A unit of u bases that is no tandem of a shorter period."""
+    while True:
+        unit = rng.integers(0, 4, u).astype(np.uint8)
+        if not any(u % p == 0 and (unit.reshape(-1, p) == unit[:p]).all()
+                   for p in range(1, u)):
+            return unit
+
+
+def hosttools_full(card, tmp: Path, cfg1: Path) -> dict:
+    """Phase 19b: the region, SSR and DNA-structure commands on config #1's
+    files (8b's genome and its 100,000 reads' SAM), each command timed and
+    held to a direct count of its input: `genwiggle`'s WIG, expanded,
+    equal base for base to the SAM's mapped records' coverage (so its sum
+    equals their aligned bases); `locateroi -c 2 -l 100` equal to the runs
+    of that coverage; `filtchrom -Z` and `-z` keeping exactly the records
+    on, and off, the chromosome, in order; `gendeseq` on the SAM's records
+    split into two samples against 200 BED features equal to a direct
+    overlap count; `ssr` on the genome with 300 repeats of units 2-5
+    planted, every planted one found and every reported one a tandem of
+    its unit in the genome; `fasta2struct -p twist` on the 4.6 Mbp
+    chromosome, a line per octamer, 10,000 of them equal to a direct
+    lookup of the parameter table. Commands whose JAX code loops in Python
+    a locus or a fragment run in the golden (19a) only: `genzygosity`'s
+    pigeonhole probes, `simulatemnase`, `radseq`'s merge loops, and
+    `predconfnucs` and `genstructprofile` (a Python walk of the helix per
+    candidate dyad). Returns the seconds of each command."""
+    from kit4b_tpu_torch import dna
+    from kit4b_tpu_torch.io.fasta import Genome
+    fa, _ = config1_files(cfg1)
+    _, _, sam = config1_reads(cfg1)
+    t = tmp
+    rng = np.random.default_rng(SEED + 19)
+    codes = Genome.load(fa).chrom_codes(0)
+    L = len(codes)
+    chrom = "ecoli_sim"
+
+    # inputs: the SAM split in two samples, features, planted repeats and
+    # an octamer parameter table
+    head, body = [], []
+    with open(sam) as f:
+        for line in f:
+            (head if line[0] == "@" else body).append(line)
+    for name, part in (("A", body[0::2]), ("B", body[1::2])):
+        (t / f"{name}.sam").write_text("".join(head + part))
+    fs = np.sort(rng.integers(0, L - 5_000, DE_FEATURES))
+    fe = fs + rng.integers(300, 5_000, DE_FEATURES)
+    feats = [(int(a), int(b), f"g{i}" if i % 10 else "")
+             for i, (a, b) in enumerate(zip(fs, fe))]
+    (t / "feat.bed").write_text("".join(
+        f"{chrom}\t{a}\t{b}" + (f"\t{n}\t0\t{'+-'[i % 2]}" if n else "")
+        + "\n" for i, (a, b, n) in enumerate(feats)))
+    ssr_codes = codes.copy()
+    planted = []
+    for i in range(SSR_PLANTED):
+        u, reps = int(rng.integers(2, 6)), int(rng.integers(6, 21))
+        p = 5_000 + i * SSR_STRIDE
+        ssr_codes[p:p + u * reps] = np.tile(_primitive_unit(rng, u), reps)
+        planted.append((p, u, reps))
+    write_fasta(t / "ssr.fa", [chrom], [ssr_codes])
+    pow4 = (4 ** np.arange(7, -1, -1)).astype(np.int64)
+    idx = np.arange(65536)
+    digits = (idx[:, None] >> (2 * (7 - np.arange(8)))) & 3
+    rc = ((3 - digits)[:, ::-1] * pow4).sum(1)
+    canon = np.nonzero(idx <= rc)[0]
+    table = (34.0 + rng.normal(size=(65536, 22))).astype(np.float32)
+    with open(t / "oct.csv", "w") as f:
+        f.write('"Octamer","Twist",...\n')
+        acgt = np.array(list("ACGT"))
+        for i in canon.tolist():
+            f.write("".join(acgt[digits[i]]) + "," + ",".join(
+                f"{v:.4f}" for v in table[i].tolist()) + "\n")
+    twist = np.zeros(65536, np.float32)
+    twist[canon] = [float(f"{v:.4f}") for v in table[canon, 0].tolist()]
+    twist[rc[canon]] = twist[canon]
+
+    seconds = {}
+    _cli_steps(card, [
+        ("genwiggle", ["genwiggle", "-i", sam, "-o", t / "cov.wig"]),
+        ("locateroi", ["locateroi", "-i", sam, "-o", t / "roi.bed"]),
+        ("filtchrom -Z", ["filtchrom", "-i", sam, "-o", t / "on.sam", "-Z",
+                          chrom]),
+        ("filtchrom -z", ["filtchrom", "-i", sam, "-o", t / "off.sam", "-z",
+                          "ecoli"]),
+        ("gendeseq", ["gendeseq", "-s", f"A={t / 'A.sam'}",
+                      f"B={t / 'B.sam'}", "-b", t / "feat.bed", "-o",
+                      t / "de.csv"]),
+        ("ssr", ["ssr", "-i", t / "ssr.fa", "-o", t / "ssr.csv"]),
+        ("fasta2struct", ["fasta2struct", "-i", fa, "-I", t / "oct.csv",
+                          "-p", "twist", "-o", t / "fs.csv"])], seconds)
+    faults = []
+    recs = [ln.split("\t", 10) for ln in body]
+    on = [i for i, r in enumerate(recs) if r[2] == chrom]
+    mapped = [i for i in on if not int(recs[i][1]) & 4]
+    rs = np.array([int(recs[i][3]) - 1 for i in mapped], np.int64)
+    re_ = rs + np.array([len(recs[i][9]) for i in mapped], np.int64)
+    d = np.zeros(L + 1, np.int64)
+    np.add.at(d, rs, 1)
+    np.add.at(d, np.minimum(re_, L), -1)
+    cov = np.cumsum(d)[:L]
+    aligned = int((np.minimum(re_, L) - rs).sum())
+    wig = np.zeros(L, np.int64)
+    lines = (t / "cov.wig").read_text().splitlines()
+    for hd, val in zip(lines[1::2], lines[2::2]):
+        span = int(hd.rsplit("span=", 1)[1])
+        p, v = (int(x) for x in val.split("\t"))
+        wig[p - 1:p - 1 + span] = v
+    if not np.array_equal(wig, cov) or int(wig.sum()) != aligned:
+        faults.append(f"genwiggle: {int(wig.sum())} bases against "
+                      f"{aligned} aligned")
+    a, b = _runs(cov >= 2)
+    keep = b - a >= 100
+    want = [f"{chrom}\t{s}\t{e}\tROI{n}\t{int(cov[s:e].mean())}\t"
+            for n, (s, e) in enumerate(zip(a[keep], b[keep]), 1)]
+    got = [ln.rsplit("\t", 1)[0] + "\t"
+           for ln in (t / "roi.bed").read_text().splitlines()]
+    if got != want or not got:
+        faults.append(f"locateroi: {len(got)} regions, {len(want)} runs")
+    for out, sel in (("on.sam", on),
+                     ("off.sam", [i for i, r in enumerate(recs)
+                                  if "ecoli" not in r[2]])):
+        kept = (t / out).read_text().splitlines(keepends=True)
+        if kept != head + [body[i] for i in sel] or not on:
+            faults.append(f"filtchrom {out}: {len(kept) - len(head)} "
+                          f"records of {len(sel)}")
+    want_de = {}
+    for si, name in enumerate("AB"):
+        part = [i for i in mapped if i % 2 == si]
+        ps = np.array([int(recs[i][3]) - 1 for i in part], np.int64)
+        pe = ps + np.array([len(recs[i][9]) for i in part], np.int64)
+        for a_, b_, n in feats:
+            c = int(((ps < b_) & (pe > a_)).sum())
+            if c:
+                want_de.setdefault(n or f"{chrom}:{a_}-{b_}", [0, 0])[si] = c
+    got_de = {r[0].strip('"'): [int(r[1]), int(r[2])]
+              for r in _csv_rows(t / "de.csv")}
+    if got_de != want_de or len(got_de) < DE_FEATURES // 2:
+        faults.append(f"gendeseq: {len(got_de)} features, {len(want_de)} "
+                      "by a direct count")
+    reported = [(int(r[2]), int(r[3]), int(r[4]), int(r[5]),
+                 r[6].strip('"')) for r in _csv_rows(t / "ssr.csv")]
+    bad = [r for r in reported
+           if dna.decode(ssr_codes[r[0]:r[1]]) != r[4] * r[3]
+           or len(r[4]) != r[2] or r[1] - r[0] != r[2] * r[3]]
+    starts = np.array([r[0] for r in reported])
+    missed = 0
+    for p, u, reps in planted:
+        j = int(np.searchsorted(starts, p, side="right")) - 1
+        hit = [r for r in reported[max(j - 3, 0):j + 4]   # rotations too
+               if r[2] == u and r[0] <= p + u and r[1] >= p + u * (reps - 1)]
+        missed += not hit
+    if bad or missed:
+        faults.append(f"ssr: {len(bad)} reported repeats not in the "
+                      f"genome, {missed} of {SSR_PLANTED} planted missed")
+    win = np.lib.stride_tricks.sliding_window_view(codes.astype(np.int64), 8)
+    valid = np.nonzero((win <= 3).all(1))[0]
+    with open(t / "fs.csv") as f:
+        fs_lines = f.read().splitlines()
+    sample = rng.choice(len(valid), STRUCT_SAMPLE, replace=False)
+    oct_idx = win[valid[sample]] @ pow4
+    want_fs = [f'"{chrom}",{int(valid[k]) + 4},{v:.4f}'
+               for k, v in zip(sample.tolist(), twist[oct_idx])]
+    got_fs = [fs_lines[1 + k] for k in sample.tolist()]
+    if len(fs_lines) != len(valid) + 1 or got_fs != want_fs:
+        faults.append(f"fasta2struct: {len(fs_lines) - 1} lines for "
+                      f"{len(valid)} octamers, "
+                      f"{sum(a != b for a, b in zip(got_fs, want_fs))} of "
+                      f"{STRUCT_SAMPLE} sampled differ")
+    print(f"19b on {card}: genwiggle {aligned} aligned bases in "
+          f"{(len(lines) - 1) // 2} runs; locateroi {len(got)} regions; "
+          f"filtchrom {len(on)} records on {chrom}, {len(recs) - len(on)} "
+          f"off; gendeseq {len(got_de)} of {DE_FEATURES} features hit; "
+          f"ssr {len(reported)} repeats, {SSR_PLANTED - missed} of "
+          f"{SSR_PLANTED} planted found; fasta2struct {len(fs_lines) - 1} "
+          f"steps; seconds {seconds} (sum {sum(seconds.values())}); faults "
+          f"{faults or 'none'}")
+    if faults:
+        raise AssertionError(f"phase 19b: {faults}")
+    return seconds
+
+
 def minmm_cases(torch, cases, minmm, minmm_plain) -> int:
     """Phase 2: the min-match kernel against its plain version, bit for
     bit, on (label, own rows, partner, diag, span_lo, span_cnt, row_base)
@@ -4187,6 +4453,13 @@ def main() -> int:
     cfg1 = Path(config1.name)
     kalign_full(torch, dev, card, cfg1)
     done("8")
+    # host-only steps of 11b and 13c, each in a worker process beside the
+    # card work before it: config #4's genome and index (beside 9-10),
+    # then 13c's reads (beside 13a-b)
+    host_steps = ProcessPoolExecutor(1, mp_context=get_context("spawn"))
+    keep11 = tempfile.TemporaryDirectory(prefix=".chip_smoke_", dir=root)
+    t11 = Path(keep11.name)
+    index_job = host_steps.submit(config4_index, t11)
 
     # --- 9. kmarkers: the JAX golden, the brute force, config #3 ------
     kmarkers_golden(torch, dev)
@@ -4205,21 +4478,23 @@ def main() -> int:
     # --- 11. paired-end kalign: the JAX golden, config #4 at full size --
     # --- 12. full-stats kalign: the golden, -y -C, -l, unequal mates ----
     pe_golden(torch, dev)
+    pe_full(torch, dev, card, t11, index_job)
+    done("11")
+    kalign_full_golden(torch, dev)
     with tempfile.TemporaryDirectory(prefix=".chip_smoke_", dir=root) as tmp:
-        pe_full(torch, dev, card, Path(tmp))
-        done("11")
-        kalign_full_golden(torch, dev)
-        with tempfile.TemporaryDirectory(prefix=".chip_smoke_",
-                                         dir=root) as tmp12:
-            rescue_full(torch, dev, card, Path(tmp12), cfg1)
-        pe_unequal_full(torch, dev, card, Path(tmp))
+        rescue_full(torch, dev, card, Path(tmp), cfg1)
+    pe_unequal_full(torch, dev, card, t11)
+    keep11.cleanup()
     done("12")
 
     # --- 13. kalign options, BAM, SNP outputs, bisulfite ----------------
-    opts_golden(torch, dev)
-    with tempfile.TemporaryDirectory(prefix=".chip_smoke_", dir=root) as tmp:
+    with tempfile.TemporaryDirectory(prefix=".chip_smoke_", dir=root) as tmp, \
+            host_steps:
+        reads_job = host_steps.submit(cli_logged,
+                                      snp_reads_argv(Path(tmp), cfg1))
+        opts_golden(torch, dev)
         opts_full(torch, dev, card, Path(tmp), cfg1)
-        snp_full(torch, dev, card, Path(tmp), cfg1)
+        snp_full(torch, dev, card, Path(tmp), cfg1, reads_job)
         bisulfite_full(torch, dev, card, Path(tmp), cfg1)
     done("13")
 
@@ -4242,11 +4517,12 @@ def main() -> int:
     done("15")
 
     # --- 16. blitz, hrdx, kmerdist and the scorer group ------------------
-    # 17a's and 18a's goldens (host only) run in worker processes beside
-    # it; 16's and 17's directories live on until phase 18 has read them
-    goldens = ProcessPoolExecutor(2, mp_context=get_context("spawn"))
+    # 17a's, 18a's and 19a's goldens (host only) run in worker processes
+    # beside it; 16's and 17's directories live on until phase 18 has read
+    # them
+    goldens = ProcessPoolExecutor(3, mp_context=get_context("spawn"))
     host_goldens = {n: goldens.submit(host_golden, n)
-                    for n in ("haplotypes", "convert")}
+                    for n in ("haplotypes", "convert", "hosttools")}
     longtail_golden(torch, dev)
     keep16 = tempfile.TemporaryDirectory(prefix=".chip_smoke_", dir=root)
     t16 = Path(keep16.name)
@@ -4264,13 +4540,20 @@ def main() -> int:
     done("17")
 
     # --- 18. the converters and file tools: golden, earlier files -------
-    with goldens:
-        print(host_goldens["convert"].result())
+    print(host_goldens["convert"].result())
     with tempfile.TemporaryDirectory(prefix=".chip_smoke_", dir=root) as tmp:
         convert_full(card, Path(tmp), cfg1, t16, t17)
-    for kept in (keep16, keep17, config1):
+    for kept in (keep16, keep17):
         kept.cleanup()
     done("18")
+
+    # --- 19. alignment blocks, regions, RAD-seq, loci, structure, GO ----
+    with goldens:
+        print(host_goldens["hosttools"].result())
+    with tempfile.TemporaryDirectory(prefix=".chip_smoke_", dir=root) as tmp:
+        hosttools_full(card, Path(tmp), cfg1)
+    config1.cleanup()
+    done("19")
     if "jax" in sys.modules or "kit4b_tpu" in sys.modules:
         raise AssertionError("jax or the JAX package kit4b_tpu was imported")
 

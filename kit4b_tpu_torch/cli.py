@@ -13,18 +13,23 @@ converters and file tools `bed2csv`, `csv2bed`, `csv2fasta`,
 `splitmultifasta`, `quickcount`, `gengenomefromagp`, `ufilter`,
 `usimdiffexpr`, `gennormwiggle`, `fasta2bed`, `fasta2pe`, `fasta2nxx`,
 `xfasta`, `xroiseqs`, `genbiobed`, `genbioseq`, `snps2sqlite`,
-`snpm2sqlite`, `de2sqlite` and `psl2sqlite`, and those of `cli_tools.py`
-(`csvfilter`, `csvmerge`, `csv2feat`, `csv2stats`, `processcsvfiles`,
+`snpm2sqlite`, `de2sqlite` and `psl2sqlite`, the alignment-block, region,
+RAD-seq, SSR, WIG, GO and DNA-structure commands `genmafalgn`, `hypers`,
+`loci2phylip`, `remaploci`, `genwiggle`, `locateroi`, `filtchrom`,
+`gendeseq`, `radseq`, `ssr`, `wigutils`, `gengoterms`, `gengoassoc`,
+`goassoc`, `fasta2struct`, `fasta2dist`, `prednucleosomes` and
+`simulatemnase`, and those of `cli_tools.py` (the converters `csvfilter`,
+`csvmerge`, `csv2feat`, `csv2stats`, `processcsvfiles`,
 `genhyperdropouts`, `bedfilter`, `bedmerge`, `gfffilter`, `gtffilter`,
-`blast2csv`, `psl2csv`), taking the same flags and writing the same
-files, plus
-`--device {cuda,cpu}` on the commands that use a device (`kalign`,
-`genpba`, `hammings`, `kmarkers`, `filter` for -D, `scaffold`, `rnaexpr`,
+`blast2csv`, `psl2csv`; the loci statistics, DNA-structure and
+alignment-block tools listed there): every subcommand of kit4b_tpu's,
+taking the same flags and writing the same files, plus `--device
+{cuda,cpu}` on the commands that use a device (`kalign`, `genpba`,
+`hammings`, `kmarkers`, `filter` for -D, `scaffold`, `rnaexpr`,
 `sarscov2ml`, the four PacBio commands, `blitz` and `alignsbs`). The
-parsers are copies, as is all the port needs
-of the JAX package: it imports none of it. Flags of paths not ported yet
-parse as in kit4b_tpu and raise NotImplementedError naming their ROADMAP
-item.
+parsers are copies, as is all the port needs of the JAX package: it
+imports none of it. Flags of paths not ported yet parse as in kit4b_tpu
+and raise NotImplementedError naming their ROADMAP item.
 """
 from __future__ import annotations
 
@@ -1650,6 +1655,355 @@ def cmd_tosqlite(args) -> int:
     log.info("%s2sqlite: %d rows -> %s", args.kind, n, args.outfile)
     return 0
 
+
+# --- alignment blocks, regions, RAD-seq, SSRs, WIG, GO and DNA structure
+# (ROADMAP item 19(c2) and 19(c3)) -----------------------------------------
+
+def cmd_genwiggle(args) -> int:
+    """genWiggle equivalent: coverage WIG from SAM."""
+    from .align.regions import coverage_from_sam
+    from .utils.runtime import log
+    lens = {}
+    with open(args.infile) as f:
+        for line in f:
+            if not line.startswith("@"):
+                break
+            if line.startswith("@SQ"):
+                d = dict(x.split(":", 1) for x in line.split("\t")[1:])
+                lens[d["SN"]] = int(d["LN"])
+    cov = coverage_from_sam(args.infile, lens)
+    with open(args.outfile, "w") as f:
+        f.write('track type=wiggle_0 name="coverage"\n')
+        import numpy as _np
+        for chrom, c in cov.items():
+            if not c.any():
+                continue
+            change = _np.nonzero(_np.diff(c))[0]
+            starts = _np.concatenate([[0], change + 1])
+            ends = _np.concatenate([change + 1, [len(c)]])
+            for a, b in zip(starts, ends):
+                if c[a]:
+                    f.write(f"variableStep chrom={chrom} span={b - a}\n")
+                    f.write(f"{a + 1}\t{int(c[a])}\n")
+    log.info("genwiggle -> %s", args.outfile)
+    return 0
+
+
+def cmd_locateroi(args) -> int:
+    """ngskit4b locateroi equivalent (CLocateROI)."""
+    from .align.regions import coverage_from_sam, locate_roi
+    from .io.bed import write_bed
+    from .io.sam import read_sam
+    from .utils.runtime import log
+    # chrom lengths from the SAM header
+    lens = {}
+    with open(args.infile) as f:
+        for line in f:
+            if not line.startswith("@"):
+                break
+            if line.startswith("@SQ"):
+                d = dict(x.split(":", 1) for x in line.split("\t")[1:])
+                lens[d["SN"]] = int(d["LN"])
+    cov = coverage_from_sam(args.infile, lens)
+    rois = locate_roi(cov, min_cov=args.mincov, min_len=args.minlen)
+    write_bed(args.outfile, rois)
+    log.info("locateroi: %d regions -> %s", len(rois), args.outfile)
+    return 0
+
+
+def cmd_filtchrom(args) -> int:
+    """ngskit4b filtchrom equivalent (FilterSAMAlignments)."""
+    from .align.regions import filter_sam_by_chrom
+    from .utils.runtime import log
+    stats = filter_sam_by_chrom(args.infile, args.outfile,
+                                include=args.include, exclude=args.exclude)
+    log.info("filtchrom: %s -> %s", stats, args.outfile)
+    return 0
+
+
+def cmd_gendeseq(args) -> int:
+    """ngskit4b gendeseq equivalent: feature x sample counts matrix."""
+    from .align.regions import de_counts, write_de_counts
+    from .io.bed import BedFile
+    from .utils.runtime import log
+    bed = BedFile.load(args.bedfile)
+    sams = {}
+    for spec in args.sample:
+        name, path = spec.split("=", 1)
+        sams[name] = path
+    samples, counts = de_counts(sams, bed)
+    write_de_counts(args.outfile, samples, counts)
+    log.info("gendeseq: %d features x %d samples -> %s",
+             len(counts), len(samples), args.outfile)
+    return 0
+
+
+def cmd_remaploci(args) -> int:
+    """ngskit4b remaploci equivalent (CRemapLoci)."""
+    from .tools.remap import remap_bed, remap_sam
+    from .utils.runtime import log
+    if args.infile.endswith(".bed"):
+        stats = remap_bed(args.infile, args.bed, args.outfile)
+    else:
+        stats = remap_sam(args.infile, args.bed, args.outfile)
+    log.info("remaploci: %s -> %s", json.dumps(stats), args.outfile)
+    return 0
+
+
+def cmd_genmafalgn(args) -> int:
+    """ngskit4b genmafalgn equivalent (MAF -> indexed .algn store)."""
+    from .io.malign import MAlign
+    from .utils.runtime import log
+    ma = MAlign.from_maf(args.infile, ref_species=args.refspecies)
+    ma.save(args.outfile)
+    log.info("genmafalgn: %d blocks, %d species -> %s",
+             len(ma.blocks), len(ma.species), args.outfile)
+    return 0
+
+
+def cmd_hypers(args) -> int:
+    """ngskit4b hypers equivalent (ultra/hyper-conserved elements)."""
+    from .io.malign import MAlign
+    from .tools.hypers import (find_hypercores, length_distribution,
+                               write_hypers_bed, write_hypers_csv)
+    from .utils.runtime import log
+    ma = MAlign.load(args.infile)
+    els = find_hypercores(ma, min_core_len=args.mincorelen,
+                          max_mismatches=args.maxmismatches,
+                          min_species=args.minspecies)
+    if getattr(args, "bedfile", None):
+        # region classification against a gene model (CHyperEls
+        # MapRegions)
+        from .io.biobed import RegionClassifier, load_gene_bed
+        from .tools.hypers import (classify_regions,
+                                   write_hypers_region_csv)
+        cls = RegionClassifier(load_gene_bed(args.bedfile),
+                               args.updnstream)
+        classification = classify_regions(els, cls)
+        write_hypers_region_csv(args.outfile, els, classification)
+        log.info("hypers regions: %s", classification["counts"])
+        return 0
+    if args.outfile.endswith(".bed"):
+        write_hypers_bed(args.outfile, els)
+    else:
+        write_hypers_csv(args.outfile, els)
+    if args.statsfile:
+        with open(args.statsfile, "w") as f:
+            f.write('"BinLen","Count"\n')
+            for b, c in length_distribution(els, num_bins=args.numbins):
+                f.write(f"{b},{c}\n")
+    log.info("hypers: %d elements -> %s", len(els), args.outfile)
+    return 0
+
+
+def cmd_loci2phylip(args) -> int:
+    from .io.malign import MAlign
+    from .tools.convert import loci_to_phylip, read_loci_csv
+    from .utils.runtime import log
+    ma = MAlign.load(args.malignfile)
+    if args.infile.endswith(".bed"):
+        from .io.bed import BedFile
+        loci = [{"chrom": ft.chrom, "start": ft.start,
+                 "end": ft.end - 1}
+                for ft in BedFile.load(args.infile).features]
+    else:
+        loci = read_loci_csv(args.infile)
+    n = loci_to_phylip(ma, loci, args.outfile)
+    log.info("loci2phylip: %d loci-blocks -> %s", n, args.outfile)
+    return 0
+
+
+def cmd_radseq(args) -> int:
+    """kit4bRADSeq equivalent (CStackSeqs): RAD stacks + variants."""
+    from .assembly.radseq import (radseq_process, write_stacks_fasta,
+                                  write_stacks_vcf)
+    from .io.fasta import read_seqs
+    from .utils.runtime import log
+    p1 = [r for p_ in args.infile for r in read_seqs(p_)]
+    p2 = None
+    if args.pairfile:
+        p2 = [r for p_ in args.pairfile for r in read_seqs(p_)]
+    stacks = radseq_process(
+        p1, p2, min_depth=args.p1stackdepth,
+        max_sub_pct=args.p1stacksubrate, end_float=args.p1stackend,
+        min_overlap=args.p2minovrl)
+    write_stacks_fasta(args.outfile, stacks)
+    if args.vcffile:
+        write_stacks_vcf(args.vcffile, stacks)
+    nv = sum(len(s.variants) for s in stacks)
+    log.info("radseq: %d reads -> %d stacks, %d variants -> %s",
+             len(p1), len(stacks), nv, args.outfile)
+    return 0
+
+
+def cmd_ssr(args) -> int:
+    """ngskit4b ssr equivalent (CSSRDiscovery)."""
+    from .io.fasta import Genome
+    from .tools.ssr import find_ssrs, write_ssrs_bed, write_ssrs_csv
+    from .utils.runtime import log
+    g = Genome.load(args.infile)
+    ssrs = find_ssrs(g, min_unit=args.minunit, max_unit=args.maxunit,
+                     min_repeats=args.minrepeats,
+                     max_repeats=args.maxrepeats)
+    if args.outfile.endswith(".bed"):
+        write_ssrs_bed(args.outfile, ssrs)
+    else:
+        write_ssrs_csv(args.outfile, ssrs)
+    log.info("ssr: %d SSRs -> %s", len(ssrs), args.outfile)
+    return 0
+
+
+def cmd_wigutils(args) -> int:
+    """ngskit4b wigutils equivalent (CWIGutils)."""
+    from .tools.wigutils import (merge_wigs, read_wig, wig_stats,
+                                 write_wig_csv, write_wig_sparse)
+    from .utils.runtime import log
+    tracks = [read_wig(p) for p in args.infiles]
+    merged = merge_wigs(tracks, op=args.op) if len(tracks) > 1 else tracks[0]
+    if args.mode == "stats":
+        with open(args.outfile, "w") as f:
+            f.write('"Chrom","Covered","Sum","Mean","Max","Min"\n')
+            for r in wig_stats(merged):
+                f.write(f'"{r["chrom"]}",{r["covered"]},{r["sum"]:g},'
+                        f'{r["mean"]:g},{r["max"]:g},{r["min"]:g}\n')
+    elif args.outfile.endswith(".csv"):
+        write_wig_csv(args.outfile, merged)
+    else:
+        write_wig_sparse(args.outfile, merged)
+    log.info("wigutils: %d tracks %s -> %s", len(tracks), args.op,
+             args.outfile)
+    return 0
+
+
+def cmd_gengoterms(args) -> int:
+    """ngskit4b gengoterms equivalent (parse GO OBO ontology)."""
+    from .tools.go import parse_obo
+    from .utils.runtime import log
+    terms = parse_obo(args.infile)
+    with open(args.outfile, "w") as f:
+        f.write('"GOID","Name","Namespace","Parents","Obsolete"\n')
+        for t in sorted({id(v): v for v in terms.values()}.values(),
+                        key=lambda t: t.goid):
+            f.write(f'"{t.goid}","{t.name}","{t.namespace}",'
+                    f'"{"|".join(t.parents)}",{int(t.obsolete)}\n')
+    log.info("gengoterms: %d terms -> %s", len(terms), args.outfile)
+    return 0
+
+
+def cmd_gengoassoc(args) -> int:
+    """ngskit4b gengoassoc equivalent (GAF -> gene associations)."""
+    from .tools.go import parse_associations, parse_obo, propagate
+    from .utils.runtime import log
+    assoc = parse_associations(args.infile)
+    if args.obo:
+        assoc = propagate(assoc, parse_obo(args.obo))
+    with open(args.outfile, "w") as f:
+        f.write('"Gene","GOIDs"\n')
+        for g in sorted(assoc):
+            f.write(f'"{g}","{"|".join(sorted(assoc[g]))}"\n')
+    log.info("gengoassoc: %d genes -> %s", len(assoc), args.outfile)
+    return 0
+
+
+def cmd_goassoc(args) -> int:
+    """ngskit4b goassoc equivalent (GO term enrichment)."""
+    from .tools.go import (enrich, parse_associations, parse_obo,
+                           propagate, write_enrichment_csv)
+    from .utils.runtime import log
+    assoc = parse_associations(args.assoc)
+    terms = parse_obo(args.obo) if args.obo else None
+    if terms:
+        assoc = propagate(assoc, terms)
+    sample = [l.strip() for l in open(args.infile) if l.strip()]
+    pop = ([l.strip() for l in open(args.population) if l.strip()]
+           if args.population else list(assoc))
+    rows = enrich(sample, pop, assoc, terms, min_hits=args.minhits)
+    write_enrichment_csv(args.outfile, rows)
+    log.info("goassoc: %d enriched terms -> %s", len(rows), args.outfile)
+    return 0
+
+
+def cmd_fasta2struct(args) -> int:
+    """fasta2struct equivalent: per-step conformational profiles."""
+    from .io.fasta import read_seqs
+    from .tools import conformation as cf
+    from .utils.runtime import log
+    params = cf.load_octamer_params(args.paramsfile)
+    if args.prop not in params:
+        raise ValueError(f"property '{args.prop}' not in params file "
+                         f"(have: {', '.join(params)})")
+    n = 0
+    with open(args.outfile, "w") as f:
+        f.write(f'"Seq","Step","{args.prop}"\n')
+        for rec in read_seqs(args.infile):
+            prof = cf.struct_profile(rec.codes, params[args.prop])
+            for i, v in enumerate(prof):
+                if v == v:  # not NaN
+                    f.write(f'"{rec.name}",{i + 4},{v:.4f}\n')
+            n += 1
+    log.info("fasta2struct: %d seqs (%s) -> %s", n, args.prop,
+             args.outfile)
+    return 0
+
+
+def cmd_fasta2dist(args) -> int:
+    """fasta2dist equivalent: conformational distance matrix."""
+    from .io.fasta import read_seqs
+    from .tools import conformation as cf
+    from .utils.runtime import log
+    params = cf.load_octamer_params(args.paramsfile)
+    recs = list(read_seqs(args.infile))
+    props = args.props.split(",") if args.props else None
+    dist = cf.conformational_distances(recs, params, props)
+    cf.write_dist_csv(args.outfile, [r.name for r in recs], dist)
+    log.info("fasta2dist: %d x %d matrix -> %s", len(recs), len(recs),
+             args.outfile)
+    return 0
+
+
+def cmd_prednucleosomes(args) -> int:
+    """prednucleosomes equivalent: dyad calling from MNase reads."""
+    from .io.sam import read_sam
+    from .tools import conformation as cf
+    from .utils.runtime import log
+    chrom_lens: dict = {}
+    alns = []
+    with open(args.infile) as f:
+        for line in f:
+            if line.startswith("@SQ"):
+                d = dict(x.split(":", 1) for x in line.split("\t")[1:]
+                         if ":" in x)
+                chrom_lens[d["SN"]] = int(d["LN"])
+    for rec in read_sam(args.infile):
+        if rec.is_mapped:
+            alns.append((rec.rname, rec.pos - 1, len(rec.seq),
+                         abs(rec.tlen)))
+    scores = cf.dyad_scores(alns, chrom_lens, mode=args.mode)
+    dyads = cf.call_dyads(scores, min_score=args.minscore)
+    fmt = {0: "bedgraph", 1: "bed", 2: "csv"}[args.format]
+    cf.write_dyads(args.outfile, dyads, fmt)
+    log.info("prednucleosomes: %d dyads -> %s", len(dyads), args.outfile)
+    return 0
+
+
+def cmd_simulatemnase(args) -> int:
+    """SimulateMNase equivalent: cut-preference fragment simulation."""
+    from .io.fasta import Genome, SeqRecord, write_fasta
+    from .tools import conformation as cf
+    from .utils.runtime import log
+    g = Genome.load(args.genome)
+    frags = cf.simulate_mnase(g, args.nreads, seed=args.seed)
+    starts = {n: int(s) for n, s in zip(g.names, g.starts)}
+    recs = []
+    for i, (chrom, s, ln) in enumerate(frags):
+        seq = g.seq[starts[chrom] + s:starts[chrom] + s + ln]
+        recs.append(SeqRecord(f"mnase{i}|{chrom}|{s}|{ln}", "", seq))
+    write_fasta(args.outfile, recs)
+    log.info("simulatemnase: %d fragments -> %s", len(recs),
+             args.outfile)
+    return 0
+
+
 def _kalign_args(p: argparse.ArgumentParser) -> None:
     """kit4b_tpu's kalign flags, copied, plus --device."""
     p.add_argument("-i", "--in", dest="infile", nargs="+", required=True)
@@ -2559,6 +2913,184 @@ def build_parser() -> argparse.ArgumentParser:
         p.add_argument("-o", "--out", dest="outfile", required=True)
         _common(p)
         p.set_defaults(fn=cmd_tosqlite, kind=kind)
+
+    p = sub.add_parser("genwiggle", help="coverage WIG from SAM")
+    p.add_argument("-i", "--in", dest="infile", required=True)
+    p.add_argument("-o", "--out", dest="outfile", required=True)
+    _common(p)
+    p.set_defaults(fn=cmd_genwiggle)
+
+    p = sub.add_parser("locateroi", help="coverage regions of interest")
+    p.add_argument("-i", "--in", dest="infile", required=True)
+    p.add_argument("-o", "--out", dest="outfile", required=True)
+    p.add_argument("-c", "--mincov", type=int, default=2)
+    p.add_argument("-l", "--minlen", type=int, default=100)
+    _common(p)
+    p.set_defaults(fn=cmd_locateroi)
+
+    p = sub.add_parser("filtchrom", help="filter SAM by chrom regex")
+    p.add_argument("-i", "--in", dest="infile", required=True)
+    p.add_argument("-o", "--out", dest="outfile", required=True)
+    p.add_argument("-Z", "--include", nargs="+", default=None)
+    p.add_argument("-z", "--exclude", nargs="+", default=None)
+    _common(p)
+    p.set_defaults(fn=cmd_filtchrom)
+
+    p = sub.add_parser("gendeseq", help="DE counts matrix from sample SAMs")
+    p.add_argument("-s", "--sample", nargs="+", required=True,
+                   metavar="NAME=sam")
+    p.add_argument("-b", "--bed", dest="bedfile", required=True)
+    p.add_argument("-o", "--out", dest="outfile", required=True)
+    _common(p)
+    p.set_defaults(fn=cmd_gendeseq)
+
+    p = sub.add_parser("remaploci",
+                       help="remap alignment loci between assemblies")
+    p.add_argument("-i", "--in", dest="infile", required=True,
+                   help="SAM or BED alignments")
+    p.add_argument("-I", "--bed", required=True,
+                   help="BED of remapping features (name = target seq)")
+    p.add_argument("-o", "--out", dest="outfile", required=True)
+    _common(p)
+    p.set_defaults(fn=cmd_remaploci)
+
+    p = sub.add_parser("genmafalgn",
+                       help="MAF -> indexed multialignment (.algn.npz)")
+    p.add_argument("-i", "--in", dest="infile", required=True)
+    p.add_argument("-o", "--out", dest="outfile", required=True)
+    p.add_argument("-r", "--refspecies", default=None)
+    _common(p)
+    p.set_defaults(fn=cmd_genmafalgn)
+
+    p = sub.add_parser("hypers",
+                       help="ultra/hyper-conserved element discovery")
+    p.add_argument("-i", "--in", dest="infile", required=True,
+                   help=".algn.npz from genmafalgn")
+    p.add_argument("-o", "--out", dest="outfile", required=True)
+    p.add_argument("-l", "--mincorelen", type=int, default=50)
+    p.add_argument("-X", "--maxmismatches", type=int, default=0)
+    p.add_argument("-s", "--minspecies", type=int, default=2)
+    p.add_argument("-O", "--statsfile", default=None)
+    p.add_argument("-b", "--numbins", type=int, default=1000)
+    p.add_argument("-B", "--bed", dest="bedfile", default=None,
+                   help="gene BED: classify elements into regions")
+    p.add_argument("-L", "--updnstream", type=int, default=2000)
+    _common(p)
+    p.set_defaults(fn=cmd_hypers)
+
+    p = sub.add_parser("loci2phylip",
+                       help="multialignment columns at loci -> Phylip")
+    p.add_argument("-i", "--in", dest="infile", required=True,
+                   help="loci CSV or BED")
+    p.add_argument("-I", "--malign", dest="malignfile", required=True,
+                   help=".algn.npz from genmafalgn")
+    p.add_argument("-o", "--out", dest="outfile", required=True)
+    _common(p)
+    p.set_defaults(fn=cmd_loci2phylip)
+
+    p = sub.add_parser("radseq",
+                       help="RAD-seq stack assembly + in-stack variants")
+    p.add_argument("-i", "--in", dest="infile", nargs="+", required=True,
+                   help="P1 reads fasta/fastq")
+    p.add_argument("-I", "--pair", dest="pairfile", nargs="+",
+                   default=None, help="P2 mate reads")
+    p.add_argument("-o", "--out", dest="outfile", required=True)
+    p.add_argument("-O", "--variants", dest="vcffile", default=None,
+                   help="VCF 4.1 in-stack variants output")
+    p.add_argument("-Z", "--p1stackdepth", type=int, default=10)
+    p.add_argument("-s", "--p1stacksubrate", type=float, default=1.0)
+    p.add_argument("-z", "--p1stackend", type=int, default=5)
+    p.add_argument("-y", "--p2minovrl", type=int, default=30)
+    _common(p)
+    p.set_defaults(fn=cmd_radseq)
+
+    p = sub.add_parser("ssr", help="simple sequence repeat discovery")
+    p.add_argument("-i", "--in", dest="infile", required=True)
+    p.add_argument("-o", "--out", dest="outfile", required=True)
+    p.add_argument("-k", "--minunit", type=int, default=2)
+    p.add_argument("-K", "--maxunit", type=int, default=5)
+    p.add_argument("-r", "--minrepeats", type=int, default=5)
+    p.add_argument("-R", "--maxrepeats", type=int, default=1000)
+    _common(p)
+    p.set_defaults(fn=cmd_ssr)
+
+    p = sub.add_parser("wigutils", help="WIG utilities (merge/stats/csv)")
+    p.add_argument("-i", "--in", dest="infiles", required=True, nargs="+")
+    p.add_argument("-o", "--out", dest="outfile", required=True)
+    p.add_argument("-m", "--mode", choices=["track", "stats"],
+                   default="track")
+    p.add_argument("-p", "--op", choices=["sum", "mean", "min", "max"],
+                   default="sum")
+    _common(p)
+    p.set_defaults(fn=cmd_wigutils)
+
+    p = sub.add_parser("gengoterms", help="parse GO OBO ontology -> CSV")
+    p.add_argument("-i", "--in", dest="infile", required=True)
+    p.add_argument("-o", "--out", dest="outfile", required=True)
+    _common(p)
+    p.set_defaults(fn=cmd_gengoterms)
+
+    p = sub.add_parser("gengoassoc",
+                       help="GAF/CSV -> propagated gene-GO associations")
+    p.add_argument("-i", "--in", dest="infile", required=True)
+    p.add_argument("-O", "--obo", default=None)
+    p.add_argument("-o", "--out", dest="outfile", required=True)
+    _common(p)
+    p.set_defaults(fn=cmd_gengoassoc)
+
+    p = sub.add_parser("goassoc", help="GO term enrichment")
+    p.add_argument("-i", "--in", dest="infile", required=True,
+                   help="sample gene list (one per line)")
+    p.add_argument("-p", "--population", default=None)
+    p.add_argument("-a", "--assoc", required=True,
+                   help="GAF or gene,goid CSV")
+    p.add_argument("-O", "--obo", default=None)
+    p.add_argument("-o", "--out", dest="outfile", required=True)
+    p.add_argument("-c", "--minhits", type=int, default=2)
+    _common(p)
+    p.set_defaults(fn=cmd_goassoc)
+
+    p = sub.add_parser("fasta2struct",
+                       help="dsDNA conformational profile per step")
+    p.add_argument("-i", "--in", dest="infile", required=True)
+    p.add_argument("-I", "--params", dest="paramsfile", required=True,
+                   help="octamer structural parameters CSV")
+    p.add_argument("-p", "--prop", default="twist",
+                   help="property (twist/roll/energy/minorgroove/...)")
+    p.add_argument("-o", "--out", dest="outfile", required=True)
+    _common(p)
+    p.set_defaults(fn=cmd_fasta2struct)
+
+    p = sub.add_parser("fasta2dist",
+                       help="conformational distance matrix")
+    p.add_argument("-i", "--in", dest="infile", required=True)
+    p.add_argument("-I", "--params", dest="paramsfile", required=True)
+    p.add_argument("-p", "--props", default=None,
+                   help="comma-separated properties (default all)")
+    p.add_argument("-o", "--out", dest="outfile", required=True)
+    _common(p)
+    p.set_defaults(fn=cmd_fasta2dist)
+
+    p = sub.add_parser("prednucleosomes",
+                       help="nucleosome dyad prediction from MNase SAM")
+    p.add_argument("-i", "--in", dest="infile", required=True)
+    p.add_argument("-m", "--mode", type=int, default=0,
+                   help="0 paired 147+-20, 1 full-length, 2 extended")
+    p.add_argument("-M", "--format", type=int, default=0,
+                   help="0 bedGraph, 1 BED, 2 CSV")
+    p.add_argument("-s", "--minscore", type=float, default=3.0)
+    p.add_argument("-o", "--out", dest="outfile", required=True)
+    _common(p)
+    p.set_defaults(fn=cmd_prednucleosomes)
+
+    p = sub.add_parser("simulatemnase",
+                       help="simulate MNase digestion fragments")
+    p.add_argument("-g", "--genome", required=True)
+    p.add_argument("-n", "--nreads", type=int, default=10000)
+    p.add_argument("-r", "--seed", type=int, default=1)
+    p.add_argument("-o", "--out", dest="outfile", required=True)
+    _common(p)
+    p.set_defaults(fn=cmd_simulatemnase)
 
     from .cli_tools import register as _register_tools
     _register_tools(sub, _common)

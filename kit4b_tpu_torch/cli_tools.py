@@ -1,9 +1,16 @@
-"""CLI registration of the port's standalone converter and file tools,
-the commands kit4b_tpu/cli_tools.py keeps apart from cli.py (flag letters
-and defaults copied from it; it is not imported): csvfilter, csvmerge,
-csv2feat, csv2stats, processcsvfiles, genhyperdropouts, bedfilter,
-bedmerge, gfffilter, gtffilter, blast2csv and psl2csv. Host only: none of
-them takes a device.
+"""CLI registration of the port's standalone tools, the commands
+kit4b_tpu/cli_tools.py keeps apart from cli.py (flag letters, defaults and
+handlers copied from it; it is not imported): the converters and file
+tools csvfilter, csvmerge, csv2feat, csv2stats, processcsvfiles,
+genhyperdropouts, bedfilter, bedmerge, gfffilter, gtffilter, blast2csv and
+psl2csv; the loci statistics loci2dist, gennucstats, genloci2gene,
+gencomposition, genrollups, genseqcandidates, genzygosity, fastafilter and
+filterreads; the DNA-structure tools genstructprofile, genstructstats,
+predconfnucs, dnasitepotential, rnasitepotential, genelementseq,
+genelementprofiles, gencentroidmetrics and proccentroids; and the
+alignment-block tools loci2core, ref2relloci, genalignstats and
+genalignconf. `locmarkers`, which the JAX package registers here, is in
+cli.py. Host only: none of them takes a device.
 """
 from __future__ import annotations
 
@@ -37,6 +44,14 @@ def _rows_any(path) -> list[dict]:
     from .tools.csvtools import read_outspecies_csv
     rows = read_outspecies_csv(path)
     return rows if rows else read_loci_csv(path)
+
+
+def _classifier(args):
+    if not getattr(args, "bedfile", None):
+        return None
+    from .io.biobed import RegionClassifier, load_gene_bed
+    return RegionClassifier(load_gene_bed(args.bedfile),
+                            getattr(args, "reglen", 2000))
 
 
 # ------------------------------------------------------------------- cmds
@@ -229,6 +244,342 @@ def cmd_psl2csv(args) -> int:
     return 0
 
 
+def cmd_loci2dist(args) -> int:
+    from .tools.locistats import loci2dist, write_loci2dist
+    from .utils.runtime import log
+    res = loci2dist(_loci_or_bed(args.infile), min_len=args.minlength,
+                    max_len=args.maxlength, strand=args.strandproc,
+                    classifier=_classifier(args))
+    write_loci2dist(args.outfile, res)
+    log.info("loci2dist: -> %s", args.outfile)
+    return 0
+
+
+def cmd_gennucstats(args) -> int:
+    import json
+    from .tools.locistats import gennucstats
+    from .utils.runtime import log
+    sample = _loci_or_bed(args.sample) if args.sample else None
+    res = gennucstats(_loci_or_bed(args.infile), sample,
+                      bkg_dyad_ofs=args.bkgdyadofs,
+                      smpl_dyad_ofs=args.smpldyadofs,
+                      wind_dyad=args.winddyad,
+                      classifier=_classifier(args))
+    with open(args.outfile, "w") as f:
+        json.dump({k: v for k, v in res.items()}, f, indent=1,
+                  default=str)
+    log.info("gennucstats: %s -> %s",
+             {k: v for k, v in res.items() if not isinstance(v, dict)},
+             args.outfile)
+    return 0
+
+
+def cmd_genloci2gene(args) -> int:
+    from .io.biobed import RegionClassifier, load_gene_bed
+    from .tools.locistats import genloci2gene, write_loci2gene
+    from .utils.runtime import log
+    genes = load_gene_bed(args.locibed)
+    cls = RegionClassifier(genes, args.updnstream)
+    rows = genloci2gene(_loci_or_bed(args.loci), cls, genes,
+                        assoc_dist=args.assocdist,
+                        w_intergenic=args.intergenic,
+                        w_upstream=args.upstream,
+                        w_intragenic=args.intragenic,
+                        w_dnstream=args.downstream,
+                        clust_dist=args.clustdist, strand=args.strand)
+    write_loci2gene(args.outfile, rows)
+    log.info("genloci2gene: %d associations -> %s", len(rows),
+             args.outfile)
+    return 0
+
+
+def cmd_gencomposition(args) -> int:
+    from .io.fasta import Genome
+    from .tools.convert import write_quickcount_csv
+    from .tools.locistats import gencomposition
+    from .utils.runtime import log
+    g = Genome.load(args.assembly)
+    loci = _loci_or_bed(args.inloci) if args.inloci else None
+    res = gencomposition(loci, g, per_seq=args.mode == 1,
+                         min_nmer=args.minnmerlen, max_nmer=args.maxnmerlen,
+                         min_len=args.minlength, max_len=args.maxlength)
+    if args.mode == 1:
+        import json
+        with open(args.outfile, "w") as f:
+            json.dump({n: {k: {m: c for m, c in d.items()}
+                           for k, d in v.items()}
+                       for n, v in res.items()}, f, indent=1)
+    else:
+        write_quickcount_csv(args.outfile, res)
+    log.info("gencomposition: -> %s", args.outfile)
+    return 0
+
+
+def cmd_genrollups(args) -> int:
+    from .tools.locistats import genrollups, write_rollups
+    from .utils.runtime import log
+    rows = genrollups(_rows_any(args.infile), mode=args.mode,
+                      bin_class=args.binclass,
+                      percentages=args.percent, region=args.region,
+                      align2core=args.align2core,
+                      pc_align2core=args.pcalign2core,
+                      id_align2core=args.idalign2core,
+                      os_identity=args.osidentity)
+    write_rollups(args.outfile, rows)
+    log.info("genrollups: mode %d -> %s", args.mode, args.outfile)
+    return 0
+
+
+def cmd_genseqcandidates(args) -> int:
+    from .index.sfx_index import SfxIndex
+    from .tools.locistats import genseqcandidates, write_seqcandidates
+    from .utils.runtime import log
+    idx = SfxIndex.load(args.sfxfile)
+    rows = genseqcandidates(idx, _loci_or_bed(args.infile),
+                            subseq_len=args.subseqlen,
+                            block_len=args.blockseqlen,
+                            min_len=args.minlength,
+                            trunc_len=args.truncatelength,
+                            ofs=args.offset, delta_len=args.deltalen)
+    write_seqcandidates(args.outfile, rows)
+    log.info("genseqcandidates: %d blocks -> %s", len(rows), args.outfile)
+    return 0
+
+
+def cmd_genzygosity(args) -> int:
+    from .index.sfx_index import SfxIndex
+    from .tools.locistats import genzygosity, write_zygosity
+    from .utils.runtime import log
+    idx = SfxIndex.load(args.sfxfile)
+    res = genzygosity(idx, subseq_len=args.subseqlen,
+                      max_subs=args.substitutions, max_ns=args.maxns,
+                      max_matches=args.maxmatches,
+                      threshold=args.zygosity)
+    write_zygosity(args.outfile, res, raw_path=args.rawrslts)
+    log.info("genzygosity: %d entries -> %s", len(res["names"]),
+             args.outfile)
+    return 0
+
+
+def cmd_fastafilter(args) -> int:
+    from .tools.locistats import fasta_filter
+    from .utils.runtime import log
+    st = fasta_filter(args.infile, args.outfile, mode=args.mode,
+                      max_n_run=args.maxnrun, sep_unique=args.sepunique)
+    log.info("fastafilter: %s -> %s", st, args.outfile)
+    return 0
+
+
+def cmd_filterreads(args) -> int:
+    from .io.biobed import RegionClassifier, load_gene_bed
+    from .tools.convert import write_loci_csv
+    from .tools.locistats import filter_reads_by_region
+    from .utils.runtime import log
+    genes = []
+    for p in args.bedfiles:
+        genes.extend(load_gene_bed(p))
+    cls = RegionClassifier(genes, args.updnstream)
+    kept, dropped = filter_reads_by_region(
+        _loci_or_bed(args.infile), cls, regions_in=args.regionsin or "",
+        strand=args.strand)
+    if args.filtinfile:
+        write_loci_csv(args.filtinfile, kept)
+    if args.filtoutfile:
+        write_loci_csv(args.filtoutfile, dropped)
+    log.info("filterreads: %d kept / %d dropped", len(kept), len(dropped))
+    return 0
+
+
+def cmd_genstructprofile(args) -> int:
+    from .io.fasta import read_seqs
+    from .tools.conformation import load_octamer_params
+    from .tools.structextra import genstructprofile
+    from .utils.runtime import log
+    params = load_octamer_params(args.params)
+    rows = genstructprofile(read_seqs(args.infile), params,
+                            mode=args.mode, n_samples=args.nsamples,
+                            trunc_len=args.truncatelength,
+                            ofs_start=args.ofsstart,
+                            bkgnd_groove=args.bkgndgroove,
+                            dyad_ratio=args.dyadratio,
+                            dyad2_ratio=args.dyad2ratio,
+                            dyad3_ratio=args.dyad3ratio)
+    with open(args.outfile, "w") as f:
+        f.write('"Seq","NumDyads","BestPos","BestRatio"\n')
+        for r in rows:
+            f.write(f'"{r["name"]}",{r["n_dyads"]},{r["best_pos"]},'
+                    f'{r["best_ratio"]:.4f}\n')
+    log.info("genstructprofile: %d seqs -> %s", len(rows), args.outfile)
+    return 0
+
+
+def cmd_genstructstats(args) -> int:
+    from .tools.conformation import load_octamer_params
+    from .tools.structextra import genstructstats
+    from .utils.runtime import log
+    params = load_octamer_params(args.infile)
+    n = genstructstats(params, args.outfile, sort_flank=args.sort)
+    log.info("genstructstats: %d octamers -> %s", n, args.outfile)
+    return 0
+
+
+def cmd_predconfnucs(args) -> int:
+    from .io.bed import BedFile
+    from .io.fasta import Genome
+    from .tools.conformation import load_octamer_params
+    from .tools.structextra import predconfnucs, write_predconfnucs
+    from .utils.runtime import log
+    g = Genome.load(args.infile)
+    params = load_octamer_params(args.conf)
+    inc = BedFile.load(args.inclregions) if args.inclregions else None
+    peaks = predconfnucs(g, params, dyad_ratio=args.dyadratio,
+                         dyad2_ratio=args.dyad2ratio,
+                         dyad3_ratio=args.dyad3ratio,
+                         mov_avg=args.avgwindow,
+                         baseline_win=args.basewindow,
+                         include_bed=inc)
+    write_predconfnucs(args.outfile, peaks, fmt=args.format,
+                       track=args.title)
+    n = sum(len(v) for v in peaks.values())
+    log.info("predconfnucs: %d nucleosome calls -> %s", n, args.outfile)
+    return 0
+
+
+def cmd_sitepotential(args) -> int:
+    from .io.fasta import Genome
+    from .tools.structextra import site_potential, write_site_potential
+    from .utils.runtime import log
+    g = Genome.load(args.genomefile)
+    rows = site_potential(_loci_or_bed(args.infile), g,
+                          strand=args.strand or "*")
+    write_site_potential(args.outfile, rows)
+    log.info("sitepotential: %d octamers -> %s", len(rows), args.outfile)
+    return 0
+
+
+def cmd_genelementseq(args) -> int:
+    from .io.fasta import Genome
+    from .tools.structextra import genelementseq
+    from .utils.runtime import log
+    g = Genome.load(args.assembly)
+    n = genelementseq(_loci_or_bed(args.inloci), g, args.outfile,
+                      fmt=args.outformat, min_len=args.minlength,
+                      max_len=args.maxlength, classifier=_classifier(args))
+    log.info("genelementseq: %d elements -> %s", n, args.outfile)
+    return 0
+
+
+def cmd_genelementprofiles(args) -> int:
+    from .io.biobed import load_gene_bed
+    from .tools.structextra import (genelementprofiles,
+                                    write_element_profiles)
+    from .utils.runtime import log
+    genes = load_gene_bed(args.features)
+    loci = []
+    for p in args.infile:
+        loci.extend(_loci_or_bed(p))
+    res = genelementprofiles(loci, genes, num_bins=args.numbins,
+                             feature=args.feature, strand=args.strand,
+                             flank_len=args.intergeniclen,
+                             profile=args.readprofile)
+    write_element_profiles(args.outfile, res)
+    log.info("genelementprofiles: %d features -> %s", len(res["genes"]),
+             args.outfile)
+    return 0
+
+
+def cmd_gencentroidmetrics(args) -> int:
+    from .tools.structextra import gencentroidmetrics, write_centroid_metrics
+    from .utils.runtime import log
+    if args.mode == 1:
+        from .io.fasta import Genome
+        res = gencentroidmetrics(None, nmer=args.nmer, mode=1,
+                                 genome=Genome.load(args.infile),
+                                 overlap=args.overlapnmers)
+    else:
+        from .io.malign import MAlign
+        res = gencentroidmetrics(MAlign.load(args.infile), nmer=args.nmer,
+                                 mode=0)
+    write_centroid_metrics(args.outfile, res)
+    log.info("gencentroidmetrics: mode %d nmer %d -> %s", args.mode,
+             args.nmer, args.outfile)
+    return 0
+
+
+def cmd_proccentroids(args) -> int:
+    from .tools.structextra import proccentroids
+    from .utils.runtime import log
+    n = proccentroids(args.infile, args.outfile, nmer=args.nmer,
+                      mode=args.mode)
+    log.info("proccentroids: %d rows -> %s", n, args.outfile)
+    return 0
+
+
+def cmd_loci2core(args) -> int:
+    from .io.malign import MAlign
+    from .tools.alignstats import loci2core, write_loci2core
+    from .utils.runtime import log
+    ma = MAlign.load(args.alignfile)
+    rows = loci2core(ma, _loci_or_bed(args.infile),
+                     species=args.species.replace(",", " ").split()
+                     if args.species else None,
+                     min_core_len=args.mincorelen,
+                     max_core_len=args.maxcorelen,
+                     dist_segs=args.distsegs)
+    write_loci2core(args.outfile, rows, args.distsegs)
+    log.info("loci2core: %d rows -> %s", len(rows), args.outfile)
+    return 0
+
+
+def cmd_ref2relloci(args) -> int:
+    from .io.malign import MAlign
+    from .tools.alignstats import ref2relloci, write_ref2relloci
+    from .utils.runtime import log
+    ma = MAlign.load(args.alignfile)
+    rels = args.species.replace(",", " ").split()[1:] if args.species \
+        else ma.species[1:]
+    loci = _loci_or_bed(args.infile)
+    all_rows = []
+    for rel in rels:
+        all_rows.extend(ref2relloci(ma, loci, rel_species=rel,
+                                    min_len=args.minlen,
+                                    max_len=args.maxlen))
+    write_ref2relloci(args.outfile, all_rows)
+    log.info("ref2relloci: %d mapped -> %s", len(all_rows), args.outfile)
+    return 0
+
+
+def cmd_genalignstats(args) -> int:
+    from .io.malign import MAlign
+    from .tools.alignstats import genalignstats, write_alignstats
+    from .utils.runtime import log
+    ma = MAlign.load(args.infile)
+    res = genalignstats(ma, mode=args.mode,
+                        species=args.species.replace(",", " ").split()
+                        if args.species else None,
+                        min_species=args.minspecies)
+    write_alignstats(args.outfile, res)
+    log.info("genalignstats: %.2f%% identity -> %s", res["identity_pct"],
+             args.outfile)
+    return 0
+
+
+def cmd_genalignconf(args) -> int:
+    from .io.malign import MAlign
+    from .tools.alignstats import genalignconf, write_alignconf
+    from .utils.runtime import log
+    ma = MAlign.load(args.infile)
+    rows = genalignconf(ma, mode=args.mode, per_chrom=args.chromper,
+                        min_species=args.minspecies,
+                        max_species=args.maxspecies,
+                        min_block_len=args.minblocklen,
+                        max_block_len=args.maxblocklen,
+                        chrom=args.chrom)
+    write_alignconf(args.outfile, rows)
+    log.info("genalignconf: %d scopes -> %s", len(rows), args.outfile)
+    return 0
+
+
 # -------------------------------------------------------------- registry
 
 def register(sub, common) -> None:
@@ -386,3 +737,267 @@ def register(sub, common) -> None:
     _chromres(p)
     common(p)
     p.set_defaults(fn=cmd_psl2csv)
+
+    p = sub.add_parser("loci2dist", help="element length distributions")
+    p.add_argument("-m", "--mode", type=int, default=0)
+    p.add_argument("-s", "--strandproc", type=int, default=0)
+    p.add_argument("-i", "--incsv", dest="infile", required=True)
+    p.add_argument("-I", "--inbed", dest="bedfile", default=None)
+    p.add_argument("-o", "--output", dest="outfile", required=True)
+    p.add_argument("-r", "--updnstream", dest="reglen", type=int,
+                   default=2000)
+    p.add_argument("-l", "--minlength", type=int, default=1)
+    p.add_argument("-L", "--maxlength", type=int, default=500)
+    common(p)
+    p.set_defaults(fn=cmd_loci2dist)
+
+    p = sub.add_parser("gennucstats", help="dyad loci distributions")
+    p.add_argument("-m", "--mode", type=int, default=0)
+    p.add_argument("-b", "--bkgdyadofs", type=int, default=73)
+    p.add_argument("-s", "--smpldyadofs", type=int, default=73)
+    p.add_argument("--winddyad", type=int, default=5)
+    p.add_argument("-i", "--infile", required=True)
+    p.add_argument("-I", "--sample", default=None)
+    p.add_argument("-o", "--outfile", required=True)
+    p.add_argument("-B", "--bed", dest="bedfile", default=None)
+    p.add_argument("-r", "--updnstream", dest="reglen", type=int,
+                   default=2000)
+    _chromres(p)
+    common(p)
+    p.set_defaults(fn=cmd_gennucstats)
+
+    p = sub.add_parser("genloci2gene", help="associate loci to genes")
+    p.add_argument("-m", "--procmode", dest="mode", type=int, default=0)
+    p.add_argument("-L", "--updnstream", type=int, default=2000)
+    p.add_argument("-a", "--assocdist", type=int, default=100000)
+    p.add_argument("--intergenic", type=int, default=1)
+    p.add_argument("-x", "--upstream", type=int, default=4)
+    p.add_argument("-y", "--intragenic", type=int, default=5)
+    p.add_argument("-z", "--downstream", type=int, default=3)
+    p.add_argument("-c", "--clustdist", type=int, default=0)
+    p.add_argument("-s", "--strand", type=int, default=0)
+    p.add_argument("-b", "--locibed", required=True)
+    p.add_argument("-i", "--loci", required=True)
+    p.add_argument("-o", "--output", dest="outfile", required=True)
+    common(p)
+    p.set_defaults(fn=cmd_genloci2gene)
+
+    p = sub.add_parser("gencomposition", help="N-mer composition of loci")
+    p.add_argument("-m", "--mode", type=int, default=0)
+    p.add_argument("-i", "--inloci", default=None)
+    p.add_argument("-I", "--assembly", required=True)
+    p.add_argument("-o", "--output", dest="outfile", required=True)
+    p.add_argument("-l", "--minlength", type=int, default=10)
+    p.add_argument("-L", "--maxlength", type=int, default=10 ** 9)
+    p.add_argument("-k", "--minnmerlen", type=int, default=1)
+    p.add_argument("-K", "--maxnmerlen", type=int, default=5)
+    common(p)
+    p.set_defaults(fn=cmd_gencomposition)
+
+    p = sub.add_parser("genrollups", help="length-range rollup stats")
+    p.add_argument("-i", dest="infile", required=True)
+    p.add_argument("-o", dest="outfile", required=True)
+    p.add_argument("-m", "--mode", type=int, default=0)
+    p.add_argument("-r", "--region", type=int, default=7)
+    p.add_argument("-p", "--percent", action="store_true")
+    p.add_argument("-c", "--binclass", type=int, default=0)
+    p.add_argument("-a", "--align2core", type=int, default=1)
+    p.add_argument("-P", "--pcalign2core", type=float, default=0.0)
+    p.add_argument("-A", "--idalign2core", type=float, default=0.0)
+    p.add_argument("-k", "--osidentity", type=float, default=0.0)
+    common(p)
+    p.set_defaults(fn=cmd_genrollups)
+
+    p = sub.add_parser("genseqcandidates",
+                       help="candidate blocks with uniqueness counts")
+    p.add_argument("-m", "--mode", type=int, default=0)
+    p.add_argument("-s", "--subseqlen", type=int, default=25)
+    p.add_argument("-b", "--blockseqlen", type=int, default=1000)
+    p.add_argument("-l", "--minlength", type=int, default=147)
+    p.add_argument("-T", "--truncatelength", type=int, default=147)
+    p.add_argument("-u", "--offset", type=int, default=0)
+    p.add_argument("-U", "--deltalen", type=int, default=0)
+    p.add_argument("-i", "--in", dest="infile", required=True)
+    p.add_argument("-I", "--sfx", dest="sfxfile", required=True)
+    p.add_argument("-o", "--out", dest="outfile", required=True)
+    _chromres(p)
+    common(p)
+    p.set_defaults(fn=cmd_genseqcandidates)
+
+    p = sub.add_parser("genzygosity", help="chrom zygosity matrix")
+    p.add_argument("-m", "--mode", type=int, default=0)
+    p.add_argument("-z", "--zygosity", type=float, default=0.25)
+    p.add_argument("-i", "--sfx", dest="sfxfile", required=True)
+    p.add_argument("-o", "--out", dest="outfile", required=True)
+    p.add_argument("-O", "--rawrslts", default=None)
+    p.add_argument("-l", "--subseqlen", type=int, default=25)
+    p.add_argument("-s", "--substitutions", type=int, default=2)
+    p.add_argument("-n", "--maxns", type=int, default=1)
+    p.add_argument("-x", "--maxmatches", type=int, default=5000)
+    common(p)
+    p.set_defaults(fn=cmd_genzygosity)
+
+    p = sub.add_parser("fastafilter", help="N-run/duplicate-id filter")
+    p.add_argument("-m", "--mode", type=int, default=0)
+    p.add_argument("-n", "--maxnrun", type=int, default=10)
+    p.add_argument("-s", "--sepunique", default=".")
+    p.add_argument("-i", "--in", dest="infile", required=True)
+    p.add_argument("-o", "--out", dest="outfile", required=True)
+    common(p)
+    p.set_defaults(fn=cmd_fastafilter)
+
+    p = sub.add_parser("filterreads", help="filter reads by region")
+    p.add_argument("-m", "--mode", type=int, default=0)
+    p.add_argument("-s", "--strand", type=int, default=0)
+    p.add_argument("-i", "--in", dest="infile", required=True)
+    p.add_argument("-o", "--filtinfile", default=None)
+    p.add_argument("-O", "--filtoutfile", default=None)
+    p.add_argument("-L", "--updnstream", type=int, default=2000)
+    p.add_argument("-r", "--regionsin", default="")
+    p.add_argument("-I", "--bedfiles", action="append", default=[])
+    common(p)
+    p.set_defaults(fn=cmd_filterreads)
+
+    p = sub.add_parser("genstructprofile",
+                       help="dyad detection over fasta")
+    p.add_argument("-m", "--mode", type=int, default=0)
+    p.add_argument("-n", "--nsamples", type=int, default=0)
+    p.add_argument("-T", "--truncatelength", type=int, default=300)
+    p.add_argument("-u", "--ofsstart", type=int, default=0)
+    p.add_argument("-b", "--bkgndgroove", type=float, default=11.12)
+    p.add_argument("-d", "--dyadratio", type=float, default=1.030)
+    p.add_argument("-D", "--dyad2ratio", type=float, default=1.020)
+    p.add_argument("-e", "--dyad3ratio", type=float, default=1.015)
+    p.add_argument("-i", "--in", dest="infile", required=True)
+    p.add_argument("-p", "--params", required=True)
+    p.add_argument("-o", "--out", dest="outfile", required=True)
+    common(p)
+    p.set_defaults(fn=cmd_genstructprofile)
+
+    p = sub.add_parser("genstructstats",
+                       help="octamer parameter table report")
+    p.add_argument("-s", "--sort", action="store_true")
+    p.add_argument("-i", dest="infile", required=True)
+    p.add_argument("-o", dest="outfile", required=True)
+    common(p)
+    p.set_defaults(fn=cmd_genstructstats)
+
+    p = sub.add_parser("predconfnucs",
+                       help="conformation nucleosome prediction")
+    p.add_argument("-m", "--mode", type=int, default=0)
+    p.add_argument("-i", "--in", dest="infile", required=True)
+    p.add_argument("-I", "--conf", required=True)
+    p.add_argument("-r", "--inclregions", default=None)
+    p.add_argument("-d", "--dyadratio", type=float, default=1.020)
+    p.add_argument("-D", "--dyad2ratio", type=float, default=1.015)
+    p.add_argument("-e", "--dyad3ratio", type=float, default=1.010)
+    p.add_argument("-a", "--avgwindow", type=int, default=10)
+    p.add_argument("-A", "--basewindow", type=int, default=250)
+    p.add_argument("-o", "--out", dest="outfile", required=True)
+    p.add_argument("-M", "--format", type=int, default=0)
+    p.add_argument("-t", "--title", default="nucs")
+    common(p)
+    p.set_defaults(fn=cmd_predconfnucs)
+
+    for name in ("dnasitepotential", "rnasitepotential"):
+        p = sub.add_parser(name, help="read start site potentials")
+        p.add_argument("-m", "--mode", type=int, default=0)
+        p.add_argument("-s", "--strand", default="*")
+        p.add_argument("-i", "--in", dest="infile", required=True)
+        p.add_argument("-I", "--genome", dest="genomefile", required=True)
+        p.add_argument("-o", "--out", dest="outfile", required=True)
+        common(p)
+        p.set_defaults(fn=cmd_sitepotential)
+
+    p = sub.add_parser("genelementseq", help="element sequence extraction")
+    p.add_argument("-c", "--informat", type=int, default=0)
+    p.add_argument("-i", "--inloci", required=True)
+    p.add_argument("-I", "--inbed", dest="bedfile", default=None)
+    p.add_argument("-a", "--assembly", required=True)
+    p.add_argument("-o", "--output", dest="outfile", required=True)
+    p.add_argument("-p", "--outformat", type=int, default=0)
+    p.add_argument("-m", "--minlength", type=int, default=0)
+    p.add_argument("-M", "--maxlength", type=int, default=1_000_000)
+    p.add_argument("-L", "--updnstream", dest="reglen", type=int,
+                   default=2000)
+    common(p)
+    p.set_defaults(fn=cmd_genelementseq)
+
+    p = sub.add_parser("genelementprofiles",
+                       help="binned read profiles over features")
+    p.add_argument("-m", "--mode", type=int, default=0)
+    p.add_argument("-P", "--readprofile", type=int, default=0)
+    p.add_argument("-s", "--strand", type=int, default=0)
+    p.add_argument("-l", "--intergeniclen", type=int, default=1000)
+    p.add_argument("-n", "--numbins", type=int, default=100)
+    p.add_argument("-r", "--feature", type=int, default=0)
+    p.add_argument("-i", "--in", dest="infile", action="append",
+                   required=True)
+    p.add_argument("-I", "--features", required=True)
+    p.add_argument("-o", "--out", dest="outfile", required=True)
+    common(p)
+    p.set_defaults(fn=cmd_genelementprofiles)
+
+    p = sub.add_parser("gencentroidmetrics",
+                       help="centroid N-mer counts")
+    p.add_argument("-m", "--mode", type=int, default=0)
+    p.add_argument("-n", "--nmer", type=int, default=5)
+    p.add_argument("-i", dest="infile", required=True)
+    p.add_argument("-o", dest="outfile", required=True)
+    p.add_argument("-z", "--overlapnmers", action="store_true")
+    common(p)
+    p.set_defaults(fn=cmd_gencentroidmetrics)
+
+    p = sub.add_parser("proccentroids",
+                       help="centroid count statistics")
+    p.add_argument("-n", "--nmer", type=int, default=5)
+    p.add_argument("-m", "--mode", type=int, default=0)
+    p.add_argument("-i", dest="infile", required=True)
+    p.add_argument("-o", dest="outfile", required=True)
+    common(p)
+    p.set_defaults(fn=cmd_proccentroids)
+
+    p = sub.add_parser("loci2core", help="map loci onto multialignment")
+    p.add_argument("-i", dest="infile", required=True)
+    p.add_argument("-I", dest="alignfile", required=True)
+    p.add_argument("-o", dest="outfile", required=True)
+    p.add_argument("-s", "--species", default="")
+    p.add_argument("-m", "--mincorelen", type=int, default=20)
+    p.add_argument("-M", "--maxcorelen", type=int, default=1_000_000)
+    p.add_argument("-d", "--distsegs", type=int, default=10)
+    common(p)
+    p.set_defaults(fn=cmd_loci2core)
+
+    p = sub.add_parser("ref2relloci",
+                       help="project ref loci into rel species coords")
+    p.add_argument("-m", "--procmode", dest="mode", type=int, default=0)
+    p.add_argument("-i", dest="infile", required=True)
+    p.add_argument("-I", dest="alignfile", required=True)
+    p.add_argument("-o", dest="outfile", required=True)
+    p.add_argument("-s", "--species", default="")
+    p.add_argument("-l", "--minlen", type=int, default=20)
+    p.add_argument("-L", "--maxlen", type=int, default=100_000_000)
+    common(p)
+    p.set_defaults(fn=cmd_ref2relloci)
+
+    p = sub.add_parser("genalignstats", help="multialignment statistics")
+    p.add_argument("-m", "--procmode", dest="mode", type=int, default=0)
+    p.add_argument("-i", dest="infile", required=True)
+    p.add_argument("-o", dest="outfile", required=True)
+    p.add_argument("-s", "--species", default="")
+    p.add_argument("-M", "--minspecies", type=int, default=2)
+    common(p)
+    p.set_defaults(fn=cmd_genalignstats)
+
+    p = sub.add_parser("genalignconf", help="alignment conformance stats")
+    p.add_argument("-m", "--procmode", dest="mode", type=int, default=0)
+    p.add_argument("-i", dest="infile", required=True)
+    p.add_argument("-o", dest="outfile", required=True)
+    p.add_argument("-c", "--chromper", action="store_true")
+    p.add_argument("-C", "--chrom", default=None)
+    p.add_argument("-z", "--minspecies", type=int, default=2)
+    p.add_argument("-Z", "--maxspecies", type=int, default=50)
+    p.add_argument("-x", "--minblocklen", type=int, default=0)
+    p.add_argument("-X", "--maxblocklen", type=int, default=1 << 40)
+    common(p)
+    p.set_defaults(fn=cmd_genalignconf)

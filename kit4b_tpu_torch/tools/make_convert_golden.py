@@ -49,6 +49,7 @@ string arrays as newline-joined text), each SQLite database as its
 from __future__ import annotations
 
 import hashlib
+import os
 import sqlite3
 import tempfile
 from pathlib import Path
@@ -565,8 +566,8 @@ def db_dump(path: Path) -> str:
 
 def files(d: Path) -> set[str]:
     """The files under `d`, by their path under it."""
-    return {p.relative_to(d).as_posix() for p in d.rglob("*")
-            if p.is_file()}
+    return {os.path.relpath(os.path.join(root, f), d)
+            for root, _, names in os.walk(d) for f in names}
 
 
 def collect(out: dict, name: str, d: Path, before: set) -> None:

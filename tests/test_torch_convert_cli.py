@@ -4,9 +4,8 @@ and each flag that picks another code path) on its seeded inputs writes
 the same files (text byte for byte, a .npz array by array, a SQLite
 database by its dump) and prints the same text; the error paths exit, or
 raise, alike. The port's parser holds every subcommand of the JAX
-package's but the 40 of ROADMAP item 19(c2) and 19(c3), with the flags of
-the 32 it took here. Three faults of the JAX package are held as they are,
-the port copying them: `snpm2sqlite` reads snpmarkers' own CSV with its
+package's, each with its flags. Three faults of the JAX package are held
+as they are, the port copying them: `snpm2sqlite` reads snpmarkers' own CSV with its
 MarkerID and purity columns as cultivars, `de2sqlite` reads rnade's CSV
 without its fold change and Pearson, and `genbioseq`/`genbiobed` write
 `<name>.npz` where `-o` names another file (ROADMAP.md queue C).
@@ -26,18 +25,10 @@ from kit4b_tpu_torch.cli import main as port_main
 from kit4b_tpu_torch.tools import make_convert_golden as mg
 
 MAINS = (("jax", jax_main), ("port", port_main))
-# the subcommands of ROADMAP.md item 19(c2) and 19(c3), still to port
-NOT_PORTED = {
-    "genmafalgn", "genalignstats", "genalignconf", "loci2core",
-    "ref2relloci", "loci2phylip", "hypers", "filtchrom", "locateroi",
-    "genwiggle", "gendeseq", "remaploci", "radseq",
-    "fastafilter", "filterreads", "gencomposition", "genloci2gene",
-    "gennucstats", "genrollups", "genseqcandidates", "genzygosity",
-    "loci2dist", "fasta2struct", "fasta2dist", "prednucleosomes",
-    "simulatemnase", "genstructprofile", "genstructstats", "predconfnucs",
-    "genelementseq", "genelementprofiles", "gencentroidmetrics",
-    "proccentroids", "dnasitepotential", "rnasitepotential", "ssr",
-    "wigutils", "gengoterms", "gengoassoc", "goassoc"}
+# the commands that take the port's own `--device {cuda,cpu}`
+DEVICE_CMDS = {"hammings", "kalign", "genpba", "kmarkers", "filter",
+               "scaffold", "rnaexpr", "sarscov2ml", "ecreads", "pbfilter",
+               "pbassemb", "eccontigs", "blitz", "alignsbs"}
 
 
 @pytest.fixture(scope="module")
@@ -53,20 +44,27 @@ def _subcommands(ap):
                 if isinstance(a, argparse._SubParsersAction))
 
 
-def test_parser_lacks_exactly_the_c2_and_c3_commands():
+def test_parser_has_every_jax_subcommand():
+    """Both parsers hold the same 112 subcommands, each with the same
+    flags (letters, destinations, defaults, nargs, types, choices) and
+    `kind`; the port adds `--device` to the commands that use a device,
+    and to no other."""
     js = _subcommands(jax_cli.build_parser())
     ps = _subcommands(port_cli.build_parser())
-    assert len(NOT_PORTED) == 40 and len(js) == 112 and len(ps) == 72
-    assert set(ps) == set(js) - NOT_PORTED
+    assert len(js) == len(ps) == 112
+    assert set(ps) == set(js)
 
     def flags(p):
         return sorted((tuple(a.option_strings), a.dest, repr(a.default),
-                       a.nargs, a.required, repr(a.type), a.const)
+                       a.nargs, a.required, repr(a.type), a.const,
+                       repr(a.choices))
                       for a in p._actions if a.option_strings)
-    names = {a[0] for a in mg.RUNS.values()}
-    assert len(names) == 32
-    for name in names:
-        assert flags(ps[name]) == flags(js[name]), name
+    device = (("--device",), "device", "'cuda'", None, False, "None", None,
+              "('cuda', 'cpu')")
+    for name in js:
+        got = flags(ps[name])
+        assert (device in got) == (name in DEVICE_CMDS), name
+        assert [f for f in got if f != device] == flags(js[name]), name
         assert ps[name].get_default("kind") == js[name].get_default("kind")
 
 

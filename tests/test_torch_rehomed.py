@@ -1492,6 +1492,23 @@ def test_converter_modules_are_copies(path):
                 inspect.getsource(getattr(jm.Genome, meth))
 
 
+HOSTTOOLS_MODULES = ("io/malign.py", "tools/alignstats.py",
+                     "tools/hypers.py", "align/regions.py", "tools/remap.py",
+                     "assembly/radseq.py", "tools/locistats.py",
+                     "tools/conformation.py", "tools/structextra.py",
+                     "tools/ssr.py", "tools/wigutils.py", "tools/go.py")
+
+
+@pytest.mark.parametrize("path", HOSTTOOLS_MODULES)
+def test_hosttools_modules_are_copies(path):
+    """The modules of the alignment-block, region, RAD-seq, loci-statistics,
+    DNA-structure and GO commands, copied whole (their seeded generators,
+    tie rules and float formats are the JAX package's);
+    tests/test_torch_hosttools_cli.py runs them side by side through both
+    CLIs."""
+    _assert_copy(path)
+
+
 @pytest.mark.parametrize("writer", ["jax", "port"])
 def test_bioseq_loads_in_either_package(tmp_path, writer):
     """A `.seq` container (`Genome.save_bioseq`, the file `genbioseq`

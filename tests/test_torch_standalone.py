@@ -18,8 +18,11 @@ kmer.pba, pbautils2, callhaplotypes, haplogroups, allelescores, dgtqtl,
 snpmarkers, gbs, tools.snpsfmt, pangenes, seghaps), and the converters
 and file tools on the converters golden's inputs (modules tools.convert,
 csvtools, bedtools2, blastpsl, tosqlite, io.gff, io.biobed and the `.seq`
-container of io.fasta), with `--device cpu` where a command takes one)
-on a small seeded genome. The
+container of io.fasta), and a command of each of the twelve host-tools
+modules (io.malign, tools.alignstats, hypers, remap, locistats,
+conformation, structextra, ssr, wigutils, go, align.regions and
+assembly.radseq) on the host-tools golden's inputs, with `--device cpu`
+where a command takes one) on a small seeded genome. The
 runs that build a suffix index need the port's host library and skip
 without it. This file imports neither package either:
 
@@ -458,3 +461,25 @@ def test_cli_converter_commands_with_both_blocked(tmp_path):
          "    bad = mg.differing(out, {k: z[k] for k in z.files})\n"
          "assert bad == [], bad\n"
          "assert len(out) >= 120\n", tmp_path)
+
+
+def test_cli_hosttools_commands_with_both_blocked(tmp_path, host_library):
+    """A command of each of the twelve host-tools modules through the CLI
+    on the inputs of `make_hosttools_golden` (its `.kix` built by the
+    port's host library), their outputs equal to the committed golden
+    (host only: no device; the file scan above covers every command's
+    imports)."""
+    _run("import numpy as np\n"
+         "from kit4b_tpu_torch.tools import make_hosttools_golden as mg\n"
+         "runs = ('genmafalgn', 'hypers_regions', 'alignstats_m2',\n"
+         "        'locateroi', 'remaploci_sam', 'radseq_pe', 'zygosity',\n"
+         "        'fasta2struct', 'predconfnucs', 'ssr', 'wig_sum',\n"
+         "        'goassoc_obo')\n"
+         "mg.RUNS = {n: mg.RUNS[n] for n in runs}\n"
+         "out = mg.compute(mg.port_fns())\n"
+         "with np.load(mg.GOLDEN) as z:\n"
+         "    gold = {k: z[k] for k in z.files\n"
+         "            if k == 'inputs_sha256' or k.split(':')[1] in runs}\n"
+         "bad = mg.differing(out, gold)\n"
+         "assert bad == [], bad\n"
+         "assert len(out) >= 14\n", tmp_path)
