@@ -176,8 +176,9 @@ result:
    13a-b), `kalign -S out.vcf -g -3 -X
    --markerfile --snpcentroidfile`: wall, `snp call`, SNP recall and
    precision against the planted SNPs. (d) `index -m 1` on that genome
-   (lut_k 16: two radix-3 LUTs of 3^16 + 1 entries), the build split into
-   SA-IS, LUTs and the .kbx write; `kalign --bisulfite` on 100,000
+   (lut_k 16: two radix-3 LUTs of 3^16 + 1 entries; in a worker process
+   beside 13a-c), the build split into SA-IS, LUTs and the .kbx write;
+   `kalign --bisulfite` on 100,000
    converted 100 bp reads: reads/s, accepted share and truth share; one
    `bs_pass_compact` on 16,384 resident reads (CUDA events, median of 5),
    its device operations and busy share.
@@ -194,7 +195,9 @@ result:
    from `tools/config5.py` (83,333 pairs of 2 x 150 and 8,333 duplicated),
    through the CLI `filter`, `assemb -y 60 -Y 40`, `index` and `kalign` of
    each mate file onto the contigs, `pescaffold`, `scaffold --minctg 100`,
-   and the fused `filter_assemble`, each timed with its PhaseTimer split;
+   and the fused `filter_assemble`, each timed with its PhaseTimer split
+   (these runs, mostly host work, start in a worker process at the end of
+   phase 8 and run beside phases 9-13; phase 14 checks their outputs);
    every output's SHA-256 equal to the JAX package's full run recorded in
    the golden, and scaffolds that join contigs. Prints the reads removed,
    the contigs of at least 300 bp, how many of the 20 longest are exact
@@ -313,10 +316,34 @@ result:
    held to a direct count of its input (its docstring lists the checks,
    and the commands left to the golden).
 
+20. The parallel paths (kit4b_tpu_torch/parallel), every shard on the
+   one card. (a) The port on `[cuda:0] * D` on the seeded workload of
+   `kit4b_tpu_torch.tools.make_parallel_golden` (the key-sharded v3, v4
+   and v5 and the position-sharded SE, PE and deep PE kalign passes at the
+   JAX package's test shapes, hammings_mesh and hammings_ring at D 1-8,
+   SWService at D 1, 2, 4) against the JAX package's committed golden,
+   every array equal. (b) `hammings -M -K 25 -n 4 -N 1` through the CLI on
+   phase 4's genome, checked as phase 4 is against a direct node partial
+   with the mesh's own Gp and spans, its launches the row chunks times
+   both strands. (c) `hammings -R` through the CLI, `hammings_ring` and
+   `hammings_mesh` on `[cuda:0] * 4`, on phase 6's chrIV-length genome,
+   each equal to phase 6's minimum at every position, with its minmm time,
+   launches and share of the int8 bound. (d) The sharded kalign passes on
+   config #1's genome and 8b's first 98,304 reads: v5 and v4 key-sharded
+   at (dp, tp) (1, 4), (2, 2), (4, 1), v3 at (2, 2), position-sharded SE
+   at (1, 4) and (2, 2), each equal in every field to the single-device
+   pass and timed beside it; the position-sharded PE and deep PE passes at
+   (2, 2) on 16,384 simulated pairs against `pe_pass_packed`'s rows. (e)
+   SWService.score on `[cuda:0] * 2` and `* 4` and SWService.align on
+   phase 15b's CLR-like batch against `banded_sw_batch`. (f) Two processes
+   in a gloo group (file init) share the card, each aligning its
+   `host_shard` of 8b's reads; the merged shards equal 8b's SAM. (f) and
+   (d)'s host work run in worker processes beside (a) and (b).
+
 Each kernel's launch counter is set to 0 just before its path (phases 4, 6,
-7, each CLI step of 15c and 16b's gapped `blitz`) and read just after it;
-phases 8-14 and 17-19 run none of the kernels. The script prints its
-seconds, and
+7, each CLI step of 15c, 16b's gapped `blitz` and each run of 20b-e) and
+read just after it; phases 8-14 and 17-19 run none of the kernels. The
+script prints its seconds, and
 each phase's, before the kernels line. The line before the last is a JSON
 table of the kernels, each with its bound (the least time the card could
 take: int8 tensor operations for minmm and sweep, int32 operations for
@@ -2115,31 +2142,50 @@ def snp_full(torch, dev, card, tmp: Path, cfg1: Path, reads_job):
                              f"{len(truth)} planted; {lines}")
 
 
-def bisulfite_full(torch, dev, card, tmp: Path, cfg1: Path):
-    """Phase 13d: index -m 1 on config #1's genome, then kalign
-    --bisulfite on converted reads; one bs_pass_compact timed."""
+def bis_index(fa: str, kbx: str) -> dict:
+    """Phase 13d's host step: the CLI `index -m 1` of config #1's genome
+    into `kbx`, with its SA-IS seconds and PhaseTimer split. main() runs
+    it in a worker process beside 13a-c."""
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
     from kit4b_tpu_torch import cli
-    from kit4b_tpu_torch.align import bisulfite as bs
-    from kit4b_tpu_torch.align.kalign import build_pass_schedule
     from kit4b_tpu_torch.index import sfx_index
-    from kit4b_tpu_torch.io.fasta import Genome
-    from kit4b_tpu_torch.ops import seed_extend_fast as F
-    from kit4b_tpu_torch.tools.make_kalign_opts_golden import bis_convert
-    fa, kbx = config1_files(cfg1)[0], tmp / "ecoli_sim.kbx"
-    reads, sam = tmp / "bis.fa", tmp / "bis.sam"
     ilog = _PhaseLog()
     logging.getLogger("kit4b_tpu_torch").addHandler(ilog)
     try:
         with _timed([("SA-IS", sfx_index, "build_suffix_array")]) as secs:
             t0 = time.perf_counter()
-            rc = cli.main(["index", "-m", "1", "-i", str(fa), "-o",
-                           str(kbx)])
-            wall_index = time.perf_counter() - t0
+            rc = cli.main(["index", "-m", "1", "-i", fa, "-o", kbx])
+            wall = time.perf_counter() - t0
     finally:
         logging.getLogger("kit4b_tpu_torch").removeHandler(ilog)
-    if rc != 0:
-        raise AssertionError(f"CLI index -m 1 exited {rc}")
-    build = ilog.seconds["build bisulfite index"]
+    return dict(rc=rc, wall=wall, sais=secs["SA-IS"],
+                seconds=dict(ilog.seconds))
+
+
+def bis_index_argv(tmp: Path, cfg1: Path) -> tuple[str, str]:
+    """`bis_index`'s arguments: 8b's genome, the .kbx in 13's directory."""
+    return str(config1_files(cfg1)[0]), str(tmp / "ecoli_sim.kbx")
+
+
+def bisulfite_full(torch, dev, card, tmp: Path, cfg1: Path, index_job):
+    """Phase 13d: index -m 1 on config #1's genome (`bis_index`, in the
+    worker process `index_job` beside 13a-c), then kalign --bisulfite on
+    converted reads; one bs_pass_compact timed."""
+    from kit4b_tpu_torch import cli
+    from kit4b_tpu_torch.align import bisulfite as bs
+    from kit4b_tpu_torch.align.kalign import build_pass_schedule
+    from kit4b_tpu_torch.io.fasta import Genome
+    from kit4b_tpu_torch.ops import seed_extend_fast as F
+    from kit4b_tpu_torch.tools.make_kalign_opts_golden import bis_convert
+    fa, kbx = config1_files(cfg1)[0], tmp / "ecoli_sim.kbx"
+    reads, sam = tmp / "bis.fa", tmp / "bis.sam"
+    t0 = time.perf_counter()
+    ix = index_job.result()
+    waited = time.perf_counter() - t0
+    if ix["rc"] != 0:
+        raise AssertionError(f"CLI index -m 1 exited {ix['rc']}")
+    wall_index, secs, ilog = ix["wall"], {"SA-IS": ix["sais"]}, ix
+    build = ilog["seconds"]["build bisulfite index"]
     g = Genome.load(fa)
     rng = np.random.default_rng(SEED + 14)
     pos = rng.integers(0, ECOLI_LEN - READ_LEN, BIS_READS)
@@ -2167,10 +2213,11 @@ def bisulfite_full(torch, dev, card, tmp: Path, cfg1: Path):
     for qn, flag, rname, p0, _, _ in recs:
         _, p, s = qn.split("|")
         at += p0 == int(p) and bool(flag & 16) == (s == "1")
-    print(f"CLI index -m 1 on {ECOLI_LEN} bp on {card}: wall {wall_index} "
+    print(f"CLI index -m 1 on {ECOLI_LEN} bp (a worker process beside "
+          f"13a-c; 13d waited {waited} s for it): wall {wall_index} "
           f"s; build {build} s (SA-IS x2 {secs['SA-IS']} s, the radix-3 "
           f"LUTs and keys {build - secs['SA-IS']} s), .kbx write "
-          f"{ilog.seconds['write index']} s; kalign --bisulfite on "
+          f"{ilog['seconds']['write index']} s; kalign --bisulfite on "
           f"{BIS_READS} converted reads of {READ_LEN} bp: wall {wall} s "
           f"({BIS_READS / wall} reads/s); accepted {len(recs) / BIS_READS},"
           f" {at / max(len(recs), 1)} of them at their truth locus and "
@@ -2278,40 +2325,60 @@ def assembly_golden(torch, dev):
                              f"{bad}; reach {reach}")
 
 
-def config5_full(torch, dev, card, tmp: Path):
-    """Phase 14b: BASELINE config #5 at BASELINE.md's size through the
-    port's CLI (filter, assemb, index + kalign, pescaffold, scaffold) and
-    the fused filter_assemble, each output's SHA-256 against the JAX
-    package's full run recorded in the golden."""
+def config5_run(tmp: str) -> dict:
+    """Phase 14b's runs: BASELINE config #5 at BASELINE.md's size through
+    the port's CLI (filter, assemb, index + kalign, pescaffold, scaffold)
+    and the fused filter_assemble, on the card, in directory `tmp`. Host
+    work for the most part, so main() runs it in a worker process from the
+    end of phase 8, beside phases 9-13; `config5_full` checks what it
+    returns: the outputs' SHA-256, the genome, the wall seconds and the
+    peak device memory of the run, and each step's (wall, PhaseTimer
+    split, reads removed by filter step)."""
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    import torch
+    from kit4b_tpu_torch.tools import make_assembly_golden as mg
+    steps = {}
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    digests, seq = mg.full_run(mg.port_fns(torch.device("cuda")), Path(tmp),
+                               lambda name: _cli_step(steps, name))
+    return dict(digests=digests, seq=seq, wall=time.perf_counter() - t0,
+                peak=torch.cuda.max_memory_allocated(),
+                steps={k: (v[0], dict(v[1].seconds), dict(v[1].removed))
+                       for k, v in steps.items()})
+
+
+def config5_full(card, tmp: Path, job):
+    """Phase 14b: `config5_run`'s outputs (in `tmp`, from the worker
+    process `job`), each output's SHA-256 against the JAX package's full
+    run recorded in the golden, with the contigs' and scaffolds' figures
+    against the genome."""
     from kit4b_tpu_torch import dna
     from kit4b_tpu_torch.tools import make_assembly_golden as mg
     gold = np.load(mg.GOLDEN)
-    steps = {}
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    digests, seq = mg.full_run(mg.port_fns(dev), tmp,
-                               lambda name: _cli_step(steps, name))
-    wall = time.perf_counter() - t0
-    peak = torch.cuda.max_memory_allocated()
-    bad = [k for k, v in digests.items() if str(v) != str(gold[k])]
-    genome = dna.decode(seq)
-    genome_rc = dna.decode(dna.revcomp(seq))
+    run = job.result()
+    waited = time.perf_counter() - t0
+    steps = run["steps"]
+    bad = [k for k, v in run["digests"].items() if str(v) != str(gold[k])]
+    genome = dna.decode(run["seq"])
+    genome_rc = dna.decode(dna.revcomp(run["seq"]))
     pairs = int(mg.FULL_KBP * 1000 * mg.FULL_COV / 300)
-    filt_log = steps["filter"][1]
     multi = {f: _multi_contig(tmp / f) for f in ("pescaffolds.fa",
                                                  "scaffolds.fa")}
     print(f"config #5 ({mg.FULL_KBP} kbp at {mg.FULL_COV}x: {pairs} pairs "
           f"of 2 x 150 + {pairs // 10} duplicated) through the CLI on "
-          f"{card}: {wall} s; by step (wall s, PhaseTimer split): "
-          + "; ".join(f"{k} {v[0]} {v[1].seconds}" for k, v in steps.items())
-          + f"; filter removed {filt_log.removed}; CLI assemb contigs "
+          f"{card}, in a worker process beside phases 9-13: {run['wall']} s "
+          f"(phase 14 waited {waited} s for it); by step (wall s, "
+          f"PhaseTimer split): "
+          + "; ".join(f"{k} {v[0]} {v[1]}" for k, v in steps.items())
+          + f"; filter removed {steps['filter'][2]}; CLI assemb contigs "
           f"{_contig_stats(tmp / 'contigs.fa', genome, genome_rc)}; fused "
           f"filter_assemble contigs "
           f"{_contig_stats(tmp / 'fused.fa', genome, genome_rc)}; "
-          f"multi-contig scaffolds {multi}; peak device memory {peak} "
-          f"bytes; outputs differing from the JAX package's full run: "
-          f"{bad or 'none'}")
+          f"multi-contig scaffolds {multi}; peak device memory of the "
+          f"worker {run['peak']} bytes; outputs differing from the JAX "
+          f"package's full run: {bad or 'none'}")
     if bad or not all(multi.values()):
         raise AssertionError(f"config #5 differs from the JAX package in "
                              f"{bad}, or joins no contigs: {multi}")
@@ -4143,6 +4210,503 @@ def hosttools_full(card, tmp: Path, cfg1: Path) -> dict:
     return seconds
 
 
+# --- the parallel paths (phase 20) -----------------------------------------
+
+PAR_DS = (2, 4)                # 20c, 20e: shards on one card
+PAR_KEY_SHAPES = ((1, 4), (2, 2), (4, 1))     # 20d: (dp, tp) by key range
+PAR_POS_SHAPES = ((1, 4), (2, 2))             # 20d: by genome position
+# 20d's capacities: JAX's tests take 512/256, whose [NC, NC, B] dedup of a
+# 98,304-read batch would need 26 GB a tensor; at 96/48 the single-device
+# passes must show no overflow (checked), so neither side's stats are cut
+PAR_CAPS = dict(n_compact=96, n_extend=48, max_ml=5)
+PAR_PAIRS = 16_384             # 20d: the PE and deep PE passes' pairs
+PAR_PE_SHAPE = (2, 2)
+PAR_PAIR_KW = dict(max_tot=5, mm_delta=2, min_ins=200, max_ins=500)
+PAR_DEEP_KW = dict(n_blocks=8, block_size=128, skip_bucket=100_000,
+                   n_sel=None)
+
+
+def parallel_golden(torch, dev) -> dict:
+    """Phase 20a: the port's parallel paths on `[cuda:0] * D` against the
+    JAX package's committed golden (make_parallel_golden: the key-sharded
+    v3/v4/v5 and the position-sharded SE, PE and deep PE passes at JAX's
+    test shapes, hammings_mesh and hammings_ring at D 1-8, SWService at D
+    1, 2, 4), every array equal. Returns the kernels' launches."""
+    from kit4b_tpu_torch.kernels.minmm import minmm
+    from kit4b_tpu_torch.kernels.sw import sw_scan, sw_traceback
+    from kit4b_tpu_torch.tools import make_parallel_golden as mg
+    t0 = time.perf_counter()
+    work = mg.workload()
+    reset_launches()
+    out = mg.compute(mg.port_fns(dev), work)
+    torch.cuda.synchronize()
+    launches = dict(minmm=minmm.launches, sw_scan=sw_scan.launches,
+                    sw_traceback=sw_traceback.launches)
+    with np.load(mg.GOLDEN) as z:
+        gold = {k: z[k] for k in z.files}
+    sha = mg.inputs_sha256(work) == str(gold.pop("inputs_sha256"))
+    bad = mg.differing(out, gold)
+    print(f"parallel golden ({len(gold)} arrays, {len(out)} computed on "
+          f"[{dev}] * D): inputs equal {sha}, {len(bad)} differ; launches "
+          f"{launches}; {time.perf_counter() - t0} s")
+    if bad or not sha or min(launches.values()) == 0:
+        raise AssertionError(f"phase 20a: {bad[:8]} differ (inputs equal "
+                             f"{sha}, launches {launches})")
+    return launches
+
+
+def dist_worker(rank: int, n: int, tmp: str, cfg1: str,
+                device: str) -> dict:
+    """Phase 20f, process `rank` of `n`: joins the gloo group through a
+    file in `tmp`, aligns its `host_shard` of config #1's reads with the
+    port's KAligner on `device` under 8b's options (`-b 98304 -M 1`) and
+    writes `shard_output_path`; process 0 merges the shards."""
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    import torch
+    import torch.distributed as td
+    from kit4b_tpu_torch.align import kalign
+    from kit4b_tpu_torch.index.sfx_index import SfxIndex
+    from kit4b_tpu_torch.io.fasta import read_seqs
+    from kit4b_tpu_torch.parallel import distributed as dist
+    t0 = time.perf_counter()
+    tmp = Path(tmp)
+    got = dist.initialize(None, n, rank, init_method=f"file://{tmp}/group")
+    if got != (rank, n):
+        raise AssertionError(f"initialize gave {got}, not {(rank, n)}")
+    idx = SfxIndex.load(config1_files(Path(cfg1))[1])
+    al = kalign.KAligner(idx, batch_size=ECOLI_BATCH,
+                         device=torch.device(device))
+    recs = list(dist.host_shard(read_seqs(config1_reads(Path(cfg1))[0])))
+    out = dist.shard_output_path(tmp / "out.sam")
+    stats = kalign.write_sam_fast(out, idx, al, recs,
+                                  cmdline="chip_smoke.py 20f",
+                                  emit_unmapped=True)
+    td.barrier()
+    if rank == 0:
+        dist.merge_sam_shards(tmp / "merged.sam", [
+            dist.shard_output_path(tmp / "out.sam", r) for r in range(n)])
+    td.barrier()
+    td.destroy_process_group()
+    return dict(rank=rank, reads=len(recs), classes=stats,
+                seconds=time.perf_counter() - t0, out=out)
+
+
+def dist_check(cfg1: Path, tmp: Path, jobs) -> None:
+    """Phase 20f: the two processes' results; the merged SAM's records,
+    sorted, equal 8b's, and its header lines but @PG equal 8b's."""
+    res = [j.result() for j in jobs]
+    for r in res:
+        print(f"process {r['rank']} of 2 (gloo, file init, one card): "
+              f"{r['reads']} reads -> {Path(r['out']).name}, classes "
+              f"{r['classes']}, {r['seconds']} s")
+
+    def split(path):
+        head, body = [], []
+        with open(path) as f:
+            for line in f:
+                (head if line.startswith("@") else body).append(line)
+        return [h for h in head if not h.startswith("@PG")], sorted(body)
+    mh, mb = split(tmp / "merged.sam")
+    wh, wb = split(config1_reads(cfg1)[2])
+    print(f"merged SAM: {len(mb)} records, 8b's {len(wb)}; sorted records "
+          f"equal {mb == wb}, header lines but @PG equal {mh == wh}")
+    if mb != wb or mh != wh or sum(r["reads"] for r in res) != ECOLI_READS:
+        raise AssertionError("phase 20f: the merged shards differ from 8b's "
+                             "SAM")
+
+
+def pos_shards(cfg1: str, out: str) -> dict:
+    """Phase 20d's host work, in a worker process beside 20a-c: the
+    position shards of config #1's index at each tp of PAR_POS_SHAPES and
+    PAR_PAIRS pairs (the port's `simreads -p` simulation) on its genome,
+    saved as .npy files in `out`. Returns their paths and seconds."""
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    from kit4b_tpu_torch.index.sfx_index import SfxIndex
+    from kit4b_tpu_torch.parallel import mesh as pm
+    from kit4b_tpu_torch.sim import simreads
+    t0 = time.perf_counter()
+    idx = SfxIndex.load(config1_files(Path(cfg1))[1])
+    paths = {}
+    for tp in sorted({tp for _, tp in PAR_POS_SHAPES + (PAR_PE_SHAPE,)}):
+        for name, a in zip(("gvb", "base", "sa", "lut2"),
+                           pm.shard_index_by_position(idx, tp, READ_LEN)):
+            paths[f"{name}{tp}"] = str(Path(out) / f"{name}{tp}.npy")
+            np.save(paths[f"{name}{tp}"], a)
+    r1, r2 = simreads.sim_reads(idx.genome, simreads.SimParams(
+        n_reads=PAR_PAIRS, read_len=READ_LEN, pe=True, pe_insert_min=250,
+        pe_insert_max=450, seed=20, error_mode="illumina", subs_rate=0.02))
+    for name, recs in (("pe1", r1), ("pe2", r2)):
+        paths[name] = str(Path(out) / f"{name}.npy")
+        np.save(paths[name], np.stack([r.codes for r in recs]))
+    return dict(paths=paths, seconds=time.perf_counter() - t0)
+
+
+class _TimedMinmm:
+    """Stands in for `kernels.minmm.minmm` in a module: each call runs the
+    real wrapper (which counts its launch) between two CUDA events, and
+    adds up the int8 operations and the bound as phase 2 computes them."""
+
+    def __init__(self, torch, fn):
+        self.torch, self.fn = torch, fn
+        self.events, self.ops, self.bound = [], 0, 0.0
+
+    def __call__(self, W_own, W_part, *, diag, span_lo, span_cnt, S,
+                 row_base=0):
+        ev = [self.torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        out = self.fn(W_own, W_part, diag=diag, span_lo=span_lo,
+                      span_cnt=span_cnt, S=S, row_base=row_base)
+        ev[1].record()
+        self.events.append(ev)
+        R, cw = W_own.shape
+        ops = 2 * R * span_cnt * S * cw
+        self.ops += ops
+        self.bound += max(ops / INT8_PEAK,
+                          (R * cw + span_cnt * S * cw + 4 * R) / HBM_RATE)
+        return out
+
+    def ms(self) -> float:
+        self.torch.cuda.synchronize()
+        return sum(a.elapsed_time(b) for a, b in self.events)
+
+
+@contextlib.contextmanager
+def _timed_minmm(torch):
+    """minmm timed in the two parallel engines' modules."""
+    from kit4b_tpu_torch.parallel import hammings_mesh, hammings_ring
+    real = hammings_mesh.minmm
+    timed = _TimedMinmm(torch, real)
+    hammings_mesh.minmm = hammings_ring.minmm = timed
+    try:
+        yield timed
+    finally:
+        hammings_mesh.minmm = hammings_ring.minmm = real
+
+
+def mesh_cli(torch, dev, card, tmp: Path, chroms, seq, planted) -> int:
+    """Phase 20b: `hammings -M -K 25 -n NUMNODES -N 1` through the CLI on
+    phase 4's genome, every visible card a shard, read back and held at
+    2,000 random and 500 planted positions to a direct on-card node
+    partial with the mesh's own geometry (T = S = 1024, Gp a multiple of
+    D * T); the launches must be the row chunks times both strands.
+    Returns the launches."""
+    from kit4b_tpu_torch import cli
+    from kit4b_tpu_torch.kernels.minmm import minmm
+    from kit4b_tpu_torch.kmer.hammings import read_hmg
+    rng = np.random.default_rng(SEED + 20)
+    D = torch.cuda.device_count()
+    G = len(seq)
+    Gp = _round_up(G, max(D * 1024, 1024))
+    R, n_spans = Gp // D, Gp // 1024
+    cnt = n_spans // NUMNODES
+    fa, out = tmp / "r64_synthetic.fa", tmp / "mesh_node1.hmg"
+    write_fasta(fa, [f"chr{r}" for r in ROMAN], chroms)
+    reset_launches()
+    with _timed_minmm(torch) as timed:
+        t0 = time.perf_counter()
+        rc = cli.main(["hammings", "-i", str(fa), "-o", str(out), "-K",
+                       str(K), "-n", str(NUMNODES), "-N", "1", "-M"])
+        wall = time.perf_counter() - t0
+        ms = timed.ms()
+    launches = minmm.launches
+    want_launches = D * -(-R // min(R, ROW_CHUNK)) * 2
+    print(f"CLI hammings -M on {G - 16} bp over {D} card(s) on {card}: "
+          f"wall {wall} s; node 1 of {NUMNODES}: partner spans [0, {cnt}) "
+          f"of {n_spans} (Gp {Gp}); minmm {ms} ms over {launches} launches "
+          f"(want {want_launches}), bound {timed.bound * 1e3} ms, "
+          f"{timed.bound * 1e3 / ms} of it")
+    if rc != 0 or launches != want_launches:
+        raise AssertionError(f"phase 20b: exit {rc}, {launches} launches")
+    names, dists = read_hmg(out)
+    starts = np.cumsum([0] + [len(c) + 1 for c in chroms[:-1]])
+    sel = []
+    for _ in range(N_RANDOM):
+        c = int(rng.choice(16, p=np.array(R64_LENGTHS) / sum(R64_LENGTHS)))
+        sel.append((c, int(rng.integers(0, R64_LENGTHS[c] - K + 1))))
+    for i in range(N_PLANTED):
+        c, d, L = planted[i % len(planted)]
+        sel.append((c, d + int(rng.integers(0, L - K + 1))))
+    got = np.array([dists[c][o] for c, o in sel], np.uint16)
+    pos = np.array([starts[c] + o for c, o in sel], np.int64)
+    want = direct_node_min(torch, dev, seq, pos, 0, cnt * 1024, Gp)
+    bad = np.nonzero(got != want)[0]
+    print(f"-M sample check: {len(sel)} positions, {len(bad)} differ; "
+          f"planted zeros {int((got[N_RANDOM:] == 0).sum())}")
+    if names != [f"chr{r}" for r in ROMAN] or len(bad) \
+            or int(got[N_RANDOM:].min()) != 0:
+        raise AssertionError(f"phase 20b: node result differs at "
+                             f"{pos[bad[:5]]}: {got[bad[:5]]} vs "
+                             f"{want[bad[:5]]}")
+    return launches
+
+
+def ring_mesh_chr4(torch, dev, card, tmp: Path, chr4, chr4_min) -> int:
+    """Phase 20c: on phase 5-6's chrIV-length genome, K 25, both strands,
+    `hammings -R` through the CLI, `hammings_ring` and `hammings_mesh` on
+    `[cuda:0] * 4`, each equal at every position to phase 6's whole-genome
+    minimum; each run's minmm time, launches and share of the int8 bound.
+    Returns the launches."""
+    from kit4b_tpu_torch import cli
+    from kit4b_tpu_torch.kernels.minmm import minmm
+    from kit4b_tpu_torch.parallel.hammings_mesh import hammings_mesh
+    from kit4b_tpu_torch.parallel.hammings_ring import hammings_ring
+    fa, out = tmp / "chrIV.fa", tmp / "ring.npy"
+    write_fasta(fa, ["chrIV"], [chr4[:-1]])
+    D = max(PAR_DS)
+
+    def cli_ring():
+        rc = cli.main(["hammings", "-i", str(fa), "-o", str(out), "-K",
+                       str(K), "-R"])
+        if rc != 0:
+            raise AssertionError(f"phase 20c: hammings -R exited {rc}")
+        return np.load(out)
+    runs = (("CLI hammings -R", cli_ring),
+            (f"hammings_ring on [{dev}] * {D}", lambda: hammings_ring(
+                chr4, K, devices=[dev] * D)),
+            (f"hammings_mesh on [{dev}] * {D}", lambda: hammings_mesh(
+                chr4, K, devices=[dev] * D)))
+    total = 0
+    for label, run in runs:
+        reset_launches()
+        with _timed_minmm(torch) as timed:
+            t0 = time.perf_counter()
+            got = run()
+            wall = time.perf_counter() - t0
+            ms = timed.ms()
+        total += minmm.launches
+        bad = np.nonzero(got != chr4_min)[0] if got.shape == chr4_min.shape \
+            else [-1]
+        print(f"{label} on {len(chr4)} bp (K {K}, both strands) on {card}: "
+              f"wall {wall} s; minmm {ms} ms over {minmm.launches} launches, "
+              f"{timed.ops / ms / 1e9} int8 TOP/s, bound "
+              f"{timed.bound * 1e3} ms, {timed.bound * 1e3 / ms} of it; "
+              f"{len(bad)} positions differ from phase 6's minimum")
+        if len(bad) or minmm.launches == 0:
+            raise AssertionError(f"phase 20c: {label} differs at "
+                                 f"{bad[:5]}")
+    return total
+
+
+def sharded_passes(torch, dev, card, cfg1: Path, pos) -> None:
+    """Phase 20d: the sharded kalign passes on config #1: 8b's genome and
+    .kix and its first 98,304 reads. v5 and v4 key-sharded at each
+    PAR_KEY_SHAPES, v3 at (2, 2), position-sharded SE at PAR_POS_SHAPES,
+    each equal in every field to the single-device pass on the card (at
+    PAR_CAPS, where the single-device passes show no overflow); the PE and
+    deep PE position-sharded passes on PAR_PAIRS pairs, whose rows equal
+    `pe_pass_packed`'s wherever neither overflows. Each pass timed (CUDA
+    events, median of 5) beside the single-device pass."""
+    from kit4b_tpu_torch.align.kalign import pack_reads_2bit
+    from kit4b_tpu_torch.index.sfx_index import SfxIndex
+    from kit4b_tpu_torch.io.fasta import read_seq_blocks
+    from kit4b_tpu_torch.ops import pe_packed, seed_extend_v3 as v3, \
+        seed_extend_v4 as v4, seed_extend_v5 as v5
+    from kit4b_tpu_torch.ops.extend_packed import pack_genome
+    from kit4b_tpu_torch.ops.seed_extend_fast import fast_offsets, \
+        finalize_fast, make_gview_device
+    from kit4b_tpu_torch.parallel import mesh as pm
+    idx = SfxIndex.load(config1_files(cfg1)[1])
+    _, block, _ = next(iter(read_seq_blocks(config1_reads(cfg1)[0],
+                                            ECOLI_BATCH)))
+    reads = np.ascontiguousarray(block[:ECOLI_BATCH])
+    G = len(idx.genome.seq)
+    kw = dict(genome_len=G, offsets=fast_offsets(READ_LEN, idx.lut_k, 5),
+              lut_k=idx.lut_k, **PAR_CAPS)
+    gpack, gbad = pack_genome(idx.genome.seq, 65)
+    gview = make_gview_device(gpack, gbad, (READ_LEN + 15) // 16 + 1, dev)
+    sa = torch.from_numpy(idx.sa_clean.astype(np.int32)).to(dev)
+    lut = torch.from_numpy(idx.lut.astype(np.int32)).to(dev)
+    lut2, lut4 = v3.make_lut2_device(lut), v5.make_lut4_device(lut, sa)
+    r2b, nl = (torch.from_numpy(a).to(dev) for a in pack_reads_2bit(reads))
+    nokw = {k: v for k, v in kw.items() if k != "max_ml"}
+
+    def timed(fn):
+        out = fn()
+        ms = sorted(_time_ms(torch, fn) for _ in range(5))
+        return {k: v.cpu().numpy() for k, v in out.items()}, ms[2]
+
+    def single_v5():
+        planes = v4.words_from_2bit(r2b, nl, READ_LEN)
+        ids, mm, ovf = v5._cands_core_v5(gview, lut4, planes,
+                                         read_len=READ_LEN, **nokw)
+        res = finalize_fast(ids.T, mm.T, max_ml=kw["max_ml"])
+        res["overflow"] = ovf
+        return res
+    ref4, ms4 = timed(lambda: v3.fast_pass_v3(gview, sa, lut2, r2b, nl,
+                                              read_len=READ_LEN, **kw))
+    ref5, ms5 = timed(single_v5)
+    n_high = int(ref5["overflow"].sum())
+    print(f"single-device passes on {ECOLI_BATCH} reads (NC "
+          f"{kw['n_compact']}, NS {kw['n_extend']}) on {card}: v4 core "
+          f"{ms4} ms ({int(ref4['overflow'].sum())} overflow), v5 {ms5} ms "
+          f"({n_high} flagged, buckets over {v5.P_POS})")
+    if ref4["overflow"].any():
+        raise AssertionError("phase 20d: the single-device pass overflows "
+                             "at PAR_CAPS")
+
+    def check(label, got, ms, want, ms_ref):
+        same = all(np.array_equal(got[f], want[f]) for f in want)
+        print(f"{label}: {ms} ms (median of 5; the single-device pass "
+              f"{ms_ref} ms); every field equal {same}")
+        if not same:
+            raise AssertionError(f"phase 20d: {label} differs from the "
+                                 "single-device pass")
+    for dp, tp in PAR_KEY_SHAPES:
+        m = pm.make_mesh(dp, tp, [dev] * (dp * tp))
+        h2b, hnl = pm.pack_reads_sharded(reads, dp)
+        per = ECOLI_BATCH // dp
+        n_by = [int((reads[d * per:(d + 1) * per] >= 4).sum())
+                for d in range(dp)]
+        print(f"(dp, tp) = ({dp}, {tp}): N bases by dp shard {n_by}, N "
+              f"list rows {len(hnl)} ({len(hnl) // dp} a shard)")
+        rs = pm.device_put(m, h2b, ("dp",)), pm.device_put(m, hnl, ("dp",))
+        args3 = pm.device_put_sharded_index_v3(
+            m, gview, *pm.shard_index_by_key_v3(idx.sa_clean, idx.lut, tp))
+        fn4 = pm.make_sharded_align_pass_v4(m, read_len=READ_LEN, **kw)
+        check(f"v4 key-sharded ({dp}, {tp})",
+              *timed(lambda: fn4(*args3, *rs)), ref4, ms4)
+        _, l4s, klo = pm.shard_index_by_key_v5(idx.sa_clean, idx.lut, tp)
+        args5 = pm.device_put_sharded_index_v5(m, gview, l4s, klo)
+        fn5 = pm.make_sharded_align_pass_v5(m, read_len=READ_LEN, **kw)
+        check(f"v5 key-sharded ({dp}, {tp})",
+              *timed(lambda: fn5(*args5, *rs)), ref5, ms5)
+        if (dp, tp) == (2, 2):
+            fn3 = pm.make_sharded_align_pass_v3(m, **kw)
+            check("v3 key-sharded (2, 2), [B, L] reads packed a shard",
+                  *timed(lambda: fn3(*args3, reads)), ref4, ms4)
+        del args3, args5
+        torch.cuda.empty_cache()
+    paths = pos["paths"]
+    print(f"position shards and {PAR_PAIRS} pairs built in a worker "
+          f"process in {pos['seconds']} s")
+
+    def pos_index(m, tp):
+        return pm.device_put_sharded_index_pos(m, *(
+            np.load(paths[f"{n}{tp}"]) for n in ("gvb", "base", "sa",
+                                                 "lut2")))
+    for dp, tp in PAR_POS_SHAPES:
+        m = pm.make_mesh(dp, tp, [dev] * (dp * tp))
+        args = pos_index(m, tp)
+        rs = tuple(pm.device_put(m, a, ("dp",))
+                   for a in pm.pack_reads_sharded(reads, dp))
+        fnp = pm.make_sharded_align_pass_pos(m, read_len=READ_LEN, **kw)
+        check(f"position-sharded SE ({dp}, {tp})",
+              *timed(lambda: fnp(*args, *rs)), ref4, ms4)
+        del args
+        torch.cuda.empty_cache()
+    pe1, pe2 = np.load(paths["pe1"]), np.load(paths["pe2"])
+    starts = np.asarray(idx.genome.starts, np.int32)
+    p1, p2 = (tuple(torch.from_numpy(a).to(dev) for a in pack_reads_2bit(r))
+              for r in (pe1, pe2))
+    pkw = dict(kw, **PAR_PAIR_KW)
+    ref, ms_ref = _with_ms(torch, lambda: pe_packed.pe_pass_packed(
+        gview, sa, lut2, torch.from_numpy(starts).to(dev), *p1, *p2,
+        read_len=READ_LEN, tier2=None, tier3=None, **pkw))
+    ref = pe_packed.unpack_rows12(ref.cpu().numpy())
+    dp, tp = PAR_PE_SHAPE
+    m = pm.make_mesh(dp, tp, [dev] * (dp * tp))
+    args = pos_index(m, tp)
+    packed = [pm.device_put(m, a, ("dp",)) for r in (pe1, pe2)
+              for a in pm.pack_reads_sharded(r, dp)]
+    dkw = dict(genome_len=G, offsets=kw["offsets"], lut_k=idx.lut_k,
+               max_ml=kw["max_ml"], **PAR_PAIR_KW, **PAR_DEEP_KW)
+    for label, make, fkw in (
+            ("PE", pm.make_sharded_pe_pass_pos, pkw),
+            ("deep PE", pm.make_sharded_deep_pe_pass_pos, dkw)):
+        fn = make(m, read_len=READ_LEN, **fkw)
+        rows, ms = _with_ms(torch, lambda: fn(*args, starts, *packed))
+        rows = rows.cpu().numpy()
+        ok = (ref[:, 5] != pe_packed.PAIR_OVERFLOW) \
+            & (rows[:, 5] != pe_packed.PAIR_OVERFLOW)
+        r, c = np.nonzero((rows != ref) & ok[:, None])
+        # the deep pass reports a mate whose seed windows straddle a shard
+        # boundary twice, as JAX's does (ROADMAP.md queue C): its side
+        # code reads -2 where one device reports its locus
+        edges = np.arange(1, tp) * -(-G // tp)
+        twice = ((c == 6) | (c == 7)) & (rows[r, c] == -2) & (ref[r, c] >= 0) \
+            & (np.abs((ref[r, c] >> 1)[:, None] - edges[None]).min(1)
+               < 2 * READ_LEN)
+        print(f"position-sharded {label} ({dp}, {tp}) on {PAR_PAIRS} pairs "
+              f"on {card}: {ms} ms (pe_pass_packed {ms_ref} ms); "
+              f"{int(ok.sum())} rows neither side overflows, "
+              f"{len(set(r.tolist()))} differ, {int(twice.sum())} of them a "
+              f"mate at a shard boundary reported twice; accepted "
+              f"{int((rows[:, 5] == pe_packed.PAIR_ACCEPT).sum())}")
+        if (~twice).any() or (label == "PE" and len(r)) \
+                or ok.sum() < 0.99 * PAR_PAIRS:
+            raise AssertionError(f"phase 20d: the {label} rows differ from "
+                                 "pe_pass_packed's")
+    del args, packed
+    torch.cuda.empty_cache()
+
+
+def swservice_full(torch, dev, card) -> dict:
+    """Phase 20e: SWService on phase 15b's CLR-like batch
+    (`tools/time_sw.py` ecreads: 32 pairs of about 3.6 kbp, W 3,000,
+    ecreads' scores): `score` on `[cuda:0] * 2` and `* 4` equal to
+    `banded_sw_batch(traceback=False)`, `align` equal to
+    `banded_sw_batch`. Returns the SW kernels' launches."""
+    from kit4b_tpu_torch.kernels.sw import sw_scan, sw_traceback
+    from kit4b_tpu_torch.pacbio.sswd import SWScores, banded_sw_batch
+    from kit4b_tpu_torch.parallel.swservice import SWJob, SWService
+    from kit4b_tpu_torch.tools import time_sw
+    probes, plens, targets, tlens, diag0, W, sc = time_sw.BATCHES[
+        "ecreads"](np.random.default_rng(time_sw.SEED))
+    scores = SWScores(*sc)
+    jobs = [SWJob(probes[b, :plens[b]], targets[b, :tlens[b]],
+                  int(diag0[b])) for b in range(len(plens))]
+    scan = banded_sw_batch(probes, plens, targets, tlens, diag0, band=W,
+                           scores=scores, traceback=False, device=dev)
+    full = banded_sw_batch(probes, plens, targets, tlens, diag0, band=W,
+                           scores=scores, device=dev)
+    reset_launches()
+    for D in PAR_DS:
+        svc = SWService(band=W, scores=scores, devices=[dev] * D)
+        got, ms = _with_ms(torch, lambda: svc.score(jobs))
+        same = got.tolist() == [a.score for a in scan]
+        print(f"SWService.score on [{dev}] * {D} ({len(jobs)} pairs, W {W}) "
+              f"on {card}: {ms} ms, equal to banded_sw_batch(traceback="
+              f"False): {same}")
+        if not same:
+            raise AssertionError(f"phase 20e: score at D {D} differs")
+    got, ms = _with_ms(torch, lambda: SWService(
+        band=W, scores=scores, devices=[dev]).align(jobs))
+    same = got == full
+    launches = dict(sw_scan=sw_scan.launches,
+                    sw_traceback=sw_traceback.launches)
+    print(f"SWService.align: {ms} ms, equal to banded_sw_batch: {same}; "
+          f"launches {launches}")
+    if not same or launches != dict(sw_scan=sum(PAR_DS) + 1,
+                                    sw_traceback=1):
+        raise AssertionError("phase 20e: align differs or the launches "
+                             f"are {launches}")
+    return launches
+
+
+def parallel_full(torch, dev, card, tmp: Path, cfg1: Path, chroms, seq,
+                  planted, chr4, chr4_min) -> dict:
+    """Phase 20: the parallel paths (20a-f); 20f's two processes and 20d's
+    host work run in worker processes beside 20a-b. Returns the launches
+    of 20b-e's runs by kernel."""
+    ddir, hdir = tmp / "dist", tmp / "host"
+    ddir.mkdir()
+    hdir.mkdir()
+    workers = ProcessPoolExecutor(3, mp_context=get_context("spawn"))
+    with workers:
+        dist_jobs = [workers.submit(dist_worker, r, 2, str(ddir), str(cfg1),
+                                    str(dev)) for r in range(2)]
+        pos_job = workers.submit(pos_shards, str(cfg1), str(hdir))
+        parallel_golden(torch, dev)
+        launches = dict(minmm=mesh_cli(torch, dev, card, tmp, chroms, seq,
+                                       planted))
+        dist_check(cfg1, ddir, dist_jobs)
+        launches["minmm"] += ring_mesh_chr4(torch, dev, card, tmp, chr4,
+                                            chr4_min)
+        sharded_passes(torch, dev, card, cfg1, pos_job.result())
+    launches.update(swservice_full(torch, dev, card))
+    return launches
+
+
 def minmm_cases(torch, cases, minmm, minmm_plain) -> int:
     """Phase 2: the min-match kernel against its plain version, bit for
     bit, on (label, own rows, partner, diag, span_lo, span_cnt, row_base)
@@ -4453,13 +5017,18 @@ def main() -> int:
     cfg1 = Path(config1.name)
     kalign_full(torch, dev, card, cfg1)
     done("8")
-    # host-only steps of 11b and 13c, each in a worker process beside the
+    # host-only steps of 11b and 13c-d, each in a worker process beside the
     # card work before it: config #4's genome and index (beside 9-10),
-    # then 13c's reads (beside 13a-b)
+    # then 13c's reads and 13d's index -m 1 (beside 13a-c); and 14b's
+    # config #5 runs, mostly host work, in a second worker beside 9-13
     host_steps = ProcessPoolExecutor(1, mp_context=get_context("spawn"))
     keep11 = tempfile.TemporaryDirectory(prefix=".chip_smoke_", dir=root)
     t11 = Path(keep11.name)
     index_job = host_steps.submit(config4_index, t11)
+    card_steps = ProcessPoolExecutor(1, mp_context=get_context("spawn"))
+    keep14 = tempfile.TemporaryDirectory(prefix=".chip_smoke_", dir=root)
+    t14 = Path(keep14.name)
+    config5_job = card_steps.submit(config5_run, str(t14))
 
     # --- 9. kmarkers: the JAX golden, the brute force, config #3 ------
     kmarkers_golden(torch, dev)
@@ -4492,18 +5061,21 @@ def main() -> int:
             host_steps:
         reads_job = host_steps.submit(cli_logged,
                                       snp_reads_argv(Path(tmp), cfg1))
+        bis_job = host_steps.submit(bis_index, *bis_index_argv(Path(tmp),
+                                                               cfg1))
         opts_golden(torch, dev)
         opts_full(torch, dev, card, Path(tmp), cfg1)
         snp_full(torch, dev, card, Path(tmp), cfg1, reads_job)
-        bisulfite_full(torch, dev, card, Path(tmp), cfg1)
+        bisulfite_full(torch, dev, card, Path(tmp), cfg1, bis_job)
     done("13")
 
     # --- 14. config #5 and the float device uses ------------------------
     assembly_golden(torch, dev)
-    with tempfile.TemporaryDirectory(prefix=".chip_smoke_", dir=root) as tmp:
-        config5_full(torch, dev, card, Path(tmp))
-        neardup_full(torch, dev, card, Path(tmp))
-        float_full(torch, dev, card, Path(tmp))
+    with card_steps:
+        config5_full(card, t14, config5_job)
+    neardup_full(torch, dev, card, t14)
+    float_full(torch, dev, card, t14)
+    keep14.cleanup()
     done("14")
 
     # --- 15. the PacBio long-read path: golden, kernels, pipeline -------
@@ -4552,8 +5124,18 @@ def main() -> int:
         print(host_goldens["hosttools"].result())
     with tempfile.TemporaryDirectory(prefix=".chip_smoke_", dir=root) as tmp:
         hosttools_full(card, Path(tmp), cfg1)
-    config1.cleanup()
     done("19")
+
+    # --- 20. the parallel paths: golden, -M, -R, sharded passes, SW, dist
+    with tempfile.TemporaryDirectory(prefix=".chip_smoke_", dir=root) as tmp:
+        par_launches = parallel_full(torch, dev, card, Path(tmp), cfg1,
+                                     chroms, seq, planted, chr4, chr4_min)
+    config1.cleanup()
+    for k in sw_launches:
+        sw_launches[k] += par_launches[k]
+    print(f"phase 20's launches of the parallel paths' runs (20b-e): "
+          f"{par_launches}")
+    done("20")
     if "jax" in sys.modules or "kit4b_tpu" in sys.modules:
         raise AssertionError("jax or the JAX package kit4b_tpu was imported")
 
@@ -4564,7 +5146,8 @@ def main() -> int:
         {"name": "minmm", "route": "cuda",
          "source": "kit4b_tpu_torch/csrc/minmm.cu",
          "replaces": "kit4b_tpu/kmer/hammings_mxu.py:100",
-         "launches": launches, "max_abs_err": max_err,
+         "launches": launches + par_launches["minmm"],
+         "max_abs_err": max_err,
          "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": minmm_bound,
          "bound_by": "operations", "library_ms": None},
         {"name": "sweep", "route": "cuda",

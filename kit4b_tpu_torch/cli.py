@@ -2,7 +2,8 @@
 
 Port of kit4b_tpu/cli.py with the `index` (-m 1 bisulfite too),
 `simreads`, `kalign` (single and paired ends, every flag, --bisulfite),
-`genpba`, `hammings`, `pseudogenome`, `kmarkers`, `prekmarkers`, `filter`,
+`genpba`, `hammings` (also `-M`, `-R`), `pseudogenome`, `kmarkers`,
+`prekmarkers`, `filter`,
 `assemb`, `scaffold`, `pescaffold`, `mergeoverlaps`, `rnaexpr`, `genmlds`,
 `sarscov2ml`, `ecreads`, `pbfilter`, `pbassemb`, `eccontigs`, `kmerdist`,
 `blitz`, `hrdx`, `benchmark`, `alignsbs`, `ngsqc`, `maploci`, `rnade`,
@@ -28,8 +29,7 @@ taking the same flags and writing the same files, plus `--device
 `hammings`, `kmarkers`, `filter` for -D, `scaffold`, `rnaexpr`,
 `sarscov2ml`, the four PacBio commands, `blitz` and `alignsbs`). The
 parsers are copies, as is all the port needs of the JAX package: it
-imports none of it. Flags of paths not ported yet parse as in kit4b_tpu
-and raise NotImplementedError naming their ROADMAP item.
+imports none of it.
 """
 from __future__ import annotations
 
@@ -428,9 +428,6 @@ def cmd_hammings(args) -> int:
         hammings.save_dists(args.outfile, names, dists)
         print(f"hammings trans: {infiles[0]} -> {args.outfile}")
         return 0
-    if (args.ring or args.mesh) and not args.restricted:
-        raise NotImplementedError("hammings -M/-R (multi-device) is not "
-                                  "ported yet: ROADMAP.md queue A item 10")
     device = resolve(args.device)
     t = PhaseTimer()
     with t.phase("load genome"):
@@ -443,6 +440,20 @@ def cmd_hammings(args) -> int:
             hd = hammings.hammings_restricted(
                 idx, args.kmerlen, max_hamming=args.restricted,
                 antisense=not args.watsononly, device=device)
+        elif args.ring or args.mesh:
+            # every visible card, or the CPU as one device
+            devices = [device] if device.type == "cpu" else None
+            if args.ring:
+                from .parallel.hammings_ring import hammings_ring
+                hd = hammings_ring(g.seq, args.kmerlen,
+                                   antisense=not args.watsononly,
+                                   devices=devices)
+            else:
+                from .parallel.hammings_mesh import hammings_mesh
+                hd = hammings_mesh(g.seq, args.kmerlen,
+                                   antisense=not args.watsononly,
+                                   devices=devices, node=args.node - 1,
+                                   numnodes=args.numnodes)
         else:
             hd = hammings.hammings_exhaustive(
                 g.seq, args.kmerlen, antisense=not args.watsononly,
@@ -2205,9 +2216,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-n", "--numnodes", type=int, default=1)
     p.add_argument("-y", "--watsononly", action="store_true")
     p.add_argument("-M", "--mesh", action="store_true",
-                   help="shard over all local devices (not ported yet)")
+                   help="shard own rows over all local devices "
+                        "(parallel/hammings_mesh.py)")
     p.add_argument("-R", "--ring", action="store_true",
-                   help="ring over all local devices (not ported yet)")
+                   help="ring over all local devices: O(G/D) memory per "
+                        "device (parallel/hammings_ring.py)")
     p.add_argument("-r", "--restricted", type=int, default=0,
                    help="pigeonhole mode bound; 0 = exhaustive")
     p.add_argument("--device", choices=("cuda", "cpu"), default="cuda",

@@ -22,9 +22,9 @@ Reference parity:
 
 Words ride the int64 carrier of `ops.bits`. Where JAX counts the buckets
 at or below a rank through a one-hot [C, D, E] comparison the port runs
-`searchsorted` over the same running counts: the same index. Not ported:
-the `key_lo` and `gview_base` arguments of the sharded passes (ROADMAP
-queue A item 18).
+`searchsorted` over the same running counts: the same index.
+`deep_cands_planes` takes the shard arguments of the position-sharded deep
+pass (`parallel/mesh.py`), `key_lo` and `gview_base`, as the v4 core does.
 """
 from __future__ import annotations
 
@@ -61,10 +61,14 @@ def deep_cands_planes(gview, sa, lut2, planes, *, genome_len: int,
                       offsets: tuple, lut_k: int, read_len: int,
                       n_blocks: int, block_size: int,
                       skip_bucket: int = DFLT_SKIP_BUCKET,
-                      n_sel: int | None = None):
+                      n_sel: int | None = None, key_lo=None,
+                      gview_base=None):
     """Candidate core of the deep pass: (ids, mm) [C, E] int32 with
     INT32_MAX invalid, each locus once under explored-window
-    canonicalisation."""
+    canonicalisation. key_lo and gview_base (int or 0-d int32 tensor) are
+    the key-range and position shard arguments of `_cands_core_v4`; a
+    sharded caller gathers every shard's candidates and finalizes them
+    together."""
     rw, rb, rcw, rcb = planes
     dev = rw.device
     nw, E = rw.shape
@@ -84,6 +88,9 @@ def deep_cands_planes(gview, sa, lut2, planes, *, genome_len: int,
     kr, okr = _keys_be(rcw, rcb, offsets, k)
     keys = torch.stack([kf, kr], dim=0)                     # [S, W, E]
     key_ok = torch.stack([okf, okr], dim=0)
+    if key_lo is not None:
+        keys = keys - key_lo
+        key_ok = key_ok & (keys >= 0) & (keys < n_keys)
     pair = lut2[keys.clamp(0, n_keys - 1).long()]
     lo = pair[..., 0]
     cnt = torch.where(key_ok, pair[..., 1], 0)
@@ -130,7 +137,8 @@ def deep_cands_planes(gview, sa, lut2, planes, *, genome_len: int,
     valid = slot_ok & (pos >= 0) & (pos + L <= G)
 
     posc = torch.where(valid, pos, 0)
-    w0 = (posc >> 4).clamp(0, Gv - 1).long()
+    rel = posc if gview_base is None else posc - gview_base
+    w0 = (rel >> 4).clamp(0, Gv - 1).long()
     rows = gview[w0].permute(0, 2, 1)                        # [C, 2nw2, E]
     gw = rows[:, :nw2]
     gb = rows[:, nw2:]

@@ -4,8 +4,9 @@ tiers of kalign.
 Port of kit4b_tpu/ops/seed_extend_fast.py (`fast_candidates`,
 `finalize_fast`, `fast_pass`), the
 paired-end orphan rescue scan (`window_scan_pe`, `_phase_scan`), plus its
-host helpers (`fast_offsets`, `_tail_mask`, `_window_masks`),
-which are re-homed here because the JAX module imports jax at module top.
+host helpers (`fast_offsets`, `make_gview`, `_tail_mask`,
+`_window_masks`), which are re-homed here because the JAX module imports
+jax at module top.
 `fast_candidates` takes both strands of plain DNA reads by default, or one
 strand of reads the caller has collapsed to a 3-letter alphabet, keyed in
 radix `lut_base` through `digit_map` (the bisulfite pass,
@@ -24,7 +25,7 @@ Not ported: `fast_pass_compact` (an index with 2^31
 clean suffixes or more) and the host-probe window scans `window_scan` and
 `window_scan_packed`, which JAX's paired-end rescue reaches only on the
 byte-tensor `pe_pass` route, taken past the int32 locus-id ceiling
-(item 18).
+(item 18a, whose refusal stands).
 """
 from __future__ import annotations
 
@@ -54,6 +55,15 @@ def fast_offsets(read_len: int, lut_k: int, max_mm: int) -> tuple:
         return (0,)
     stride = (L - k) // (W - 1)
     return tuple(i * stride for i in range(W))
+
+
+def make_gview(gpack: np.ndarray, gbad: np.ndarray, nw2: int) -> np.ndarray:
+    """[Gv, 2*nw2] uint32 row-gather view on the host: row i =
+    gpack[i:i+nw2] ++ gbad[i:i+nw2]. The position-sharded index
+    (`parallel.mesh.shard_index_by_position`) builds its blocks with it."""
+    p = np.lib.stride_tricks.sliding_window_view(gpack, nw2)
+    b = np.lib.stride_tricks.sliding_window_view(gbad, nw2)
+    return np.concatenate([p, b], axis=1).astype(np.uint32)
 
 
 def make_gview_device(gpack: np.ndarray, gbad: np.ndarray, nw2: int,

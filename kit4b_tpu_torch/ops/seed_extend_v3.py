@@ -72,8 +72,9 @@ def fast_pass_v3(gview, sa, lut2, reads2b, nlist, *, genome_len, offsets,
     exact contract (the same distinct loci, mismatch counts and overflow)
     from packed word planes, so this pass is `words_from_2bit` ->
     `_cands_core_v4` -> `finalize_fast`, and reads cross to the device at
-    2 bits a base. Not taken from JAX: `key_lo` (the key-sharded index,
-    ROADMAP queue A item 18) and `single_strand`, `lut_base`, `digit_map`,
+    2 bits a base. JAX's `key_lo` (the key-sharded index) is the v4
+    core's `key_lo`, which `parallel.mesh.make_sharded_align_pass_v3`
+    passes. Not taken from JAX: `single_strand`, `lut_base`, `digit_map`,
     which no caller of JAX's v3 core passes (the bisulfite pass runs
     `seed_extend_fast.fast_candidates`). Nothing here waits for the
     device."""

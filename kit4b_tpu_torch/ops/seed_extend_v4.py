@@ -11,9 +11,10 @@ classification and the in-graph tier 2 and returns the [B, 2] int32 rows.
 Words ride the int64 carrier of `ops.bits`. The compaction keeps the JAX
 slot order (strand, then window, then bucket rank) exactly; where JAX sums
 a one-hot selection over the slot axis the port gathers the one selected
-entry, which is the same value. Not ported: the `key_lo` and `gview_base`
-arguments of the key- and position-sharded mesh passes (ROADMAP queue A
-item 18).
+entry, which is the same value. `_cands_core_v4` also takes the shard
+arguments of the mesh passes (`parallel/mesh.py`): `key_lo`, the first key
+of a key-range shard's table, and `gview_base`, the genome position of a
+position shard's first genome-view row.
 """
 from __future__ import annotations
 
@@ -96,13 +97,17 @@ def _keys_be(words: torch.Tensor, bads: torch.Tensor, offsets: tuple,
     return torch.stack(keys, dim=0), torch.stack(oks, dim=0)
 
 
-def _seed_keys(planes, offsets, k, n_keys):
+def _seed_keys(planes, offsets, k, n_keys, key_lo=None):
     """Keys of both strands [2, W, B] clamped to the table, and their
-    validity (N-free window, key inside the table)."""
+    validity (N-free window, key inside the table). With key_lo (an int or
+    a 0-d int32 tensor) the table is a key-range shard starting at key_lo:
+    keys are rebased to it, and keys outside it are invalid."""
     rw, rb, rcw, rcb = planes
     kf, okf = _keys_be(rw, rb, offsets, k)
     kr, okr = _keys_be(rcw, rcb, offsets, k)
     keys = torch.stack([kf, kr], dim=0)                     # [S, W, B]
+    if key_lo is not None:
+        keys = keys - key_lo
     key_ok = torch.stack([okf, okr], dim=0)
     key_ok = key_ok & (keys >= 0) & (keys < n_keys)
     return keys.clamp(0, n_keys - 1).long(), key_ok
@@ -138,11 +143,13 @@ def _slot_meta(b: torch.Tensor, off_w: torch.Tensor):
 
 
 def _dedup_extend(gview, planes, pos, strand, w_d, valid, overflow, *,
-                  read_len, offsets, lut_k, n_extend):
+                  read_len, offsets, lut_k, n_extend, gview_base=None):
     """Locus dedup (first slot per (pos, strand) survives), recompaction to
     NS extension slots, one genome-row gather per distinct locus, XOR +
     popcount mismatch count and first-exact-window canonicalisation.
-    Returns (ids, mm) [NS, B] int32 and the updated overflow [B]."""
+    Returns (ids, mm) [NS, B] int32 and the updated overflow [B].
+    gview_base: the global genome position of gview's row 0 (a multiple of
+    16) when gview is a position shard's block; positions stay global."""
     rw, rb, rcw, rcb = planes
     dev = pos.device
     NC, B = pos.shape
@@ -170,7 +177,8 @@ def _dedup_extend(gview, planes, pos, strand, w_d, valid, overflow, *,
 
     # --- extension: one row-gather per distinct locus ----------------------
     posc = torch.where(ok2, pos2, 0)
-    w0 = (posc >> 4).clamp(0, Gv - 1).long()
+    rel = posc if gview_base is None else posc - gview_base
+    w0 = (rel >> 4).clamp(0, Gv - 1).long()
     rows = gview[w0].permute(0, 2, 1)                       # [NS, 2*nw2, B]
     gw = rows[:, :nw2]
     gb = rows[:, nw2:]
@@ -214,17 +222,23 @@ def _dedup_extend(gview, planes, pos, strand, w_d, valid, overflow, *,
 
 
 def _cands_core_v4(gview, sa, lut2, planes, *, genome_len, offsets, lut_k,
-                   read_len, n_compact, n_extend=None, max_per_bucket=None):
+                   read_len, n_compact, n_extend=None, max_per_bucket=None,
+                   key_lo=None, gview_base=None):
     """Seed + compact + locus-dedup + extend from packed word planes.
     Returns (ids, mm) [NS, B] int32 (INT32_MAX invalid) and overflow [B]
-    bool (raw candidates > NC or distinct loci > NS)."""
+    bool (raw candidates > NC or distinct loci > NS).
+
+    The mesh passes' shard arguments (int or 0-d int32 tensor): key_lo, the
+    first key of a key-range shard's lut2 (out-of-shard keys count 0), and
+    gview_base, the global genome position of a position shard's gview
+    row 0 (sa holds global positions; extension rows rebase locally)."""
     nw, B = planes[0].shape
     L = read_len
     NC = n_compact
     W = len(offsets)
     D = 2 * W
 
-    local, key_ok = _seed_keys(planes, offsets, lut_k, lut2.shape[0])
+    local, key_ok = _seed_keys(planes, offsets, lut_k, lut2.shape[0], key_lo)
     pair = lut2[local]                                      # [S, W, B, 2]
     lo = pair[..., 0]
     cnt = torch.where(key_ok, pair[..., 1], 0)
@@ -243,7 +257,7 @@ def _cands_core_v4(gview, sa, lut2, planes, *, genome_len, offsets, lut_k,
     valid = slot_ok & (pos >= 0) & (pos + L <= genome_len)
     return _dedup_extend(gview, planes, pos, strand, w_d, valid, overflow,
                          read_len=L, offsets=offsets, lut_k=lut_k,
-                         n_extend=n_extend or NC)
+                         n_extend=n_extend or NC, gview_base=gview_base)
 
 
 def _tier2(code, low, planes, gview, sa, lut2, tier2, *, max_tot_mm,

@@ -51,17 +51,19 @@ def host_escalation_estimate(lut: np.ndarray, n_windows: int) -> float:
 
 
 def _cands_core_v5(gview, lut4, planes, *, genome_len, offsets, lut_k,
-                   read_len, n_compact, n_extend=None):
+                   read_len, n_compact, n_extend=None, key_lo=None):
     """Tier-1 seed + compact + locus-dedup + extend from the flattened
     bucket table. Same (ids, mm, overflow) contract as `_cands_core_v4`;
-    overflow also holds every read with a seed bucket over P_POS."""
+    overflow also holds every read with a seed bucket over P_POS. key_lo
+    (int or 0-d int32 tensor): the first key of a key-range shard's lut4,
+    as in `_cands_core_v4`."""
     nw, B = planes[0].shape
     L = read_len
     NC = n_compact
     W = len(offsets)
     D = 2 * W
 
-    local, key_ok = _seed_keys(planes, offsets, lut_k, lut4.shape[0])
+    local, key_ok = _seed_keys(planes, offsets, lut_k, lut4.shape[0], key_lo)
     row = lut4[local]                                       # [S, W, B, 8]
     cnt_raw = torch.where(key_ok, row[..., P_POS], 0)
     high = cnt_raw > P_POS

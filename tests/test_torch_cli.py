@@ -1,7 +1,8 @@
 """`python -m kit4b_tpu_torch hammings` against `python -m kit4b_tpu
-hammings` on a small FASTA: identical output files in every mode the port
-runs (1 compute, 3 merge, 4 trans to .hmg, 5 trans to CSV; restricted mode
-`-r` is in tests/test_torch_hammings_restricted.py), a clear failure
+hammings` on a small FASTA: identical output files in every mode (1
+compute, also on the multi-device engines `-M` and `-R`, 3 merge, 4 trans
+to .hmg, 5 trans to CSV; restricted mode `-r` is in
+tests/test_torch_hammings_restricted.py), a clear failure
 without CUDA, and no jax in the port's process, also through `simreads`
 and paired-end `kalign` with kit4b_tpu and jax blocked (their outputs
 against the JAX package's are in tests/test_torch_pe_sam.py)."""
@@ -105,14 +106,29 @@ def test_without_cuda_fails_with_a_clear_message(tmp_path, fasta, capsys,
     assert not (tmp_path / "x.hmg").exists()
 
 
-@pytest.mark.parametrize("flags,item", [(["-M"], "item 10"),
-                                        (["-R"], "item 10")])
-def test_unported_options_fail_naming_the_roadmap(tmp_path, fasta, capsys,
-                                                  flags, item):
-    rc = port_main(["hammings", "-i", str(fasta), "-o",
-                    str(tmp_path / "x.hmg"), "--device", "cpu", *flags])
-    assert rc == 1
-    assert f"ROADMAP.md queue A {item}" in capsys.readouterr().err
+@pytest.mark.parametrize("out,flags", [("all.hmg", []), ("all.csv", []),
+                                       ("all.npy", []), ("sense.hmg", ["-y"]),
+                                       ("k13.hmg", ["-K", "13", "-n", "1"])])
+@pytest.mark.parametrize("engine", ["-M", "-R"])
+def test_multi_device_engines_match_jax(tmp_path, fasta, engine, out, flags):
+    """`-M` and `-R`: JAX's CLI spreads the genome over its 8 virtual CPU
+    devices, the port's over the one CPU device; over every node's spans
+    the answers agree byte for byte, and equal the plain engine's."""
+    port, jax = _both(tmp_path, out, "-i", fasta, "-K", "9", engine, *flags)
+    assert port.read_bytes() == jax.read_bytes()
+    plain, _ = _both(tmp_path, "plain_" + out, "-i", fasta, "-K", "9",
+                     *flags)
+    assert port.read_bytes() == plain.read_bytes()
+
+
+@pytest.mark.parametrize("engine", ["-M", "-R"])
+def test_restricted_mode_takes_precedence(tmp_path, fasta, engine):
+    port, jax = _both(tmp_path, "r.hmg", "-i", fasta, "-K", "9", "-r", "2",
+                      engine)
+    assert port.read_bytes() == jax.read_bytes()
+    alone, _ = _both(tmp_path, "alone.hmg", "-i", fasta, "-K", "9", "-r",
+                     "2")
+    assert port.read_bytes() == alone.read_bytes()
 
 
 def test_the_port_never_loads_jax(tmp_path):

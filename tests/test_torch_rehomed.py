@@ -17,6 +17,9 @@ modules in tests/test_torch_blitz.py, test_torch_longtail.py and
 test_torch_scorers.py);
 the modules of the converters and file tools, each held statement for
 statement, with the `.seq` and `.biobed` files loading in either package;
+ops.seed_extend_fast's host `make_gview` (the position-sharded index's
+genome blocks; the rest of kit4b_tpu_torch/parallel in
+tests/test_torch_parallel*.py);
 and the port's own build of the host library (native.py), keyed by its
 sources, flags and CPU. Tests of the index skip when the library cannot be
 built."""
@@ -1557,3 +1560,19 @@ def test_biobed_loads_in_either_package(tmp_path, writer):
     want = [(f.chrom, f.start, f.end, f.name, f.score, f.strand)
             for f in reader.load(bed).features]
     assert got == want and len(want) == 4
+
+
+@pytest.mark.parametrize("n,nw2", [(1000, 8), (37, 3), (4096, 17)])
+def test_host_gview_matches(n, nw2):
+    """`seed_extend_fast.make_gview`, the host genome view the
+    position-sharded index builds its blocks with."""
+    from kit4b_tpu.ops import seed_extend_fast as jfast
+    from kit4b_tpu_torch.ops import seed_extend_fast as pfast
+    from kit4b_tpu_torch.ops.extend_packed import pack_genome
+    rng = np.random.default_rng(n)
+    seq = rng.integers(0, 6, n).astype(np.uint8)
+    gpack, gbad = pack_genome(seq, nw2 + 1)
+    got = pfast.make_gview(gpack, gbad, nw2)
+    want = jfast.make_gview(gpack, gbad, nw2)
+    assert got.dtype == want.dtype == np.uint32
+    np.testing.assert_array_equal(got, want)

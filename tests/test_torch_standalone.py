@@ -21,8 +21,10 @@ csvtools, bedtools2, blastpsl, tosqlite, io.gff, io.biobed and the `.seq`
 container of io.fasta), and a command of each of the twelve host-tools
 modules (io.malign, tools.alignstats, hypers, remap, locistats,
 conformation, structextra, ssr, wigutils, go, align.regions and
-assembly.radseq) on the host-tools golden's inputs, with `--device cpu`
-where a command takes one) on a small seeded genome. The
+assembly.radseq) on the host-tools golden's inputs, and `hammings -M`
+and `-R` with the parallel golden's deep paired-end and SWService groups
+(modules of kit4b_tpu_torch/parallel), with `--device cpu` where a
+command takes one) on a small seeded genome. The
 runs that build a suffix index need the port's host library and skip
 without it. This file imports neither package either:
 
@@ -483,3 +485,37 @@ def test_cli_hosttools_commands_with_both_blocked(tmp_path, host_library):
          "bad = mg.differing(out, gold)\n"
          "assert bad == [], bad\n"
          "assert len(out) >= 14\n", tmp_path)
+
+
+def test_the_scan_covers_the_parallel_package():
+    for name in ("__init__", "mesh", "hammings_mesh", "hammings_ring",
+                 "swservice", "distributed"):
+        assert f"kit4b_tpu_torch/parallel/{name}.py" in FILES
+
+
+def test_cli_hammings_mesh_and_ring_with_both_blocked(tmp_path,
+                                                      host_library):
+    """`hammings -M` and `-R` through the CLI on a 1.5 kbp genome, equal to
+    the plain engine's output, then the parallel golden's deep paired-end
+    pass and SWService on `[cpu] * D`, equal to the committed golden."""
+    fa = tmp_path / "g.fa"
+    _run("import numpy as np\n"
+         "from kit4b_tpu_torch import cli\n"
+         "g = np.frombuffer(b'ACGT', np.uint8)[np.random.default_rng(3)"
+         ".integers(0, 4, 1500)]\n"
+         f"open({str(fa)!r}, 'w').write('>c\\n' + g.tobytes().decode() + "
+         "'\\n')\n"
+         "outs = []\n"
+         "for flags in ([], ['-M'], ['-R']):\n"
+         f"    out = {str(tmp_path)!r} + f'/h{{len(outs)}}.npy'\n"
+         f"    assert cli.main(['hammings', '-i', {str(fa)!r}, '-o', out, "
+         "'-K', '10', '--device', 'cpu', *flags]) == 0\n"
+         "    outs.append(np.load(out))\n"
+         "assert (outs[1] == outs[0]).all() and (outs[2] == outs[0]).all()\n"
+         "from kit4b_tpu_torch.tools import make_parallel_golden as mg\n"
+         "work = mg.workload()\n"
+         "out = mg.compute(mg.port_fns('cpu'), work, groups=('deep', 'sw'))\n"
+         "with np.load(mg.GOLDEN) as z:\n"
+         "    gold = {k: z[k] for k in z.files}\n"
+         "assert mg.differing(out, gold, groups=('deep', 'sw')) == []\n"
+         "assert len(out) == 7\n", tmp_path)
