@@ -1,0 +1,6 @@
+"""Share of the kalign cell's window in which the device ran nothing."""
+from kbench.trace import idle_pct
+
+
+def read(ctx):
+    return idle_pct(ctx.trace)
