@@ -69,6 +69,7 @@ from ..ops.extend_packed import pack_genome
 from ..ops.indel import find_indels
 from ..ops.seed_extend_v3 import make_lut2_device, unpack_result2
 from ..ops.splice import find_splices
+from ..utils.runtime import span
 
 INT32_MAX = seed_extend_fast.INT32_MAX
 
@@ -336,25 +337,28 @@ class KAligner:
                     "a compact pass at another capacity "
                     "(fast_pass_compact) serves only genomes whose int32 "
                     "locus ids wrap: ROADMAP.md queue A item 18")
-            return seed_extend_fast.fast_pass(
-                gview, sa, lut, torch.from_numpy(reads).to(self.device),
-                max_ml=self.max_ml, max_per_bucket=cap, **kw)
+            with span("kalign.upload"):
+                return seed_extend_fast.fast_pass(
+                    gview, sa, lut, torch.from_numpy(reads).to(self.device),
+                    max_ml=self.max_ml, max_per_bucket=cap, **kw)
         reads2b, nlist = pack_reads_2bit(reads)
-        r2b = torch.from_numpy(reads2b).to(self.device)
-        nl = torch.from_numpy(nlist).to(self.device)
-        if not compact:
-            return seed_extend_v3.fast_pass_v3(
-                gview, sa, lut2, r2b, nl, read_len=L, max_ml=self.max_ml,
-                n_extend=self.n_extend, max_per_bucket=cap, **kw)
-        common = dict(read_len=L, max_tot_mm=max_tot_mm,
-                      mm_delta=self.mm_delta, n_extend=self.n_extend, **kw)
-        lut4 = self._lut4_for(L, sa)
-        if lut4 is not None:
-            return ("packed", seed_extend_v5.fast_pass_packed_v5(
-                gview, sa, lut2, lut4, r2b, nl, tier2=TIER2, **common))
-        return ("packed", seed_extend_v4.fast_pass_packed_v4(
-            gview, sa, lut2, r2b, nl, max_per_bucket=cap, tier2=TIER2_V4,
-            **common))
+        with span("kalign.upload"):
+            r2b = torch.from_numpy(reads2b).to(self.device)
+            nl = torch.from_numpy(nlist).to(self.device)
+            if not compact:
+                return seed_extend_v3.fast_pass_v3(
+                    gview, sa, lut2, r2b, nl, read_len=L, max_ml=self.max_ml,
+                    n_extend=self.n_extend, max_per_bucket=cap, **kw)
+            common = dict(read_len=L, max_tot_mm=max_tot_mm,
+                          mm_delta=self.mm_delta, n_extend=self.n_extend,
+                          **kw)
+            lut4 = self._lut4_for(L, sa)
+            if lut4 is not None:
+                return ("packed", seed_extend_v5.fast_pass_packed_v5(
+                    gview, sa, lut2, lut4, r2b, nl, tier2=TIER2, **common))
+            return ("packed", seed_extend_v4.fast_pass_packed_v4(
+                gview, sa, lut2, r2b, nl, max_per_bucket=cap,
+                tier2=TIER2_V4, **common))
 
     def _escalate(self, reads: np.ndarray, todo: np.ndarray, merge,
                   n: int | None = None) -> None:
@@ -366,21 +370,23 @@ class KAligner:
         own, so leaving them out changes no real row."""
         if n is not None:
             todo[n:] = False
-        for ti, (bt, nct) in enumerate(self.escalation):
-            idxs = np.nonzero(todo)[0]
-            if len(idxs) == 0:
-                break
-            final = ti == len(self.escalation) - 1
-            for s in range(0, len(idxs), bt):
-                chunk = idxs[s:s + bt]
-                sub = reads[chunk]
-                if len(chunk) < bt:
-                    sub = np.concatenate(
-                        [sub, np.repeat(sub[:1], bt - len(chunk), axis=0)])
-                out = self._submit(sub, n_compact=nct, compact=False,
-                                   capped=final)
-                todo[chunk] = merge(chunk, {
-                    k: v.cpu().numpy()[:len(chunk)] for k, v in out.items()})
+        with span("kalign.escalate"):
+            for ti, (bt, nct) in enumerate(self.escalation):
+                idxs = np.nonzero(todo)[0]
+                if len(idxs) == 0:
+                    break
+                final = ti == len(self.escalation) - 1
+                for s in range(0, len(idxs), bt):
+                    chunk = idxs[s:s + bt]
+                    sub = reads[chunk]
+                    if len(chunk) < bt:
+                        sub = np.concatenate([sub, np.repeat(
+                            sub[:1], bt - len(chunk), axis=0)])
+                    out = self._submit(sub, n_compact=nct, compact=False,
+                                       capped=final)
+                    todo[chunk] = merge(chunk, {
+                        k: v.cpu().numpy()[:len(chunk)]
+                        for k, v in out.items()})
 
     def _code_from_full(self, host: dict, max_tot_mm: int) -> np.ndarray:
         """Classify full-stats rows into compact codes (escalation merge)."""
@@ -405,7 +411,9 @@ class KAligner:
         """Fetch [B, 2] compact rows (waits for the device); escalate -3
         rows (of the first n) through the host ladder; return the
         classification dict."""
-        code, low, n_low = unpack_result2(devout[1].cpu().numpy())
+        with span("kalign.result_wait"):
+            rows = devout[1].cpu().numpy()
+        code, low, n_low = unpack_result2(rows)
         _, max_tot_mm = self.schedule_for(reads.shape[1])
 
         def merge(chunk, out2):
@@ -666,7 +674,12 @@ def _prefetched(source, consume):
 
     def producer():
         try:
-            for item in source:
+            items = iter(source)
+            while True:
+                with span("kalign.parse"):
+                    item = next(items, sentinel)
+                if item is sentinel:
+                    break
                 q.put(item)
         except BaseException as e:   # surfaced on the consumer side
             err.append(e)
@@ -678,7 +691,8 @@ def _prefetched(source, consume):
 
     def items():
         while True:
-            item = q.get()
+            with span("kalign.parse_wait"):
+                item = q.get()
             if item is sentinel:
                 return
             yield item
@@ -971,70 +985,73 @@ def write_sam_fast(path, index: SfxIndex, aligner: KAligner, records,
         """Format + write one aligned block. names: list[bytes] (n);
         arr: uint8 [>=n, L] codes; quals_all: uint8 [n, L] raw phred+33
         ASCII or None; raw: compact result dict from the aligner."""
-        L = arr.shape[1]
-        nar = raw["nar"][:n]
-        pos = raw["pos"][:n].astype(np.int64)
-        strand = raw["strand"][:n].astype(np.int64)
-        mm = np.asarray(raw["mm"][:n])
-        cnt = np.bincount(nar, minlength=4)
-        for c_i, key in enumerate(NAR_NAMES):
-            stats[key] += int(cnt[c_i])
-        acc = nar == 0
-        sub_hist[:] = sub_hist + np.bincount(
-            np.minimum(mm[acc], 63), minlength=64)
-        sel = np.arange(n) if emit_unmapped else np.nonzero(acc)[0]
-        if len(sel) == 0:
-            return
-        codes = arr[sel]
-        acc_s = acc[sel]
-        rev_s = acc_s & (strand[sel] == 1)
-        # strand-oriented ASCII sequence, vectorized
-        seq_ascii = _ASCII_FWD[codes]
-        if rev_s.any():
-            seq_ascii[rev_s] = _ASCII_RC[codes[rev_s][:, ::-1]]
-        # first-byte 0 sentinel -> formatter emits "*" (no quality);
-        # reverse-strand hits emit reversed qualities
-        if quals_all is None:
-            quals = np.zeros((len(sel), L), np.uint8)
-        else:
-            quals = np.ascontiguousarray(quals_all[sel])
+        with span("kalign.sam_prep"):
+            L = arr.shape[1]
+            nar = raw["nar"][:n]
+            pos = raw["pos"][:n].astype(np.int64)
+            strand = raw["strand"][:n].astype(np.int64)
+            mm = np.asarray(raw["mm"][:n])
+            cnt = np.bincount(nar, minlength=4)
+            for c_i, key in enumerate(NAR_NAMES):
+                stats[key] += int(cnt[c_i])
+            acc = nar == 0
+            sub_hist[:] = sub_hist + np.bincount(
+                np.minimum(mm[acc], 63), minlength=64)
+            sel = np.arange(n) if emit_unmapped else np.nonzero(acc)[0]
+            if len(sel) == 0:
+                return
+            codes = arr[sel]
+            acc_s = acc[sel]
+            rev_s = acc_s & (strand[sel] == 1)
+            # strand-oriented ASCII sequence, vectorized
+            seq_ascii = _ASCII_FWD[codes]
             if rev_s.any():
-                quals[rev_s] = quals[rev_s][:, ::-1]
-        ci = np.zeros(len(sel), np.int64)
-        pos1 = np.zeros(len(sel), np.int64)
-        if acc_s.any():
-            p_acc = pos[sel][acc_s]
-            c_acc = np.searchsorted(starts, p_acc, side="right") - 1
-            ci[acc_s] = c_acc
-            pos1[acc_s] = p_acc - starts[c_acc] + 1
-        flag = np.where(acc_s, np.where(rev_s, FLAG_REVERSE, 0),
-                        FLAG_UNMAPPED).astype(np.int32)
-        mapq = np.full(len(sel), 254, np.int32)
-        nm = mm[sel].astype(np.int32)
-        ci32 = ci.astype(np.int32)
-        seq_c = np.ascontiguousarray(seq_ascii)
-        sel_names = [names[i] for i in sel] if len(sel) != n else names
-        qn_cat = b"".join(sel_names)
-        qn_ofs = np.zeros(len(sel) + 1, np.int64)
-        qn_ofs[1:] = np.cumsum([len(x) for x in sel_names])
-        # +16: the native guard checks against out+cap-1 with the full
-        # per-record worst case, so an exact-fit cap is 1 byte short
-        max_cn = max((len(c) for c in g.names), default=1)
-        cap = int(qn_ofs[-1]) + len(sel) * (2 * L + max_cn + 128) + 16
-        out = ctypes.create_string_buffer(cap)
-        i32 = ctypes.POINTER(ctypes.c_int32)
-        i64 = ctypes.POINTER(ctypes.c_int64)
-        u8 = ctypes.POINTER(ctypes.c_uint8)
-        nb = lib.format_sam_se(
-            qn_cat, qn_ofs.ctypes.data_as(i64),
-            chrom_cat, chrom_ofs.ctypes.data_as(i64),
-            flag.ctypes.data_as(i32), ci32.ctypes.data_as(i32),
-            pos1.ctypes.data_as(i64), mapq.ctypes.data_as(i32),
-            nm.ctypes.data_as(i32), seq_c.ctypes.data_as(u8),
-            quals.ctypes.data_as(u8), len(sel), L, out, cap)
+                seq_ascii[rev_s] = _ASCII_RC[codes[rev_s][:, ::-1]]
+            # first-byte 0 sentinel -> formatter emits "*" (no quality);
+            # reverse-strand hits emit reversed qualities
+            if quals_all is None:
+                quals = np.zeros((len(sel), L), np.uint8)
+            else:
+                quals = np.ascontiguousarray(quals_all[sel])
+                if rev_s.any():
+                    quals[rev_s] = quals[rev_s][:, ::-1]
+            ci = np.zeros(len(sel), np.int64)
+            pos1 = np.zeros(len(sel), np.int64)
+            if acc_s.any():
+                p_acc = pos[sel][acc_s]
+                c_acc = np.searchsorted(starts, p_acc, side="right") - 1
+                ci[acc_s] = c_acc
+                pos1[acc_s] = p_acc - starts[c_acc] + 1
+            flag = np.where(acc_s, np.where(rev_s, FLAG_REVERSE, 0),
+                            FLAG_UNMAPPED).astype(np.int32)
+            mapq = np.full(len(sel), 254, np.int32)
+            nm = mm[sel].astype(np.int32)
+            ci32 = ci.astype(np.int32)
+            seq_c = np.ascontiguousarray(seq_ascii)
+            sel_names = [names[i] for i in sel] if len(sel) != n else names
+            qn_cat = b"".join(sel_names)
+            qn_ofs = np.zeros(len(sel) + 1, np.int64)
+            qn_ofs[1:] = np.cumsum([len(x) for x in sel_names])
+            # +16: the native guard checks against out+cap-1 with the full
+            # per-record worst case, so an exact-fit cap is 1 byte short
+            max_cn = max((len(c) for c in g.names), default=1)
+            cap = int(qn_ofs[-1]) + len(sel) * (2 * L + max_cn + 128) + 16
+            out = ctypes.create_string_buffer(cap)
+            i32 = ctypes.POINTER(ctypes.c_int32)
+            i64 = ctypes.POINTER(ctypes.c_int64)
+            u8 = ctypes.POINTER(ctypes.c_uint8)
+        with span("kalign.sam_format"):
+            nb = lib.format_sam_se(
+                qn_cat, qn_ofs.ctypes.data_as(i64),
+                chrom_cat, chrom_ofs.ctypes.data_as(i64),
+                flag.ctypes.data_as(i32), ci32.ctypes.data_as(i32),
+                pos1.ctypes.data_as(i64), mapq.ctypes.data_as(i32),
+                nm.ctypes.data_as(i32), seq_c.ctypes.data_as(u8),
+                quals.ctypes.data_as(u8), len(sel), L, out, cap)
         if nb < 0:
             raise RuntimeError("format_sam_se buffer overflow")
-        raw_f.write(out.raw[:nb])
+        with span("kalign.sam_write"):
+            raw_f.write(out.raw[:nb])
         if snp_caller is not None and acc_s.any():
             orient = codes[acc_s].copy()
             r2 = rev_s[acc_s]

@@ -30,6 +30,7 @@ import numpy as np
 
 from .. import dna, native
 from ..io.fasta import Genome
+from ..utils.runtime import span
 from .sa_build import build_suffix_array
 
 KIX_VERSION = 1
@@ -66,28 +67,33 @@ class SfxIndex:
         seq = genome.seq
         if lut_k is None:
             lut_k = pick_lut_k(len(seq))
-        sa = build_suffix_array(seq)
+        with span("sfx.sais"):
+            sa = build_suffix_array(seq)
         # Clean mask: suffix has lut_k in-bounds bases all < BASE_N.
         n = len(seq)
         k = lut_k
-        ok = np.ones(n, dtype=bool)
-        isbase = seq < dna.BASE_N
-        # ok[p] = all(isbase[p:p+k]); compute via cumulative sum of non-base.
-        bad = (~isbase).astype(np.int64)
-        cbad = np.concatenate([[0], np.cumsum(bad)])
-        ok[: n - k + 1] = (cbad[k:] - cbad[:-k]) == 0
-        if k > 1:
-            ok[n - k + 1:] = False
-        sa_clean = sa[ok[sa]]
+        with span("sfx.mask"):
+            ok = np.ones(n, dtype=bool)
+            isbase = seq < dna.BASE_N
+            # ok[p] = all(isbase[p:p+k]), by a cumulative sum of non-bases
+            bad = (~isbase).astype(np.int64)
+            cbad = np.concatenate([[0], np.cumsum(bad)])
+            ok[: n - k + 1] = (cbad[k:] - cbad[:-k]) == 0
+            if k > 1:
+                ok[n - k + 1:] = False
+            sa_clean = sa[ok[sa]]
         # Keys of clean suffixes (non-decreasing in SA order; any digit_map
         # must be monotone in code order so bucket ranges stay contiguous).
         dm = np.arange(4, dtype=np.int64) if digit_map is None \
             else np.asarray(digit_map, dtype=np.int64)
-        keys = np.zeros(len(sa_clean), dtype=np.int64)
-        for j in range(k):
-            keys = keys * lut_base + dm[seq[sa_clean + j]]
-        lut = np.searchsorted(
-            keys, np.arange(lut_base**k + 1, dtype=np.int64)).astype(np.int64)
+        with span("sfx.keys"):
+            keys = np.zeros(len(sa_clean), dtype=np.int64)
+            for j in range(k):
+                keys = keys * lut_base + dm[seq[sa_clean + j]]
+        with span("sfx.lut"):
+            lut = np.searchsorted(
+                keys, np.arange(lut_base**k + 1, dtype=np.int64)
+            ).astype(np.int64)
         return cls(genome, k, sa_clean.astype(
             np.int32 if n < 2**31 else np.int64), lut,
             lut_base=lut_base, digit_map=digit_map)

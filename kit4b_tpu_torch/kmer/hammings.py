@@ -20,6 +20,7 @@ import torch
 from .. import dna
 from ..device import resolve
 from ..ops import seed_extend_fast as F
+from ..utils.runtime import span
 from .hammings_kernel import hammings_exhaustive_kernel
 from .hammings_mxu import hammings_exhaustive_mxu
 from .kmarkers import _fast_device_arrays
@@ -130,14 +131,18 @@ def hammings_restricted(index, K: int, *, max_hamming: int = 3,
             if not antisense:
                 use &= strand == 0
             mm = np.where(use, hmm, max_hamming + 1)
-            fold_min(chunk, mm.min(axis=1))
+            with span("restricted.fold"):
+                fold_min(chunk, mm.min(axis=1))
 
         for s in range(0, len(positions), batch):
-            pending.append(submit(s))
+            with span("restricted.submit"):
+                pending.append(submit(s))
             if len(pending) >= 2:
-                drain(*pending.popleft())
+                with span("restricted.drain"):
+                    drain(*pending.popleft())
         while pending:
-            drain(*pending.popleft())
+            with span("restricted.drain"):
+                drain(*pending.popleft())
 
     # classify windows by N content (vectorized)
     isn = (g.seq >= 4).astype(np.int64)

@@ -22,6 +22,7 @@ import torch
 from ..device import resolve
 from ..dna import BASE_EOG
 from ..kernels.minmm import NEG, minmm
+from ..utils.runtime import span
 
 OUT_BIG = np.uint16(0xFFFF)
 
@@ -75,47 +76,53 @@ def hammings_exhaustive_mxu(genome_seq: np.ndarray, K: int, *,
     antisense) stay resident on `device`; own rows go through in row_chunk
     slices (rounded to T), the last one overlapping its predecessor."""
     dev = resolve(device)
-    g = np.ascontiguousarray(genome_seq, np.uint8)
-    G = len(g)
-    nk = G - K + 1
-    out = np.full(G, OUT_BIG, np.uint16)
-    if nk <= 0:
-        return out
+    with span("hammings.sweep"):
+        g = np.ascontiguousarray(genome_seq, np.uint8)
+        G = len(g)
+        nk = G - K + 1
+        out = np.full(G, OUT_BIG, np.uint16)
+        if nk <= 0:
+            return out
 
-    blk = max(T, S)
-    Gp = _round_up(max(G, blk), blk)
-    n_spans = Gp // S
-    lo = (node * n_spans) // numnodes
-    hi = ((node + 1) * n_spans) // numnodes
-    cnt = hi - lo
-    if cnt <= 0:
-        return out
+        blk = max(T, S)
+        Gp = _round_up(max(G, blk), blk)
+        n_spans = Gp // S
+        lo = (node * n_spans) // numnodes
+        hi = ((node + 1) * n_spans) // numnodes
+        cnt = hi - lo
+        if cnt <= 0:
+            return out
 
-    ext = torch.from_numpy(np.concatenate(
-        [g, np.full(Gp + K - G, BASE_EOG, np.uint8)])).to(dev)
-    W, valid = build_w(ext, K=K, Gp=Gp, G=G, rc=False)
-    parts = [(W, True)]
-    if antisense:
-        Wrc, _ = build_w(ext, K=K, Gp=Gp, G=G, rc=True)
-        parts.append((Wrc, False))
-    R = min(_round_up(Gp, T), _round_up(row_chunk, T))
-    maxm = np.full(Gp, NEG, np.int32)
-    for rb in range(0, Gp, R):
-        if rb + R > Gp:
-            rb = Gp - R       # overlap tail chunk; max is idempotent
-        mm = None
-        for W_part, diag in parts:
-            m = minmm(W[rb:rb + R], W_part, diag=diag, span_lo=lo,
-                      span_cnt=cnt, S=S, row_base=rb)
-            mm = m if mm is None else torch.maximum(mm, m)
-        maxm[rb:rb + R] = mm.cpu().numpy()
-        if rb + R >= Gp:
-            break
-    hv = valid.cpu().numpy()
-    nvalid = int(hv.sum())
-    if nvalid == 0 or (not antisense and nvalid < 2):
-        # no partner exists; all-zero invalid/padded rows would report K
-        return out
-    h = np.where(hv[:G], np.minimum(K - maxm[:G], int(OUT_BIG)),
-                 int(OUT_BIG))
-    return h.astype(np.uint16)
+        with span("hammings.upload"):
+            ext = torch.from_numpy(np.concatenate(
+                [g, np.full(Gp + K - G, BASE_EOG, np.uint8)])).to(dev)
+        with span("hammings.onehot"):
+            W, valid = build_w(ext, K=K, Gp=Gp, G=G, rc=False)
+        parts = [(W, True)]
+        if antisense:
+            with span("hammings.onehot"):
+                Wrc, _ = build_w(ext, K=K, Gp=Gp, G=G, rc=True)
+            parts.append((Wrc, False))
+        R = min(_round_up(Gp, T), _round_up(row_chunk, T))
+        maxm = np.full(Gp, NEG, np.int32)
+        for rb in range(0, Gp, R):
+            if rb + R > Gp:
+                rb = Gp - R       # overlap tail chunk; max is idempotent
+            ms = [minmm(W[rb:rb + R], W_part, diag=diag, span_lo=lo,
+                        span_cnt=cnt, S=S, row_base=rb)
+                  for W_part, diag in parts]
+            with span("hammings.collect"):
+                mm = ms[0] if len(ms) == 1 else torch.maximum(*ms)
+                maxm[rb:rb + R] = mm.cpu().numpy()
+            if rb + R >= Gp:
+                break
+        with span("hammings.fold"):
+            hv = valid.cpu().numpy()
+            nvalid = int(hv.sum())
+            if nvalid == 0 or (not antisense and nvalid < 2):
+                # no partner exists; all-zero invalid/padded rows would
+                # report K
+                return out
+            h = np.where(hv[:G], np.minimum(K - maxm[:G], int(OUT_BIG)),
+                         int(OUT_BIG))
+            return h.astype(np.uint16)

@@ -1,18 +1,41 @@
 """Run logging and phase timers, the port's own copy of
 kit4b_tpu/utils/runtime.py (without its XLA compile cache and JSONL
-records). The port logs under the logger "kit4b_tpu_torch".
+records), and the port's trace spans. The port logs under the logger
+"kit4b_tpu_torch".
 
 The reference's observability is CDiagnostics leveled logging + CStopWatch
-(libkit4b/Diagnostics.cpp, SURVEY.md §5.5); here: stdlib logging and phase
-timers.
+(libkit4b/Diagnostics.cpp, SURVEY.md §5.5); here: stdlib logging, phase
+timers and `span`.
 """
 from __future__ import annotations
 
 import logging
 import time
-from contextlib import contextmanager
+from contextlib import contextmanager, nullcontext
+
+try:
+    from torch._C._profiler import _RecordFunctionFast
+except ImportError:
+    _RecordFunctionFast = None
 
 log = logging.getLogger("kit4b_tpu_torch")
+
+
+def span(name: str):
+    """A trace span `name` around a block of host work: a plain host
+    operator (`cpu_op`) in a `torch.profiler` trace, on the clock of the
+    device's records, so an idle gap of the device can be named by what the
+    host was doing. With no profiler running it costs well under a
+    microsecond; it records nothing else.
+
+    Not `torch.profiler.record_function`: its spans are user annotations,
+    which the profiler mirrors onto the device's timeline around each
+    launch inside them, where a trace would count them as device work.
+    Without `_RecordFunctionFast` (an older torch) the span is a null
+    context."""
+    if _RecordFunctionFast is None:
+        return nullcontext()
+    return _RecordFunctionFast(name)
 
 
 def setup_logging(level: str = "info", logfile: str | None = None) -> None:
@@ -30,7 +53,8 @@ def setup_logging(level: str = "info", logfile: str | None = None) -> None:
 
 class PhaseTimer:
     """Named phase wall-clock accounting, reported in run summaries
-    (CStopWatch parity, libkit4b/StopWatch.h)."""
+    (CStopWatch parity, libkit4b/StopWatch.h); each phase is also a
+    `span` of its name."""
 
     def __init__(self):
         self.phases: dict[str, float] = {}
@@ -41,7 +65,8 @@ class PhaseTimer:
         t = time.time()
         log.info("phase %s: start", name)
         try:
-            yield
+            with span(name):
+                yield
         finally:
             dt = time.time() - t
             self.phases[name] = self.phases.get(name, 0.0) + dt
