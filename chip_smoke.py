@@ -13,16 +13,17 @@ result:
    build of the kernels (csrc/minmm.cu, sweep.cu, take.cu, sw.cu; one nvcc
    each, all at once) with ptxas's report; none may spill, and none but
    minmm may keep a stack frame.
-2. The min-match kernel against its plain PyTorch version at the shapes
-   of phase 4's run (Cw = 128, T = 2048, S = 1024, one row chunk of 2^21
-   own rows against the node's partner spans), bit for bit, and at a
-   shorter span with diag on and off, a non-zero row_base and span_lo > 0;
-   then wide rows (K 51 and 153: Cw 256 and 768) and R = 384 (not a
-   multiple of the kernel's 256 own rows). The first case timed with CUDA
-   events, with its share of the int8 bound; then every width the kernel
-   is built for (Cw 128-768) timed on 131,072 own rows against 262,144
-   partner columns (`kit4b_tpu_torch.tools.time_minmm`), each beside its
-   bound.
+2. The min-match kernel against its plain PyTorch version, bit for bit:
+   phase 4's launch (Cw = 128, T = 2048, S = 1024, all Gp own rows of a
+   strand against the node's partner spans) on its first and its last
+   2^21 rows; then 2^21-row slices at a shorter span with diag on and off,
+   a non-zero row_base and span_lo > 0; then wide rows (K 51 and 153:
+   Cw 256 and 768) and R = 384 (not a multiple of the kernel's 256 own
+   rows). Phase 4's launch and its first 2^21 rows (kernel and plain)
+   timed with CUDA events, each with its share of the int8 bound; then
+   every width the kernel is built for (Cw 128-768) timed on 131,072 own
+   rows against 262,144 partner columns
+   (`kit4b_tpu_torch.tools.time_minmm`), each beside its bound.
 3. `hammings_exhaustive_mxu` on the card against the numpy oracle on a
    2 kbp seeded genome with N bases and an EOS, K 7 and 25, antisense on
    and off: exact equality (the four oracles run in worker processes from
@@ -32,8 +33,8 @@ result:
    S. cerevisiae R64 (12,071,326 bp), with planted near-copies and N runs.
    The .hmg is read back and checked at 2,000 random and 500 planted
    positions against a direct on-card computation of the node's partial
-   minimum from the codes. The kernel's launch counter must equal the
-   run's row chunks times its two strands.
+   minimum from the codes. The kernel's launch counter must read one
+   launch a strand, and its rows counter every padded own row a strand.
 5. The offset-sweep kernel (csrc/sweep.cu) against its plain version, bit
    for bit, on a seeded synthetic genome of R64 chromosome IV's length
    (1,531,933 bp + EOG) with planted forward and reverse-complement
@@ -324,8 +325,8 @@ result:
    SWService at D 1, 2, 4) against the JAX package's committed golden,
    every array equal. (b) `hammings -M -K 25 -n 4 -N 1` through the CLI on
    phase 4's genome, checked as phase 4 is against a direct node partial
-   with the mesh's own Gp and spans, its launches the row chunks times
-   both strands. (c) `hammings -R` through the CLI, `hammings_ring` and
+   with the mesh's own Gp and spans, its launches one a card and
+   strand. (c) `hammings -R` through the CLI, `hammings_ring` and
    `hammings_mesh` on `[cuda:0] * 4`, on phase 6's chrIV-length genome,
    each equal to phase 6's minimum at every position, with its minmm time,
    launches and share of the int8 bound. (d) The sharded kalign passes on
@@ -347,8 +348,10 @@ script prints its seconds, and
 each phase's, before the kernels line. The line before the last is a JSON
 table of the kernels, each with its bound (the least time the card could
 take: int8 tensor operations for minmm and sweep, int32 operations for
-sw_scan, bytes for take and sw_traceback; take's `ms` is device time); the
-last line is {"ok": true, "device": {"platform": "gpu", "kind": ...,
+sw_scan, bytes for take and sw_traceback; take's `ms` is device time;
+minmm's `ms` and bound are of phase 4's launch over all Gp rows, which the
+plain version is not timed at, and its `slice` gives the kernel, the plain
+version and the bound at 2^21 of those rows); the last line is {"ok": true, "device": {"platform": "gpu", "kind": ...,
 "count": ...}}.
 """
 from __future__ import annotations
@@ -372,7 +375,7 @@ import numpy as np
 
 SEED = 20240611
 K = 25
-T, S, ROW_CHUNK = 2048, 1024, 1 << 21   # the engine's defaults
+T, S = 2048, 1024       # the engine's defaults
 NUMNODES = 4           # node 1 of NUMNODES takes 1/NUMNODES of the partner spans
 R64_LENGTHS = [        # S. cerevisiae S288C R64 nuclear chromosomes I-XVI
     230_218, 813_184, 316_620, 1_531_933, 576_874, 270_161, 1_090_940,
@@ -4388,8 +4391,8 @@ def mesh_cli(torch, dev, card, tmp: Path, chroms, seq, planted) -> int:
     phase 4's genome, every visible card a shard, read back and held at
     2,000 random and 500 planted positions to a direct on-card node
     partial with the mesh's own geometry (T = S = 1024, Gp a multiple of
-    D * T); the launches must be the row chunks times both strands.
-    Returns the launches."""
+    D * T); the launches must be one a card and strand. Returns the
+    launches."""
     from kit4b_tpu_torch import cli
     from kit4b_tpu_torch.kernels.minmm import minmm
     from kit4b_tpu_torch.kmer.hammings import read_hmg
@@ -4397,7 +4400,7 @@ def mesh_cli(torch, dev, card, tmp: Path, chroms, seq, planted) -> int:
     D = torch.cuda.device_count()
     G = len(seq)
     Gp = _round_up(G, max(D * 1024, 1024))
-    R, n_spans = Gp // D, Gp // 1024
+    n_spans = Gp // 1024
     cnt = n_spans // NUMNODES
     fa, out = tmp / "r64_synthetic.fa", tmp / "mesh_node1.hmg"
     write_fasta(fa, [f"chr{r}" for r in ROMAN], chroms)
@@ -4408,15 +4411,16 @@ def mesh_cli(torch, dev, card, tmp: Path, chroms, seq, planted) -> int:
                        str(K), "-n", str(NUMNODES), "-N", "1", "-M"])
         wall = time.perf_counter() - t0
         ms = timed.ms()
-    launches = minmm.launches
-    want_launches = D * -(-R // min(R, ROW_CHUNK)) * 2
+    launches, rows = minmm.launches, minmm.rows
+    want_launches = D * 2          # one a card and strand
     print(f"CLI hammings -M on {G - 16} bp over {D} card(s) on {card}: "
           f"wall {wall} s; node 1 of {NUMNODES}: partner spans [0, {cnt}) "
           f"of {n_spans} (Gp {Gp}); minmm {ms} ms over {launches} launches "
-          f"(want {want_launches}), bound {timed.bound * 1e3} ms, "
-          f"{timed.bound * 1e3 / ms} of it")
-    if rc != 0 or launches != want_launches:
-        raise AssertionError(f"phase 20b: exit {rc}, {launches} launches")
+          f"(want {want_launches}) and {rows} own rows (want {2 * Gp}), "
+          f"bound {timed.bound * 1e3} ms, {timed.bound * 1e3 / ms} of it")
+    if rc != 0 or (launches, rows) != (want_launches, 2 * Gp):
+        raise AssertionError(f"phase 20b: exit {rc}, {launches} launches "
+                             f"over {rows} rows")
     names, dists = read_hmg(out)
     starts = np.cumsum([0] + [len(c) + 1 for c in chroms[:-1]])
     sel = []
@@ -4728,12 +4732,12 @@ def minmm_cases(torch, cases, minmm, minmm_plain) -> int:
 
 
 def reset_launches() -> None:
-    """Sets every kernel's launch counter to 0."""
+    """Sets every kernel's launch counter, and minmm's rows, to 0."""
     from kit4b_tpu_torch.kernels.minmm import minmm
     from kit4b_tpu_torch.kernels.sw import sw_scan, sw_traceback
     from kit4b_tpu_torch.kernels.sweep import sweep
     from kit4b_tpu_torch.kernels.take import take
-    minmm.launches = sweep.launches = take.launches = 0
+    minmm.launches = minmm.rows = sweep.launches = take.launches = 0
     sw_scan.launches = sw_traceback.launches = 0
 
 
@@ -4855,11 +4859,28 @@ def main() -> int:
         [seq, np.full(Gp + K - G, 0x0F, np.uint8)])).to(dev)
     W, _ = build_w(ext, K=K, Gp=Gp, G=G, rc=False)
     Wrc, _ = build_w(ext, K=K, Gp=Gp, G=G, rc=True)
-    R = min(_round_up(Gp, T), _round_up(ROW_CHUNK, T))   # the engine's chunk
+    R = 1 << 21    # own rows of the plain slices and of the other cases
     short = 184    # spans of the coverage cases: 1/64 of the genome
+    node = dict(diag=True, span_lo=0, span_cnt=cnt, S=S)   # node 1's spans
+    # the main path's launch: all Gp own rows of a strand at once (47,160
+    # blocks), held on its first and last R rows to the plain version
+    full = minmm(W, W, row_base=0, **node)
+    max_err = 0
+    for label, rb in (("head", 0), ("tail", Gp - R)):
+        want = minmm_plain(W[rb:rb + R], W, row_base=rb, **node)
+        torch.cuda.synchronize()
+        got = full[rb:rb + R]
+        err = int((got.long() - want.long()).abs().max())
+        max_err = max(max_err, err)
+        print(f"kernel vs plain [main path: one launch over Gp={Gp} rows, "
+              f"sense, node 1 spans; its {label} rows [{rb},{rb + R})]: "
+              f"span_cnt={cnt}: equal={torch.equal(got, want)} "
+              f"max_abs_err={err}")
+        if not torch.equal(got, want):
+            raise AssertionError(f"kernel differs from plain: the main "
+                                 f"path's launch, its {label} rows")
+    del full, want, got
     cases = [   # (label, own rows, partner, diag, span_lo, span_cnt, row_base)
-        ("main path: sense, rows [0,R), node 1 spans", W[:R], W, True, 0,
-         cnt, 0),
         ("sense, rows [R,2R), diag inside span_lo=R/S", W[R:2 * R], W, True,
          R // S, short, R),
         ("antisense, rows [R,2R), span_lo>0", W[R:2 * R], Wrc, False,
@@ -4869,28 +4890,37 @@ def main() -> int:
         ("sense, 384 rows [1024,1408), diag inside", W[1024:1408], W, True,
          0, 8, 1024),
     ]
-    max_err = minmm_cases(torch, cases, minmm, minmm_plain)
-    # the comparison of cases[0] above warmed both functions at this shape
-    _, wo, wp, diag, lo, n, rb = cases[0]
-    kw = dict(diag=diag, span_lo=lo, span_cnt=n, S=S, row_base=rb)
-    turns = []
-    for name in ("plain", "kernel", "kernel", "plain"):
-        fn = minmm_plain if name == "plain" else minmm
-        turns.append((name, _time_ms(torch, lambda: fn(wo, wp, **kw))))
-    k_ms = [ms for n, ms in turns if n == "kernel"]
-    p_ms = [ms for n, ms in turns if n == "plain"]
-    kernel_ms, plain_ms = sum(k_ms) / 2, sum(p_ms) / 2
+    max_err = max(max_err, minmm_cases(torch, cases, minmm, minmm_plain))
     cw = W.shape[1]
-    ops = 2 * R * cnt * S * cw
-    minmm_bound = max(ops / INT8_PEAK,
-                      (R * cw + cnt * S * cw + 4 * R) / HBM_RATE) * 1e3
-    print(f"min-match at R={R} span={cnt * S} Cw={cw} on {card}: "
-          f"kernel {k_ms} ms, plain {p_ms} ms (turns plain, kernel, "
-          f"kernel, plain); kernel {ops / kernel_ms / 1e9} int8 TOP/s, "
-          f"plain {ops / plain_ms / 1e9} TOP/s; bound {minmm_bound} ms "
-          f"(int8 operations at {INT8_PEAK / 1e12:g} TOP/s), kernel at "
-          f"{minmm_bound / kernel_ms} of it")
-    del W, Wrc, wo, wp, cases
+
+    def bound_ms(rows: int) -> float:
+        """The int8 bound of `rows` own rows against node 1's spans."""
+        return max(2 * rows * cnt * S * cw / INT8_PEAK,
+                   (rows * cw + cnt * S * cw + 4 * rows) / HBM_RATE) * 1e3
+    # the main path's launch ("full") and its first R rows, kernel and
+    # plain, in turns (the checks above ran both functions)
+    turns = []
+    for name in ("plain", "kernel", "full", "full", "kernel", "plain"):
+        fn = minmm_plain if name == "plain" else minmm
+        own = W if name == "full" else W[:R]
+        turns.append((name, _time_ms(
+            torch, lambda fn=fn, own=own: fn(own, W, row_base=0, **node))))
+    ms = {name: [t for n, t in turns if n == name]
+          for name in ("full", "kernel", "plain")}
+    full_ms, kernel_ms, plain_ms = (sum(v) / 2 for v in ms.values())
+    full_bound, minmm_bound = bound_ms(Gp), bound_ms(R)
+    ops = 2 * cnt * S * cw       # int8 operations an own row
+    print(f"min-match at the main path's R={Gp} span={cnt * S} Cw={cw} on "
+          f"{card}: kernel {ms['full']} ms, {ops * Gp / full_ms / 1e9} int8 "
+          f"TOP/s; bound {full_bound} ms (int8 operations at "
+          f"{INT8_PEAK / 1e12:g} TOP/s), kernel at {full_bound / full_ms} "
+          f"of it")
+    print(f"min-match at R={R}, the same span: kernel {ms['kernel']} ms, "
+          f"plain {ms['plain']} ms (turns plain, kernel, full, full, kernel, "
+          f"plain); kernel {ops * R / kernel_ms / 1e9} int8 TOP/s, plain "
+          f"{ops * R / plain_ms / 1e9} TOP/s; bound {minmm_bound} ms, kernel "
+          f"at {minmm_bound / kernel_ms} of it")
+    del W, Wrc, cases
     torch.cuda.empty_cache()
     # wide rows on a prefix of the genome: Cw 256 and 768, R = 384 included
     gw = WIDE_GP - 1000
@@ -4951,7 +4981,7 @@ def main() -> int:
         rc = cli.main(["hammings", "-i", str(fa), "-o", str(out), "-K",
                        str(K), "-n", str(NUMNODES), "-N", "1"])
         wall = time.perf_counter() - t0
-        launches = minmm.launches
+        launches, rows = minmm.launches, minmm.rows
         peak = torch.cuda.max_memory_allocated()
         logging.getLogger("kit4b_tpu_torch").removeHandler(phases)
         if rc != 0:
@@ -4962,11 +4992,12 @@ def main() -> int:
               f"{nk / sweep} k-mer rows/s for the node's share "
               f"({2 * nk * cnt * S / sweep} window pairs/s over both "
               f"strands); peak device memory {peak} bytes; "
-              f"kernel launches {launches}")
-        want_launches = -(-Gp // R) * 2    # row chunks x both strands
-        if launches != want_launches:
+              f"kernel launches {launches}, own rows launched {rows}")
+        # one launch a strand, each over every padded own row
+        if (launches, rows) != (2, 2 * Gp):
             raise AssertionError(f"the CLI run launched the min-match kernel "
-                                 f"{launches} times, not {want_launches}")
+                                 f"{launches} times over {rows} rows, not "
+                                 f"2 times over {2 * Gp}")
         names, dists = read_hmg(out)
 
     if names != [f"chr{r}" for r in ROMAN]:
@@ -5148,8 +5179,10 @@ def main() -> int:
          "replaces": "kit4b_tpu/kmer/hammings_mxu.py:100",
          "launches": launches + par_launches["minmm"],
          "max_abs_err": max_err,
-         "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": minmm_bound,
-         "bound_by": "operations", "library_ms": None},
+         "rows": Gp, "ms": full_ms, "plain_ms": None, "bound_ms": full_bound,
+         "bound_by": "operations", "library_ms": None,
+         "slice": {"rows": R, "ms": kernel_ms, "plain_ms": plain_ms,
+                   "bound_ms": minmm_bound}},
         {"name": "sweep", "route": "cuda",
          "source": "kit4b_tpu_torch/csrc/sweep.cu",
          "replaces": "kit4b_tpu/kmer/hammings_kernel.py:55",

@@ -25,6 +25,7 @@ from . import build
 NEG = -(1 << 20)
 TILE = 128      # granule of own rows and partner columns (csrc/minmm.cu kTile)
 MAX_CW = 768    # widest row the kernel is instantiated for (K <= 153)
+PLAIN_ROWS = 1 << 21   # own rows a call of the plain version on the CPU
 
 
 def minmm_plain(W_own: torch.Tensor, W_part: torch.Tensor, *, diag: bool,
@@ -72,10 +73,15 @@ def minmm(W_own: torch.Tensor, W_part: torch.Tensor, *, diag: bool,
           span_lo: int, span_cnt: int, S: int,
           row_base: int = 0) -> torch.Tensor:
     """[R] int32 max matches: the CUDA kernel for CUDA tensors, `minmm_plain`
-    for CPU tensors. Each kernel launch adds one to `minmm.launches`."""
+    for CPU tensors, on at most PLAIN_ROWS own rows a call, so the memory
+    the CPU takes does not grow with R. Each kernel launch adds one to
+    `minmm.launches` and its own rows to `minmm.rows`."""
     if W_own.device.type == "cpu" and W_part.device.type == "cpu":
-        return minmm_plain(W_own, W_part, diag=diag, span_lo=span_lo,
-                           span_cnt=span_cnt, S=S, row_base=row_base)
+        return torch.cat([
+            minmm_plain(W_own[r:r + PLAIN_ROWS], W_part, diag=diag,
+                        span_lo=span_lo, span_cnt=span_cnt, S=S,
+                        row_base=row_base + r)
+            for r in range(0, max(W_own.shape[0], 1), PLAIN_ROWS)])
     R, cw = W_own.shape
     col_lo, col_hi = span_lo * S, (span_lo + span_cnt) * S
     if W_own.device != W_part.device or W_own.device.type != "cuda":
@@ -109,7 +115,8 @@ def minmm(W_own: torch.Tensor, W_part: torch.Tensor, *, diag: bool,
     if err:
         raise RuntimeError(f"minmm kernel launch failed: CUDA error {err}")
     minmm.launches += 1
+    minmm.rows += R
     return out
 
 
-minmm.launches = 0
+minmm.launches = minmm.rows = 0

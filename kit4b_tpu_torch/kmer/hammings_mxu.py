@@ -21,7 +21,7 @@ import torch
 
 from ..device import resolve
 from ..dna import BASE_EOG
-from ..kernels.minmm import NEG, minmm
+from ..kernels.minmm import minmm
 from ..utils.runtime import span
 
 OUT_BIG = np.uint16(0xFFFF)
@@ -66,15 +66,17 @@ def hammings_exhaustive_mxu(genome_seq: np.ndarray, K: int, *,
                             antisense: bool = True,
                             node: int = 0, numnodes: int = 1,
                             T: int = 2048, S: int = 1024,
-                            row_chunk: int = 1 << 21,
+                            row_chunk: int | None = None,
                             device: str | torch.device = "cuda") -> np.ndarray:
     """Min window-Hamming per position (uint16 [G]; 0xFFFF where no valid
     window). Node n of N takes partner spans [n*n_spans//N, (n+1)*n_spans//N)
     of S columns; partials merge with an elementwise min (ePMmerge).
 
     The genome is padded to Gp, a multiple of max(T, S). W (and Wrc for
-    antisense) stay resident on `device`; own rows go through in row_chunk
-    slices (rounded to T), the last one overlapping its predecessor."""
+    antisense) stay resident on `device`. By default one launch a strand
+    takes all Gp own rows, so the kernel's blocks fill whole waves but for
+    the last; a row_chunk cuts them into slices of row_chunk rounded to T,
+    the last one shorter, and no row runs twice."""
     dev = resolve(device)
     with span("hammings.sweep"):
         g = np.ascontiguousarray(genome_seq, np.uint8)
@@ -103,20 +105,17 @@ def hammings_exhaustive_mxu(genome_seq: np.ndarray, K: int, *,
             with span("hammings.onehot"):
                 Wrc, _ = build_w(ext, K=K, Gp=Gp, G=G, rc=True)
             parts.append((Wrc, False))
-        R = min(_round_up(Gp, T), _round_up(row_chunk, T))
-        maxm = np.full(Gp, NEG, np.int32)
+        R = Gp if row_chunk is None else _round_up(row_chunk, T)
+        maxm = []                         # each chunk's maxima, in order
         for rb in range(0, Gp, R):
-            if rb + R > Gp:
-                rb = Gp - R       # overlap tail chunk; max is idempotent
             ms = [minmm(W[rb:rb + R], W_part, diag=diag, span_lo=lo,
                         span_cnt=cnt, S=S, row_base=rb)
                   for W_part, diag in parts]
             with span("hammings.collect"):
                 mm = ms[0] if len(ms) == 1 else torch.maximum(*ms)
-                maxm[rb:rb + R] = mm.cpu().numpy()
-            if rb + R >= Gp:
-                break
+                maxm.append(mm.cpu().numpy())
         with span("hammings.fold"):
+            maxm = maxm[0] if len(maxm) == 1 else np.concatenate(maxm)
             hv = valid.cpu().numpy()
             nvalid = int(hv.sum())
             if nvalid == 0 or (not antisense and nvalid < 2):

@@ -15,8 +15,8 @@ max(D*T, S), and the node's spans come from that Gp. The single-device
 engine (`kmer/hammings_mxu.py`) rounds to max(T, S) with T = 2048, so with
 `-n` > 1 a node's file can differ from the plain engine's node file, in
 JAX as well; the merge over every node, and any run with `-n 1`, agree.
-A device's rows go through in ROW_CHUNK slices (rounded to T), the last
-one overlapping its predecessor, as the single-device engine's do.
+A device's rows go through in one launch a strand, as the single-device
+engine's do.
 """
 from __future__ import annotations
 
@@ -24,11 +24,9 @@ import numpy as np
 import torch
 
 from ..dna import BASE_EOG
-from ..kernels.minmm import NEG, minmm
+from ..kernels.minmm import minmm
 from ..kmer.hammings_mxu import OUT_BIG, _round_up, build_w
 from .mesh import Mesh, default_devices
-
-ROW_CHUNK = 1 << 21   # own rows a launch, as the single-device engine's
 
 
 def make_hammings_mesh(mesh: Mesh, G: int, K: int, *, antisense: bool = True,
@@ -42,7 +40,6 @@ def make_hammings_mesh(mesh: Mesh, G: int, K: int, *, antisense: bool = True,
     Gp = _round_up(G, max(D * T, S))
     R = Gp // D
     cnt = Gp // S if span_cnt is None else span_cnt
-    Rc = min(R, _round_up(ROW_CHUNK, T))
 
     def fn(ext: np.ndarray) -> np.ndarray:
         out = np.empty(Gp, np.int32)
@@ -59,19 +56,11 @@ def make_hammings_mesh(mesh: Mesh, G: int, K: int, *, antisense: bool = True,
                 held[dev] = (W, parts, valid)
             W, parts, valid = held[dev]
             r0 = i * R
-            maxm = torch.full((R,), NEG, dtype=torch.int32, device=dev)
-            for rb in range(0, R, Rc):
-                if rb + Rc > R:
-                    rb = R - Rc       # overlap tail chunk; max is idempotent
-                mm = None
-                for W_part, diag in parts:
-                    m = minmm(W[r0 + rb:r0 + rb + Rc], W_part, diag=diag,
-                              span_lo=span_lo, span_cnt=cnt, S=S,
-                              row_base=r0 + rb)
-                    mm = m if mm is None else torch.maximum(mm, m)
-                maxm[rb:rb + Rc] = mm
-                if rb + Rc >= R:
-                    break
+            maxm = None
+            for W_part, diag in parts:
+                m = minmm(W[r0:r0 + R], W_part, diag=diag, span_lo=span_lo,
+                          span_cnt=cnt, S=S, row_base=r0)
+                maxm = m if maxm is None else torch.maximum(maxm, m)
             h = torch.where(valid[r0:r0 + R],
                             (K - maxm).clamp(max=int(OUT_BIG)), int(OUT_BIG))
             out[r0:r0 + R] = h.cpu().numpy()

@@ -132,8 +132,9 @@ def test_node_partials_and_merge_match_jax():
         g, 13, use_pallas=True, interpret=True, **kw))
 
 
-def test_row_chunk_overlapping_tail_matches_jax():
-    # Gp = 1280 is not a multiple of R = 512: the last chunk overlaps
+def test_row_chunk_short_tail_matches_jax():
+    # Gp = 1280 is not a multiple of R = 512: the port's last chunk runs
+    # its own 256 rows, JAX's overlaps the one before; the maxima agree
     g = _genome(1200, seed=9)
     kw = dict(T=256, S=128, row_chunk=400)
     got = tm.hammings_exhaustive_mxu(g, 25, device="cpu", **kw)
@@ -142,6 +143,62 @@ def test_row_chunk_overlapping_tail_matches_jax():
     np.testing.assert_array_equal(got, want)
     np.testing.assert_array_equal(
         got, tm.hammings_exhaustive_mxu(g, 25, device="cpu", T=256, S=128))
+
+
+def _record_minmm(monkeypatch, module):
+    """Each call of `module.minmm` as (row_base, own rows, diag), in
+    order; the calls still run."""
+    calls, real = [], module.minmm
+
+    def recorded(W_own, W_part, **kw):
+        calls.append((kw["row_base"], W_own.shape[0], kw["diag"]))
+        return real(W_own, W_part, **kw)
+    monkeypatch.setattr(module, "minmm", recorded)
+    return calls
+
+
+@pytest.mark.parametrize("anti", [True, False])
+def test_default_node_run_launches_once_a_strand(monkeypatch, anti):
+    g = _genome(1100, seed=3)         # Gp = 1280 with T = 256
+    kw = dict(antisense=anti, node=1, numnodes=3, T=256, S=128,
+              device="cpu")
+    calls = _record_minmm(monkeypatch, tm)
+    got = tm.hammings_exhaustive_mxu(g, 13, **kw)
+    assert calls == [(0, 1280, True)] + [(0, 1280, False)] * anti
+    np.testing.assert_array_equal(
+        got, tm.hammings_exhaustive_mxu(g, 13, row_chunk=256, **kw))
+
+
+@pytest.mark.parametrize("row_chunk", [1, 300, 400, 1000, 5000])
+def test_row_chunks_cover_every_row_once(monkeypatch, row_chunk):
+    g = _genome(1200, seed=9)         # Gp = 1280 with T = 256
+    kw = dict(T=256, S=128, device="cpu")
+    calls = _record_minmm(monkeypatch, tm)
+    got = tm.hammings_exhaustive_mxu(g, 25, row_chunk=row_chunk, **kw)
+    R = min(-(-row_chunk // 256) * 256, 1280)
+    for diag in (True, False):
+        spans = [(rb, n) for rb, n, d in calls if d == diag]
+        assert spans == [(rb, min(R, 1280 - rb)) for rb in range(0, 1280, R)]
+        runs = np.zeros(1280, int)
+        for rb, n in spans:
+            runs[rb:rb + n] += 1
+        assert (runs == 1).all()
+    np.testing.assert_array_equal(got, tm.hammings_exhaustive_mxu(g, 25, **kw))
+
+
+@pytest.mark.parametrize("D", [1, 2, 4])
+def test_mesh_launches_once_a_shard_and_strand(monkeypatch, D):
+    from kit4b_tpu_torch.parallel import hammings_mesh as pm
+    g = _genome(1100, seed=4)
+    calls = _record_minmm(monkeypatch, pm)
+    got = pm.hammings_mesh(g, 13, devices=[torch.device("cpu")] * D,
+                           T=256, S=128)
+    Gp = -(-1100 // max(D * 256, 128)) * max(D * 256, 128)
+    R = Gp // D
+    assert calls == [(i * R, R, diag) for i in range(D)
+                     for diag in (True, False)]
+    np.testing.assert_array_equal(got, tm.hammings_exhaustive_mxu(
+        g, 13, device="cpu", T=256, S=128))
 
 
 @pytest.mark.parametrize("case", ["G<K", "all sentinels", "one window"])

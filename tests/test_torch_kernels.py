@@ -15,9 +15,11 @@ import torch
 
 from kit4b_tpu_torch import device as devmod
 from kit4b_tpu_torch.kernels import build
+from kit4b_tpu_torch.kernels import minmm as minmm_mod
 from kit4b_tpu_torch.kernels.minmm import NEG, minmm, minmm_plain
 from kit4b_tpu_torch.kernels.sweep import BIG, sweep, sweep_plain
 from kit4b_tpu_torch.kernels.take import FILL, take, take_plain
+from kit4b_tpu_torch.kmer import hammings_mxu
 from kit4b_tpu_torch.kmer.hammings import hammings_oracle
 from kit4b_tpu_torch.kmer.hammings_mxu import build_w, hammings_exhaustive_mxu
 from test_torch_sweep_words import SPARSE, sparse_inputs
@@ -80,16 +82,31 @@ def test_wrapper_on_cpu_runs_plain_and_launches_nothing(
     W, Wrc = _w(K, False), _w(K, True)
     wp = W if diag else Wrc
     wo = W[row_base:row_base + R]
-    before = minmm.launches
+    before = minmm.launches, minmm.rows
     got = minmm(wo, wp, diag=diag, span_lo=span_lo, span_cnt=span_cnt, S=S,
                 row_base=row_base)
-    assert minmm.launches == before
+    assert (minmm.launches, minmm.rows) == before
     plain = minmm_plain(wo, wp, diag=diag, span_lo=span_lo,
                         span_cnt=span_cnt, S=S, row_base=row_base)
     assert torch.equal(got, plain)
     want = _dense_maxm(wo.numpy(), wp.numpy(), diag, span_lo, span_cnt,
                        row_base)
     np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("K,diag,span_lo,span_cnt,row_base,R", CASES)
+def test_wrapper_on_cpu_in_row_blocks_matches_dense(
+        monkeypatch, K, diag, span_lo, span_cnt, row_base, R):
+    # blocks of 128 own rows: the self pair's row_base moves with each
+    monkeypatch.setattr(minmm_mod, "PLAIN_ROWS", 128)
+    W, Wrc = _w(K, False), _w(K, True)
+    wp = W if diag else Wrc
+    wo = W[row_base:row_base + R]
+    got = minmm(wo, wp, diag=diag, span_lo=span_lo, span_cnt=span_cnt, S=S,
+                row_base=row_base)
+    assert got.dtype == torch.int32 and got.shape == (R,)
+    np.testing.assert_array_equal(got.numpy(), _dense_maxm(
+        wo.numpy(), wp.numpy(), diag, span_lo, span_cnt, row_base))
 
 
 def test_wrapper_rejects_a_tensor_off_the_cpu_and_off_cuda():
@@ -145,11 +162,11 @@ def test_kernel_matches_plain_on_card(cuda, K, diag, span_lo, span_cnt,
     W, Wrc = _w(K, False, cuda), _w(K, True, cuda)
     wp = W if diag else Wrc
     wo = W[row_base:row_base + R]
-    before = minmm.launches
+    before = minmm.launches, minmm.rows
     got = minmm(wo, wp, diag=diag, span_lo=span_lo, span_cnt=span_cnt, S=S,
                 row_base=row_base)
     torch.cuda.synchronize()
-    assert minmm.launches == before + 1
+    assert (minmm.launches, minmm.rows) == (before[0] + 1, before[1] + R)
     plain = minmm_plain(wo, wp, diag=diag, span_lo=span_lo,
                         span_cnt=span_cnt, S=S, row_base=row_base)
     assert torch.equal(got, plain)
@@ -164,6 +181,27 @@ def test_engine_on_card_matches_cpu_and_oracle(cuda, K, anti):
     np.testing.assert_array_equal(
         got, hammings_exhaustive_mxu(g, K, device="cpu", **kw))
     np.testing.assert_array_equal(got, hammings_oracle(g, K, antisense=anti))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("anti", [True, False])
+def test_node_run_on_card_launches_once_a_strand(cuda, monkeypatch, anti):
+    # Gp = 2,398,208 own rows, past 2^21, so chunks of 2^21 make two a
+    # strand; node 1 of 292 takes partner spans [8, 16)
+    g = _genome((1 << 21) + 300_001, seed=3)
+    Gp, strands = 2_398_208, 1 + anti
+    kw = dict(antisense=anti, node=1, numnodes=292, device=cuda)
+    runs = []
+    for row_chunk, launches in ((None, strands), (1 << 21, 2 * strands)):
+        before = minmm.launches, minmm.rows
+        runs.append(hammings_exhaustive_mxu(g, 25, row_chunk=row_chunk, **kw))
+        assert (minmm.launches - before[0], minmm.rows - before[1]) == \
+            (launches, Gp * strands)
+    monkeypatch.setattr(hammings_mxu, "minmm", minmm_plain)
+    plain = hammings_exhaustive_mxu(g, 25, **kw)
+    assert (plain < 0xFFFF).sum() > len(g) // 2
+    for got in runs:
+        np.testing.assert_array_equal(got, plain)
 
 
 # --- offset sweep (kernels/sweep.py) --------------------------------------
