@@ -340,6 +340,21 @@ result:
    in a gloo group (file init) share the card, each aligning its
    `host_shard` of 8b's reads; the merged shards equal 8b's SAM. (f) and
    (d)'s host work run in worker processes beside (a) and (b).
+21. The streamed node past 2^31 (`kmer/hammings_mxu.py` `HammingsNode`):
+   a seeded genome of uniform random bases at GRCh38's 24 primary
+   chromosome lengths (3,088,269,856 codes with separators), node 2849 of
+   4096 (partner columns [2,147,313,664, 2,148,067,328), 753,664 a
+   strand), N runs in the span and in the own rows, and near-copies of the
+   span of both strands planted into the two own-row blocks of 2^24 rows
+   that meet at 2^31. Each block's one-hot against each strand's partner
+   map, one minmm launch with row_base and col_base past or beside 2^31,
+   held to the plain version bit for bit on its first and last 2^17 rows
+   and on every row whose self column lies in the span; each launch timed
+   with CUDA events beside its int8 bound. Then `HammingsNode.rows` over
+   both blocks: one launch a strand and block, each own row built once,
+   equal to the fold of those launches, and at 2,000 sampled positions
+   (1,000 random, 500 self rows, 500 in the copies, which read 0 on both
+   strands) equal to a direct on-card computation from the codes.
 
 Each kernel's launch counter is set to 0 just before its path (phases 4, 6,
 7, each CLI step of 15c, 16b's gapped `blitz` and each run of 20b-e) and
@@ -350,8 +365,9 @@ table of the kernels, each with its bound (the least time the card could
 take: int8 tensor operations for minmm and sweep, int32 operations for
 sw_scan, bytes for take and sw_traceback; take's `ms` is device time;
 minmm's `ms` and bound are of phase 4's launch over all Gp rows, which the
-plain version is not timed at, and its `slice` gives the kernel, the plain
-version and the bound at 2^21 of those rows); the last line is {"ok": true, "device": {"platform": "gpu", "kind": ...,
+plain version is not timed at, its `slice` gives the kernel, the plain
+version and the bound at 2^21 of those rows, and its `node` phase 21's
+launches of 2^24 own rows against a node's span past 2^31); the last line is {"ok": true, "device": {"platform": "gpu", "kind": ...,
 "count": ...}}.
 """
 from __future__ import annotations
@@ -402,6 +418,17 @@ INT8_PEAK = 1979e12    # H100 SXM dense int8 tensor operations per second
 HBM_RATE = 3.35e12     # H100 SXM device memory bytes per second
 WIDE_K = (51, 153)     # Cw 256 and 768, the widths past the main path's 128
 WIDE_GP = 262_144      # windows of the wide-row cases: a prefix of the genome
+GRCH38_LENGTHS = [     # H. sapiens GRCh38.p14 chromosomes 1-22, X, Y
+    248_956_422, 242_193_529, 198_295_559, 190_214_555, 181_538_259,
+    170_805_979, 159_345_973, 145_138_636, 138_394_717, 133_797_422,
+    135_086_622, 133_275_309, 114_364_328, 107_043_718, 101_991_189,
+    90_338_345, 83_257_441, 80_373_285, 58_617_616, 64_444_167, 46_709_983,
+    50_818_468, 156_040_895, 57_227_415]
+BIG_NODE, BIG_NUMNODES = 2849, 4096    # phase 21: hammings -n 4096 -N 2849
+BIG_TOP = 1 << 31      # the two own-row blocks of phase 21 meet here
+BIG_BLOCK = 1 << 24    # own rows a block, the engine's default
+BIG_SLICE = 1 << 17    # own rows of each plain head and tail slice
+BIG_COPY, BIG_SUBS = 3_000, 4   # planted near-copies of the node's span
 ROMAN = ["I", "II", "III", "IV", "V", "VI", "VII", "VIII", "IX", "X", "XI",
          "XII", "XIII", "XIV", "XV", "XVI"]
 
@@ -4711,6 +4738,180 @@ def parallel_full(torch, dev, card, tmp: Path, cfg1: Path, chroms, seq,
     return launches
 
 
+# --- the streamed node past 2^31 (phase 21) --------------------------------
+
+def synthetic_grch38(rng) -> np.ndarray:
+    """Uniform random bases at GRCH38_LENGTHS, an EOS after each
+    chromosome but the last, which ends in EOG."""
+    G = sum(GRCH38_LENGTHS) + len(GRCH38_LENGTHS)
+    seq = np.frombuffer(rng.bytes(G), np.uint8) & 3
+    seq[np.cumsum(np.array(GRCH38_LENGTHS, np.int64) + 1) - 1] = 7
+    seq[-1] = 0x0F
+    return seq
+
+
+def plant_span_copies(rng, seq, c0: int, c1: int, blocks) -> list:
+    """N runs of 100 bp, two in the span and two in each block, then into
+    each block a near-copy of the span's sense columns and one of its
+    reverse-complement columns (BIG_COPY bases, BIG_SUBS substitutions),
+    in place, clear of the span's text on either strand, of separators and
+    of each other. Returns [(start, sense)]."""
+    G, L = len(seq), BIG_COPY
+    for a, b in [(c0, c1)] + list(blocks):
+        for d in rng.integers(a, b - 100, 2):
+            seq[d:d + 100] = 4
+    taken = [(c0 - L, c1 + K), (G - c1 - K - L, G - c0)]
+    planted = []
+    for a, b in blocks:
+        for sense in (True, False):
+            while True:
+                s = int(rng.integers(c0, c1 - L))
+                seg = seq[s:s + L].copy() if sense \
+                    else _revcomp(seq[G - s - L:G - s])
+                d = int(rng.integers(a, b - L))
+                if (seg < 4).all() and (seq[d:d + L] < 4).all() and not any(
+                        d < e and lo < d + L for lo, e in taken):
+                    break
+            pick = rng.choice(L, BIG_SUBS, replace=False)
+            seg[pick] = (seg[pick] + rng.integers(1, 4, BIG_SUBS)) % 4
+            seq[d:d + L] = seg
+            taken.append((d, d + L))
+            planted.append((d, sense))
+    return planted
+
+
+def node_past_2_31(torch, dev, card) -> dict:
+    """Phase 21: node BIG_NODE of BIG_NUMNODES on a GRCh38-length genome,
+    the two own-row blocks that meet at BIG_TOP, through the kernel and
+    through `HammingsNode.rows`. Returns minmm's `node` entry of the
+    kernels line."""
+    from kit4b_tpu_torch.kernels.minmm import NEG, minmm, minmm_plain
+    from kit4b_tpu_torch.kmer.hammings_mxu import HammingsNode, onehot_windows
+    rng = np.random.default_rng(SEED + 21)
+    t0 = time.perf_counter()
+    seq = synthetic_grch38(rng)
+    G = len(seq)
+    Gp = _round_up(G, max(T, S))
+    lo = (BIG_NODE - 1) * (Gp // S) // BIG_NUMNODES
+    c0, c1 = lo * S, BIG_NODE * (Gp // S) // BIG_NUMNODES * S
+    blocks = [(BIG_TOP - BIG_BLOCK, BIG_TOP), (BIG_TOP, BIG_TOP + BIG_BLOCK)]
+    if not blocks[0][0] < c0 < BIG_TOP < c1 <= blocks[1][1]:
+        raise AssertionError(f"phase 21: the span [{c0}, {c1}) does not "
+                             f"straddle {BIG_TOP} inside {blocks}")
+    planted = plant_span_copies(rng, seq, c0, c1, blocks)
+    t_make = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    eng = HammingsNode(seq, K, antisense=True, node=BIG_NODE - 1,
+                       numnodes=BIG_NUMNODES, device=dev)
+    torch.cuda.synchronize()
+    t_prep = time.perf_counter() - t0
+    if (eng.Gp, eng.c0, eng.c1, len(eng.parts)) != (Gp, c0, c1, 2):
+        raise AssertionError(f"phase 21: the engine's Gp {eng.Gp}, span "
+                             f"[{eng.c0}, {eng.c1}), {len(eng.parts)} "
+                             f"strands; expected {Gp}, [{c0}, {c1}), 2")
+    print(f"node past 2^31: G={G} (genome made in {t_make} s), node "
+          f"{BIG_NODE} of {BIG_NUMNODES}: partner columns [{c0}, {c1}) of "
+          f"both strands, own-row blocks {blocks}; engine prepared in "
+          f"{t_prep} s")
+    cols, cw = c1 - c0, eng.C
+    bound = max(2 * BIG_BLOCK * cols * cw / INT8_PEAK,
+                (BIG_BLOCK * cw + cols * cw + 4 * BIG_BLOCK) / HBM_RATE) * 1e3
+    reset_launches()
+    max_err, launch_ms, folded = 0, [], []
+    for r0, r1 in blocks:
+        W, valid = onehot_windows(eng.ext[r0:r1 + K - 1], r0, BIG_BLOCK, K=K,
+                                  G=G)
+        best = None
+        for Wp, diag in eng.parts:
+            kw = dict(diag=diag, span_lo=eng.lo, span_cnt=eng.cnt, S=S,
+                      row_base=r0, col_base=c0)
+            got, ms = _with_ms(torch, lambda: minmm(W, Wp, **kw))
+            launch_ms.append(ms)
+            for label, a, b in (
+                    ("head", 0, BIG_SLICE),
+                    ("rows whose self column is in the span",
+                     max(c0, r0) - r0, min(c1, r1) - r0),
+                    ("tail", BIG_BLOCK - BIG_SLICE, BIG_BLOCK)):
+                want = minmm_plain(W[a:b], Wp, **dict(kw, row_base=r0 + a))
+                err = int((got[a:b].long() - want.long()).abs().max())
+                max_err = max(max_err, err)
+                ok = torch.equal(got[a:b], want)
+                print(f"kernel vs plain [node past 2^31, "
+                      f"{'sense' if diag else 'antisense'}, row_base={r0}, "
+                      f"col_base={c0}, {label}: rows [{r0 + a}, {r0 + b})]: "
+                      f"equal={ok} max_abs_err={err}")
+                if not ok:
+                    raise AssertionError(f"phase 21: kernel differs from "
+                                         f"plain at row_base {r0}, {label}")
+            best = got if best is None else torch.maximum(best, got)
+        folded.append(np.minimum(K - torch.where(valid, best, NEG).cpu()
+                                 .numpy(), 0xFFFF).astype(np.uint16))
+        del W, valid, best, got, want
+    torch.cuda.empty_cache()
+    direct_launches = minmm.launches
+    print(f"min-match at R={BIG_BLOCK} span={cols} Cw={cw}, bases past 2^31, "
+          f"on {card}: kernel {launch_ms} ms (sense, antisense of each "
+          f"block); bound {bound} ms (int8 operations at "
+          f"{INT8_PEAK / 1e12:g} TOP/s), kernel at "
+          f"{bound * len(launch_ms) / sum(launch_ms)} of it")
+    # the engine's own path over both blocks
+    reset_launches()
+    HammingsNode.own_rows_built = 0
+    outs, rows_s = [], []
+    for r0, r1 in blocks:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs.append(eng.rows(r0, r1))
+        rows_s.append(time.perf_counter() - t0)
+    counts = (minmm.launches, minmm.rows, HammingsNode.own_rows_built)
+    peak = torch.cuda.max_memory_allocated()
+    print(f"HammingsNode.rows over {len(blocks)} blocks: {rows_s} s "
+          f"({BIG_BLOCK / (sum(rows_s) / len(rows_s))} own rows/s); "
+          f"launches, rows launched, own rows built {counts}; peak device "
+          f"memory {peak} bytes")
+    if counts != (2 * len(blocks), 2 * len(blocks) * BIG_BLOCK,
+                  len(blocks) * BIG_BLOCK):
+        raise AssertionError(f"phase 21: launches, rows, own rows built "
+                             f"{counts}: not one launch a strand and block "
+                             f"with each own row built once")
+    for (r0, _), o, f in zip(blocks, outs, folded):
+        if not np.array_equal(o, f):
+            raise AssertionError(f"phase 21: rows({r0}) differs from the "
+                                 f"fold of its launches at "
+                                 f"{np.nonzero(o != f)[0][:5] + r0}")
+    del eng
+    torch.cuda.empty_cache()
+    a = blocks[0][0]
+    pos = np.concatenate(
+        [rng.integers(a, blocks[-1][1], 1000), rng.integers(c0, c1, 500)]
+        + [d + rng.integers(0, BIG_COPY - K + 1, 125) for d, _ in planted])
+    got = np.concatenate(outs)[pos - a]
+    want = direct_node_min(torch, dev, seq, pos, c0, c1, Gp)
+    bad = np.nonzero(got != want)[0]
+    copies = got[1500:].reshape(len(planted), 125)
+    strand_min = {s: int(copies[[p[1] == s for p in planted]].min())
+                  for s in (True, False)}
+    print(f"node past 2^31 sample check: {len(pos)} positions (1,000 "
+          f"random, 500 self rows, {len(planted)} x 125 in the copies), "
+          f"{len(bad)} differ; random median "
+          f"{float(np.median(got[:1000]))}, copies' least distance by "
+          f"strand (sense, antisense) {strand_min}")
+    if len(bad):
+        raise AssertionError(f"phase 21: the node differs from the direct "
+                             f"computation at {pos[bad[:5]]}: "
+                             f"{got[bad[:5]]} vs {want[bad[:5]]}")
+    if any(strand_min.values()):
+        raise AssertionError(f"phase 21: a strand's copies read no "
+                             f"distance 0: {strand_min}")
+    return {"rows": BIG_BLOCK, "cols": cols, "row_base": [b[0] for b in
+                                                           blocks],
+            "col_base": c0, "launches": direct_launches + counts[0],
+            "max_abs_err": max_err, "ms": launch_ms, "bound_ms": bound,
+            "rows_s": rows_s}
+
+
 def minmm_cases(torch, cases, minmm, minmm_plain) -> int:
     """Phase 2: the min-match kernel against its plain version, bit for
     bit, on (label, own rows, partner, diag, span_lo, span_cnt, row_base)
@@ -5167,6 +5368,10 @@ def main() -> int:
     print(f"phase 20's launches of the parallel paths' runs (20b-e): "
           f"{par_launches}")
     done("20")
+
+    # --- 21. the streamed node past 2^31 -----------------------------------
+    big = node_past_2_31(torch, dev, card)
+    done("21")
     if "jax" in sys.modules or "kit4b_tpu" in sys.modules:
         raise AssertionError("jax or the JAX package kit4b_tpu was imported")
 
@@ -5177,12 +5382,13 @@ def main() -> int:
         {"name": "minmm", "route": "cuda",
          "source": "kit4b_tpu_torch/csrc/minmm.cu",
          "replaces": "kit4b_tpu/kmer/hammings_mxu.py:100",
-         "launches": launches + par_launches["minmm"],
-         "max_abs_err": max_err,
+         "launches": launches + par_launches["minmm"] + big["launches"],
+         "max_abs_err": max(max_err, big["max_abs_err"]),
          "rows": Gp, "ms": full_ms, "plain_ms": None, "bound_ms": full_bound,
          "bound_by": "operations", "library_ms": None,
          "slice": {"rows": R, "ms": kernel_ms, "plain_ms": plain_ms,
-                   "bound_ms": minmm_bound}},
+                   "bound_ms": minmm_bound},
+         "node": big},
         {"name": "sweep", "route": "cuda",
          "source": "kit4b_tpu_torch/csrc/sweep.cu",
          "replaces": "kit4b_tpu/kmer/hammings_kernel.py:55",

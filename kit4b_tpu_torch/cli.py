@@ -432,6 +432,10 @@ def cmd_hammings(args) -> int:
     t = PhaseTimer()
     with t.phase("load genome"):
         g = Genome.load(infiles[0])
+    if not args.outfile.endswith((".csv", ".npy")) \
+            and not hammings.hmg_fits(g.lengths, args.kmerlen):
+        raise SystemExit(f"hammings: {args.outfile}: a .hmg holds at most "
+                         f"2 GiB; write .npy or .csv for this genome")
     with t.phase("sweep"):
         if args.restricted:
             # the lexicographic (SA-IS) index: restricted mode cuts

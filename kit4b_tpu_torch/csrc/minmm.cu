@@ -5,10 +5,14 @@
 // row of width Cw = 128*ceil(5K/128), so the number of matching bases of two
 // windows is the int8 dot product of their rows. For each own row i:
 //
-//   out[i] = max over partner columns j in [col_lo, col_hi) of W_own[i] . W_part[j]
+//   out[i] = max over partner rows j in [col_lo, col_hi) of W_own[i] . W_part[j]
 //
-// where the self pair (row_base + i == j) counts as -2^20 when `diag` is set.
-// The caller turns it into the minimum Hamming distance K - out[i].
+// where the self pair (row_base + i == col_base + j: own row i is global row
+// row_base + i, partner row j global column col_base + j) counts as -2^20
+// when `diag` is set. The bases are 64-bit, so a launch may sit anywhere in a
+// genome past 2^31; the rows of one launch and of one partner map stay below
+// 2^31 (TMA coordinates are 32-bit). The caller turns the result into the
+// minimum Hamming distance K - out[i].
 //
 // What bounds it: the int8 tensor rate. A launch does 2*R*span*Cw operations
 // (R own rows, span partner columns) on R*Cw + span*Cw input bytes; the
@@ -168,7 +172,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 minmm_kernel(const __grid_constant__ CUtensorMap own_map,
              const __grid_constant__ CUtensorMap part_map, int rows,
              int col_lo, int ntiles, int diag, long long row_base,
-             int* __restrict__ out) {
+             long long col_base, int* __restrict__ out) {
   using C = Cfg<CH>;
   extern __shared__ uint8_t smem_raw[];
   // the swizzle atoms must sit on 1024-byte boundaries
@@ -222,6 +226,7 @@ minmm_kernel(const __grid_constant__ CUtensorMap own_map,
     const int lrow = cons * C::kGroups * 64 + warp * 16 + (lane >> 2);  // row in the block
     const long long grow = row_base + row0 + lrow;                      // global own row
     const long long block_lo = row_base + row0;
+    const long long col0 = col_base + col_lo;                           // global column of tile 0
     int acc[C::kGroups][64];
     int best[C::kGroups][2];
 #pragma unroll
@@ -254,7 +259,7 @@ minmm_kernel(const __grid_constant__ CUtensorMap own_map,
         if (++stage == C::kStages) { stage = 0; phase ^= 1; }
       }
       // fold the tile into the running maxima
-      const long long c0 = (long long)col_lo + (long long)t * kTile;
+      const long long c0 = col0 + (long long)t * kTile;
       if (diag && c0 < block_lo + C::kOwnRows && block_lo < c0 + kTile) {
         // the tile holds self pairs: row == column counts as kNeg
 #pragma unroll
@@ -336,7 +341,8 @@ CUresult make_map(CUtensorMap* map, const void* base, long long nrows, int cw,
 template <int CH>
 int launch(const void* w_own, const void* w_part, long long rows,
            long long part_rows, long long col_lo, long long col_hi, int diag,
-           long long row_base, void* out, cudaStream_t stream) {
+           long long row_base, long long col_base, void* out,
+           cudaStream_t stream) {
   using C = Cfg<CH>;
   CUtensorMap own_map, part_map;
   if (make_map(&own_map, w_own, rows, CH * kChunk, C::kOwnRows) != CUDA_SUCCESS ||
@@ -348,7 +354,8 @@ int launch(const void* w_own, const void* w_part, long long rows,
   const unsigned grid = (unsigned)((rows + C::kOwnRows - 1) / C::kOwnRows);
   minmm_kernel<CH><<<grid, kThreads, C::kSmem, stream>>>(
       own_map, part_map, (int)rows, (int)col_lo,
-      (int)((col_hi - col_lo) / kTile), diag, row_base, static_cast<int*>(out));
+      (int)((col_hi - col_lo) / kTile), diag, row_base, col_base,
+      static_cast<int*>(out));
   return (int)cudaGetLastError();
 }
 
@@ -356,13 +363,17 @@ int launch(const void* w_own, const void* w_part, long long rows,
 
 // Launches the kernel on `stream` of `device`. rows and col_hi - col_lo are
 // multiples of 128, cw is a multiple of 128 of at most 768, W_part holds
-// part_rows rows, and all pointers are device pointers (the Python wrapper
-// checks). Returns the CUDA error of the launch, 0 on success;
-// cudaErrorInvalidValue where a tensor map cannot be built.
+// part_rows rows, 0 <= col_lo <= col_hi <= part_rows, and all pointers are
+// device pointers (the Python wrapper checks). row_base and col_base are the
+// global row of W_own's first row and the global column of W_part's first
+// row. Returns the CUDA error of the launch, 0 on success;
+// cudaErrorInvalidValue where a tensor map cannot be built or a launch's rows
+// or the partner map's rows reach 2^31.
 extern "C" int minmm_launch(int device, const void* w_own, const void* w_part,
                             long long rows, long long part_rows, int cw,
                             long long col_lo, long long col_hi, int diag,
-                            long long row_base, void* out, void* stream) {
+                            long long row_base, long long col_base, void* out,
+                            void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (encode_tiled() == nullptr) return (int)cudaErrorNotSupported;
@@ -370,12 +381,12 @@ extern "C" int minmm_launch(int device, const void* w_own, const void* w_part,
     return (int)cudaErrorInvalidValue;   // TMA coordinates are 32-bit
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (cw / kChunk) {
-    case 1: return launch<1>(w_own, w_part, rows, part_rows, col_lo, col_hi, diag, row_base, out, s);
-    case 2: return launch<2>(w_own, w_part, rows, part_rows, col_lo, col_hi, diag, row_base, out, s);
-    case 3: return launch<3>(w_own, w_part, rows, part_rows, col_lo, col_hi, diag, row_base, out, s);
-    case 4: return launch<4>(w_own, w_part, rows, part_rows, col_lo, col_hi, diag, row_base, out, s);
-    case 5: return launch<5>(w_own, w_part, rows, part_rows, col_lo, col_hi, diag, row_base, out, s);
-    case 6: return launch<6>(w_own, w_part, rows, part_rows, col_lo, col_hi, diag, row_base, out, s);
+    case 1: return launch<1>(w_own, w_part, rows, part_rows, col_lo, col_hi, diag, row_base, col_base, out, s);
+    case 2: return launch<2>(w_own, w_part, rows, part_rows, col_lo, col_hi, diag, row_base, col_base, out, s);
+    case 3: return launch<3>(w_own, w_part, rows, part_rows, col_lo, col_hi, diag, row_base, col_base, out, s);
+    case 4: return launch<4>(w_own, w_part, rows, part_rows, col_lo, col_hi, diag, row_base, col_base, out, s);
+    case 5: return launch<5>(w_own, w_part, rows, part_rows, col_lo, col_hi, diag, row_base, col_base, out, s);
+    case 6: return launch<6>(w_own, w_part, rows, part_rows, col_lo, col_hi, diag, row_base, col_base, out, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -9,9 +9,11 @@ JAX package and which the on-card smoke test holds the kernel against.
 Both compute, for every own row i of `W_own` (global row `row_base + i`),
 
     max over partner columns j in [span_lo*S, (span_lo+span_cnt)*S)
-        of the int8 dot product W_own[i] . W_part[j]
+        of the int8 dot product W_own[i] . W_part[j - col_base]
 
 with the self pair (row_base + i == j) counted as NEG when `diag` is set.
+Row p of `W_part` is global column `col_base + p`, so the partner map may
+hold one node's span alone; both bases are 64-bit and may pass 2^31.
 """
 from __future__ import annotations
 
@@ -30,7 +32,7 @@ PLAIN_ROWS = 1 << 21   # own rows a call of the plain version on the CPU
 
 def minmm_plain(W_own: torch.Tensor, W_part: torch.Tensor, *, diag: bool,
                 span_lo: int, span_cnt: int, S: int,
-                row_base: int = 0) -> torch.Tensor:
+                row_base: int = 0, col_base: int = 0) -> torch.Tensor:
     """Plain PyTorch version of the kernel ([R] int32); its spec is
     `_minmm_xla` of kit4b_tpu/kmer/hammings_mxu.py.
 
@@ -46,7 +48,7 @@ def minmm_plain(W_own: torch.Tensor, W_part: torch.Tensor, *, diag: bool,
     best = torch.full((R,), NEG, dtype=torch.int32, device=W_own.device)
     for s in range(span_lo, span_lo + span_cnt):
         c0 = s * S
-        m = wo @ W_part[c0:c0 + S].to(dt).T
+        m = wo @ W_part[c0 - col_base:c0 - col_base + S].to(dt).T
         i_lo, i_hi = max(c0 - row_base, 0), min(c0 + S - row_base, R)
         if diag and i_lo < i_hi:   # own row i is partner column row_base + i
             i = torch.arange(i_lo, i_hi, device=m.device)
@@ -58,35 +60,46 @@ def minmm_plain(W_own: torch.Tensor, W_part: torch.Tensor, *, diag: bool,
     return best
 
 
-@functools.cache
-def _lib() -> ctypes.CDLL:
-    lib = build.load("minmm")
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """`lib` with the C signature of csrc/minmm.cu's `minmm_launch`."""
     lib.minmm_launch.argtypes = [
         ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
         ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong, ctypes.c_longlong,
-        ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p]
+        ctypes.c_int, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_void_p,
+        ctypes.c_void_p]
     lib.minmm_launch.restype = ctypes.c_int
     return lib
 
 
+@functools.cache
+def _lib() -> ctypes.CDLL:
+    return bind(build.load("minmm"))
+
+
+def _on_one_card(W_own: torch.Tensor, W_part: torch.Tensor) -> None:
+    if W_own.device != W_part.device or W_own.device.type != "cuda":
+        raise ValueError(f"minmm: W_own on {W_own.device}, W_part on "
+                         f"{W_part.device}; both must be on one CUDA device")
+
+
 def minmm(W_own: torch.Tensor, W_part: torch.Tensor, *, diag: bool,
           span_lo: int, span_cnt: int, S: int,
-          row_base: int = 0) -> torch.Tensor:
+          row_base: int = 0, col_base: int = 0) -> torch.Tensor:
     """[R] int32 max matches: the CUDA kernel for CUDA tensors, `minmm_plain`
     for CPU tensors, on at most PLAIN_ROWS own rows a call, so the memory
     the CPU takes does not grow with R. Each kernel launch adds one to
-    `minmm.launches` and its own rows to `minmm.rows`."""
+    `minmm.launches` and its own rows to `minmm.rows`. The kernel takes
+    fewer than 2^31 own rows and partner rows a launch, at any bases."""
     if W_own.device.type == "cpu" and W_part.device.type == "cpu":
         return torch.cat([
             minmm_plain(W_own[r:r + PLAIN_ROWS], W_part, diag=diag,
                         span_lo=span_lo, span_cnt=span_cnt, S=S,
-                        row_base=row_base + r)
+                        row_base=row_base + r, col_base=col_base)
             for r in range(0, max(W_own.shape[0], 1), PLAIN_ROWS)])
     R, cw = W_own.shape
-    col_lo, col_hi = span_lo * S, (span_lo + span_cnt) * S
-    if W_own.device != W_part.device or W_own.device.type != "cuda":
-        raise ValueError(f"minmm: W_own on {W_own.device}, W_part on "
-                         f"{W_part.device}; both must be on one CUDA device")
+    # the span's rows of W_part
+    col_lo, col_hi = span_lo * S - col_base, (span_lo + span_cnt) * S - col_base
+    _on_one_card(W_own, W_part)
     if W_own.dtype != torch.int8 or W_part.dtype != torch.int8:
         raise ValueError("minmm: W_own and W_part must be int8")
     if not (W_own.is_contiguous() and W_part.is_contiguous()):
@@ -100,9 +113,13 @@ def minmm(W_own: torch.Tensor, W_part: torch.Tensor, *, diag: bool,
     if R % TILE or (col_hi - col_lo) % TILE:
         raise ValueError(f"minmm: rows {R} and span width {col_hi - col_lo} "
                          f"must be multiples of {TILE}")
-    if span_lo < 0 or col_hi > W_part.shape[0]:
-        raise ValueError(f"minmm: partner columns [{col_lo}, {col_hi}) "
-                         f"outside W_part's {W_part.shape[0]} rows")
+    if col_lo < 0 or col_hi > W_part.shape[0]:
+        raise ValueError(f"minmm: partner columns [{col_lo + col_base}, "
+                         f"{col_hi + col_base}) outside W_part's "
+                         f"{W_part.shape[0]} rows from column {col_base}")
+    if R >= 1 << 31 or W_part.shape[0] >= 1 << 31:
+        raise ValueError(f"minmm: {R} own rows and {W_part.shape[0]} "
+                         f"partner rows must each be below 2^31")
     out = torch.empty(R, dtype=torch.int32, device=W_own.device)
     if R == 0:
         return out
@@ -110,7 +127,7 @@ def minmm(W_own: torch.Tensor, W_part: torch.Tensor, *, diag: bool,
         else torch.cuda.current_device()
     err = _lib().minmm_launch(
         dev, W_own.data_ptr(), W_part.data_ptr(), R, W_part.shape[0], cw,
-        col_lo, col_hi, int(diag), row_base, out.data_ptr(),
+        col_lo, col_hi, int(diag), row_base, col_base, out.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream)
     if err:
         raise RuntimeError(f"minmm kernel launch failed: CUDA error {err}")

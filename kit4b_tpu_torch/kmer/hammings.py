@@ -300,6 +300,16 @@ _HMG_HDR_LEN = 4 + 4 + 4 + 2 + 4 * _HMG_MAX_CHROMS
 _HMG_CHROM_FIXED = 4 + _HMG_NAME_LEN + 4
 
 
+def hmg_fits(lengths, K: int) -> bool:
+    """Whether the .hmg of chromosomes of these lengths fits the format,
+    whose header holds the file's length in 32 signed bits (tsHHamHdr Len)
+    and each chromosome's offset in 32 unsigned bits: GRCh38 at K 25 needs
+    6.18 GB and does not."""
+    n = _HMG_HDR_LEN + sum(_HMG_CHROM_FIXED + 2 * max(0, int(ln) - K + 1)
+                           for ln in lengths)
+    return n < 1 << 31
+
+
 def write_hmg(path, names, dists) -> None:
     """Reference quick-load binary Hamming file (tsHHamHdr/tsHHamChrom,
     ngskit4b/hammings.cpp:78-94, packed layout, Version 1) — byte

@@ -12,7 +12,11 @@ on the card, its plain PyTorch version on the CPU.
 Windows that hold a sentinel (any code >= 5) get an all-zero row, which
 never under-reports a true minimum, and their outputs are masked to 0xFFFF.
 Node partitioning (hammings -n/-N) splits the partner spans; per-node
-results merge with an elementwise min.
+results merge with an elementwise min. A node (`HammingsNode`) holds the
+genome's codes and the one-hot windows of its own partner span, of both
+strands, on the card, and streams its own rows in blocks, each block's
+one-hot built from the codes, used and freed: a genome past 2^31 positions
+(GRCh38's 3.09 Gbp) needs 3.09 GB resident, not its 395 GB of windows.
 """
 from __future__ import annotations
 
@@ -21,14 +25,56 @@ import torch
 
 from ..device import resolve
 from ..dna import BASE_EOG
-from ..kernels.minmm import minmm
+from ..kernels.minmm import NEG, TILE, minmm
 from ..utils.runtime import span
 
 OUT_BIG = np.uint16(0xFFFF)
+BLOCK_ROWS = 1 << 24      # own rows a block by default
 
 
 def _round_up(x: int, m: int) -> int:
     return -(-x // m) * m
+
+
+def window_valid(codes: torch.Tensor, j0: int, n: int, *, K: int,
+                 G: int) -> torch.Tensor:
+    """[n] bool: the window at j0 + i holds no sentinel (code >= 5) in
+    codes[i:i + K] and starts before G - K + 1."""
+    sent = (codes[:n + K - 1] >= 5).to(torch.int32)
+    cs = torch.cat([torch.zeros(1, dtype=torch.int32, device=codes.device),
+                    torch.cumsum(sent, 0, dtype=torch.int32)])
+    valid = cs[K:K + n] == cs[:n]
+    valid[max(0, min(n, G - K + 1 - j0)):] = False
+    return valid
+
+
+def onehot_windows(codes: torch.Tensor, j0: int, n: int, *, K: int,
+                   G: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """One-hot rows [n, 128*ceil(5K/128)] int8 and validity [n] bool of the
+    windows starting at j0 .. j0 + n - 1 of one strand, from that strand's
+    codes at positions [j0, j0 + n + K - 1). Channel c is base position
+    c // 5 and code c % 5; channels >= 5K are zero. A window is valid when
+    it holds no sentinel (code >= 5) and starts before G - K + 1; invalid
+    rows are zero. One base position at a time, so no [n, K] array is
+    made."""
+    C = _round_up(5 * K, 128)
+    valid = window_valid(codes, j0, n, K=K, G=G)
+    W = torch.zeros((n, C), dtype=torch.int8, device=codes.device)
+    Wk = W[:, :5 * K].view(n, K, 5)
+    base = torch.arange(5, dtype=codes.dtype, device=codes.device)
+    for k in range(K):
+        Wk[:, k] = (codes[k:k + n, None] == base) & valid[:, None]
+    return W, valid
+
+
+def rc_codes(ext: torch.Tensor, G: int, a: int, b: int) -> torch.Tensor:
+    """Codes at positions [a, b) of the reverse complement of the genome
+    ext[:G] (codes < 4 complemented, the genome reversed), EOG past G."""
+    lo, hi = max(G - b, 0), max(G - a, 0)
+    seg = ext[lo:hi].flip(0)
+    seg = torch.where(seg < 4, 3 - seg, seg)
+    return torch.cat([seg, torch.full((b - a - len(seg),), BASE_EOG,
+                                      dtype=seg.dtype, device=seg.device)])
 
 
 def build_w(ext: torch.Tensor, *, K: int, Gp: int, G: int,
@@ -37,29 +83,98 @@ def build_w(ext: torch.Tensor, *, K: int, Gp: int, G: int,
     validity [Gp] bool, on ext's device; port of `_build_w` and
     `_window_onehot_dev`. ext is the genome's uint8 codes padded with EOG to
     Gp + K. With rc the windows are those of the reverse complement (codes
-    < 4 complemented, the genome reversed, padded with EOG again).
+    < 4 complemented, the genome reversed, padded with EOG again); see
+    `onehot_windows`."""
+    codes = rc_codes(ext, G, 0, Gp + K) if rc else ext
+    return onehot_windows(codes, 0, Gp, K=K, G=G)
 
-    Channel c is base position c // 5 and code c % 5; channels >= 5K are
-    zero. A window is valid when it holds no sentinel and starts before
-    G - K + 1; invalid rows are zero."""
-    if rc:
-        grev = ext[:G].flip(0)
-        c = torch.where(grev < 4, 3 - grev, grev)
-        ext = torch.cat([c, torch.full((Gp + K - G,), BASE_EOG, dtype=c.dtype,
-                                       device=c.device)])
-    C = _round_up(5 * K, 128)
-    win = torch.stack([ext[k:k + Gp] for k in range(K)], dim=1)   # [Gp, K]
-    codes = torch.arange(5, dtype=ext.dtype, device=ext.device)
-    sent = (ext >= 5).to(torch.int32)
-    cs = torch.cat([torch.zeros(1, dtype=torch.int32, device=ext.device),
-                    torch.cumsum(sent, 0, dtype=torch.int32)])
-    nbad = cs[K:K + Gp] - cs[:Gp]
-    idx = torch.arange(Gp, device=ext.device)
-    valid = (nbad == 0) & (idx < G - K + 1)
-    W = torch.zeros((Gp, C), dtype=torch.int8, device=ext.device)
-    W[:, :5 * K] = (win[:, :, None] == codes).reshape(Gp, 5 * K) \
-        & valid[:, None]
-    return W, valid
+
+class HammingsNode:
+    """One node of the exhaustive engine (hammings -n N -N node+1),
+    prepared once: the genome's codes on the device, and the one-hot
+    windows of the node's partner columns [c0, c1) (spans [lo, hi) of S
+    columns of the genome padded to Gp, a multiple of max(T, S)), of the
+    sense strand and, with antisense, of the reverse complement. `rows`
+    then gives the distances of any own-row range, block by block.
+
+    Counters, beside `minmm.launches` and `minmm.rows`: `own_rows_built`
+    (own one-hot rows built, padding to 128 included) and
+    `partner_cols_built` (partner one-hot rows built, both strands)."""
+
+    own_rows_built = partner_cols_built = 0
+
+    def __init__(self, genome_seq: np.ndarray, K: int, *,
+                 antisense: bool = True, node: int = 0, numnodes: int = 1,
+                 T: int = 2048, S: int = 1024,
+                 device: str | torch.device = "cuda"):
+        self.dev = resolve(device)
+        g = np.ascontiguousarray(genome_seq, np.uint8)
+        G = len(g)
+        self.G, self.K, self.S = G, K, S
+        blk = max(T, S)
+        self.Gp = _round_up(max(G, blk), blk)
+        n_spans = self.Gp // S
+        self.lo = (node * n_spans) // numnodes
+        self.cnt = ((node + 1) * n_spans) // numnodes - self.lo
+        self.c0, self.c1 = self.lo * S, (self.lo + self.cnt) * S
+        self.C = _round_up(5 * K, 128)
+        self.parts: list[tuple[torch.Tensor, bool]] = []
+        if G - K + 1 <= 0 or self.cnt <= 0:
+            return
+        with span("hammings.upload"):
+            # own rows of a block are padded to TILE, reading up to
+            # Gp + TILE + K - 1 codes
+            self.ext = torch.full((self.Gp + TILE + K,), BASE_EOG,
+                                  dtype=torch.uint8, device=self.dev)
+            self.ext[:G].copy_(torch.from_numpy(g))
+        if not antisense and self._n_valid(2) < 2:
+            return      # no partner exists; zero rows would report K
+        with span("hammings.partners"):
+            n = self.c1 - self.c0
+            e = self.c1 + K - 1
+            self.parts.append((onehot_windows(
+                self.ext[self.c0:e], self.c0, n, K=K, G=G)[0], True))
+            if antisense:
+                self.parts.append((onehot_windows(
+                    rc_codes(self.ext, G, self.c0, e), self.c0, n, K=K,
+                    G=G)[0], False))
+            HammingsNode.partner_cols_built += n * len(self.parts)
+
+    def _n_valid(self, cap: int) -> int:
+        """Valid sense windows, counted up to `cap`, in blocks."""
+        n, K = 0, self.K
+        for a in range(0, self.G - K + 1, BLOCK_ROWS):
+            b = min(a + BLOCK_ROWS, self.G - K + 1)
+            n += int(window_valid(self.ext[a:b + K - 1], a, b - a, K=K,
+                                  G=self.G).sum())
+            if n >= cap:
+                break
+        return n
+
+    def rows(self, r0: int, r1: int) -> np.ndarray:
+        """uint16 [r1 - r0] least distances of own rows [r0, r1), 0 <= r0
+        <= r1 <= Gp (0xFFFF where the window does not count), by one
+        minmm launch a strand over the block padded to TILE rows."""
+        if not self.parts or r1 <= r0:
+            return np.full(r1 - r0, OUT_BIG, np.uint16)
+        K = self.K
+        with span("hammings.rows"):
+            n = _round_up(r1 - r0, TILE)
+            with span("hammings.onehot"):
+                W, valid = onehot_windows(self.ext[r0:r0 + n + K - 1], r0, n,
+                                          K=K, G=self.G)
+                HammingsNode.own_rows_built += n
+            ms = [minmm(W, Wp, diag=diag, span_lo=self.lo,
+                        span_cnt=self.cnt, S=self.S, row_base=r0,
+                        col_base=self.c0) for Wp, diag in self.parts]
+            del W
+            with span("hammings.collect"):
+                mm = ms[0] if len(ms) == 1 else torch.maximum(*ms)
+                # an invalid row reads NEG: K - NEG folds to 0xFFFF
+                maxm = torch.where(valid, mm, NEG)[:r1 - r0].cpu().numpy()
+            with span("hammings.fold"):
+                np.minimum(K - maxm, int(OUT_BIG), out=maxm)
+                return maxm.astype(np.uint16)
 
 
 def hammings_exhaustive_mxu(genome_seq: np.ndarray, K: int, *,
@@ -72,56 +187,24 @@ def hammings_exhaustive_mxu(genome_seq: np.ndarray, K: int, *,
     window). Node n of N takes partner spans [n*n_spans//N, (n+1)*n_spans//N)
     of S columns; partials merge with an elementwise min (ePMmerge).
 
-    The genome is padded to Gp, a multiple of max(T, S). W (and Wrc for
-    antisense) stay resident on `device`. By default one launch a strand
-    takes all Gp own rows, so the kernel's blocks fill whole waves but for
-    the last; a row_chunk cuts them into slices of row_chunk rounded to T,
-    the last one shorter, and no row runs twice."""
-    dev = resolve(device)
+    A `HammingsNode` over the genome padded to Gp, a multiple of max(T, S),
+    then its own rows in blocks: by default all Gp rows at once up to
+    BLOCK_ROWS (one launch a strand, the kernel's blocks filling whole
+    waves but for the last), else blocks of BLOCK_ROWS; a row_chunk cuts
+    blocks of row_chunk rounded to T, the last one shorter, and no row runs
+    twice."""
     with span("hammings.sweep"):
-        g = np.ascontiguousarray(genome_seq, np.uint8)
-        G = len(g)
-        nk = G - K + 1
+        G = len(genome_seq)
         out = np.full(G, OUT_BIG, np.uint16)
-        if nk <= 0:
+        if G - K + 1 <= 0:
             return out
-
-        blk = max(T, S)
-        Gp = _round_up(max(G, blk), blk)
-        n_spans = Gp // S
-        lo = (node * n_spans) // numnodes
-        hi = ((node + 1) * n_spans) // numnodes
-        cnt = hi - lo
-        if cnt <= 0:
+        eng = HammingsNode(genome_seq, K, antisense=antisense, node=node,
+                           numnodes=numnodes, T=T, S=S, device=device)
+        if not eng.parts:
             return out
-
-        with span("hammings.upload"):
-            ext = torch.from_numpy(np.concatenate(
-                [g, np.full(Gp + K - G, BASE_EOG, np.uint8)])).to(dev)
-        with span("hammings.onehot"):
-            W, valid = build_w(ext, K=K, Gp=Gp, G=G, rc=False)
-        parts = [(W, True)]
-        if antisense:
-            with span("hammings.onehot"):
-                Wrc, _ = build_w(ext, K=K, Gp=Gp, G=G, rc=True)
-            parts.append((Wrc, False))
-        R = Gp if row_chunk is None else _round_up(row_chunk, T)
-        maxm = []                         # each chunk's maxima, in order
-        for rb in range(0, Gp, R):
-            ms = [minmm(W[rb:rb + R], W_part, diag=diag, span_lo=lo,
-                        span_cnt=cnt, S=S, row_base=rb)
-                  for W_part, diag in parts]
-            with span("hammings.collect"):
-                mm = ms[0] if len(ms) == 1 else torch.maximum(*ms)
-                maxm.append(mm.cpu().numpy())
-        with span("hammings.fold"):
-            maxm = maxm[0] if len(maxm) == 1 else np.concatenate(maxm)
-            hv = valid.cpu().numpy()
-            nvalid = int(hv.sum())
-            if nvalid == 0 or (not antisense and nvalid < 2):
-                # no partner exists; all-zero invalid/padded rows would
-                # report K
-                return out
-            h = np.where(hv[:G], np.minimum(K - maxm[:G], int(OUT_BIG)),
-                         int(OUT_BIG))
-            return h.astype(np.uint16)
+        R = min(eng.Gp, BLOCK_ROWS) if row_chunk is None \
+            else _round_up(row_chunk, T)
+        for r0 in range(0, eng.Gp, R):
+            d = eng.rows(r0, min(r0 + R, eng.Gp))
+            out[r0:r0 + R] = d[:max(G - r0, 0)]
+        return out

@@ -204,6 +204,29 @@ def test_node_run_on_card_launches_once_a_strand(cuda, monkeypatch, anti):
         np.testing.assert_array_equal(got, plain)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("diag", [True, False])
+def test_kernel_at_bases_past_2_31_matches_plain_on_card(cuda, diag):
+    # own rows [B + 256, B + 4352) against a partner map of 2,048 columns
+    # based at B + 1,024 (16 spans of 128, the last 10 selected): the self
+    # pairs lie inside, where row and column pass 2^31 + 2^11
+    B = (1 << 31) + 3 * S
+    ext = np.concatenate([_genome(5000, 4), np.full(145, 15, np.uint8)])
+    W = build_w(torch.from_numpy(ext).to(cuda), K=25, Gp=5120, G=5000,
+                rc=not diag)[0]
+    wo, wp = W[256:4352], W[1024:3072]
+    kw = dict(diag=diag, span_lo=(B + 1024) // S + 6, span_cnt=10, S=S)
+    got = minmm(wo, wp, row_base=B + 256, col_base=B + 1024, **kw)
+    torch.cuda.synchronize()
+    plain = minmm_plain(wo, wp, row_base=B + 256, col_base=B + 1024, **kw)
+    assert torch.equal(got, plain)
+    # the same pairs at bases below 2^31
+    low = dict(kw, span_lo=1024 // S + 6)
+    assert torch.equal(got, minmm(wo, wp, row_base=256, col_base=1024, **low))
+    if diag:   # own rows whose self column is selected read their masks
+        assert (got[1792 - 256:3072 - 256] < 25).all()
+
+
 # --- offset sweep (kernels/sweep.py) --------------------------------------
 
 # (G, K, G_valid, partner: "self" or its length, d_lo, d_hi) at CPU sizes:

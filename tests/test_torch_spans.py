@@ -109,10 +109,15 @@ def _genome(n, seed):
     return g
 
 
+ROW_BLOCK = ["hammings.rows", "hammings.onehot", "hammings.collect",
+             "hammings.fold"]
+
+
 @pytest.mark.parametrize("antisense", [True, False])
 def test_hammings_sweep_spans(antisense):
-    """One `hammings.sweep` around one `upload`, an `onehot` a strand, a
-    `collect` a row chunk and one `fold`, in that order."""
+    """One `hammings.sweep` around one `upload`, one `partners` (the node's
+    partner one-hot of both strands), then a `rows` a row block holding its
+    `onehot`, `collect` and `fold`, in that order."""
     g = _genome(3000, 5)
     kw = dict(antisense=antisense, node=1, numnodes=2, T=256, S=128,
               row_chunk=512, device="cpu")
@@ -123,25 +128,28 @@ def test_hammings_sweep_spans(antisense):
     spans = _named(evs, "hammings.")
     (sweep,) = _named(spans, "hammings.sweep")
     chunks = -(-3072 // 512)
-    names = ["hammings.upload"] + ["hammings.onehot"] * (1 + antisense) \
-        + ["hammings.collect"] * chunks + ["hammings.fold"]
+    names = ["hammings.upload", "hammings.partners"] + ROW_BLOCK * chunks
     inner = [e for e in spans if e is not sweep]
     assert [e[0] for e in inner] == names
     assert all(e[3] == "cpu_op" and _inside(e, sweep) for e in spans)
-    assert all(a[2] <= b[1] for a, b in zip(inner, inner[1:]))
+    blocks = _named(inner, "hammings.rows")
+    outer = [e for e in inner if e[0] != "hammings.rows"]
+    assert all(a[2] <= b[1] for a, b in zip(outer, outer[1:]))
+    assert all(a[2] <= b[1] for a, b in zip(blocks, blocks[1:]))
+    for i, blk in enumerate(blocks):
+        assert all(_inside(e, blk) for e in inner[3 + 4 * i:6 + 4 * i])
 
 
 def test_hammings_exhaustive_has_one_sweep():
     """The benchmark's entry, `hammings_exhaustive`, on the default chunk:
-    one sweep, one row chunk."""
+    one sweep, one row block."""
     g = _genome(2000, 6)
     want = hammings.hammings_exhaustive(g, 11, device="cpu")
     got, evs = _profiled(
         lambda: hammings.hammings_exhaustive(g, 11, device="cpu"))
     np.testing.assert_array_equal(got, want)
     assert [e[0] for e in _named(evs, "hammings.")] == [
-        "hammings.sweep", "hammings.upload", "hammings.onehot",
-        "hammings.onehot", "hammings.collect", "hammings.fold"]
+        "hammings.sweep", "hammings.upload", "hammings.partners"] + ROW_BLOCK
 
 
 @pytest.fixture(scope="module")
