@@ -351,8 +351,9 @@ result:
    held to the plain version bit for bit on its first and last 2^17 rows
    and on every row whose self column lies in the span; each launch timed
    with CUDA events beside its int8 bound. Then `HammingsNode.rows` over
-   both blocks: one launch a strand and block, each own row built once,
-   equal to the fold of those launches, and at 2,000 sampled positions
+   both blocks: one launch a strand and block, each own row built once
+   and collected to the host in 2 bytes, equal to the host's fold of
+   those launches, and at 2,000 sampled positions
    (1,000 random, 500 self rows, 500 in the copies, which read 0 on both
    strands) equal to a direct on-card computation from the codes.
 
@@ -4858,24 +4859,26 @@ def node_past_2_31(torch, dev, card) -> dict:
           f"{bound * len(launch_ms) / sum(launch_ms)} of it")
     # the engine's own path over both blocks
     reset_launches()
-    HammingsNode.own_rows_built = 0
+    HammingsNode.own_rows_built = HammingsNode.bytes_collected = 0
     outs, rows_s = [], []
     for r0, r1 in blocks:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         outs.append(eng.rows(r0, r1))
         rows_s.append(time.perf_counter() - t0)
-    counts = (minmm.launches, minmm.rows, HammingsNode.own_rows_built)
+    counts = (minmm.launches, minmm.rows, HammingsNode.own_rows_built,
+              HammingsNode.bytes_collected)
     peak = torch.cuda.max_memory_allocated()
     print(f"HammingsNode.rows over {len(blocks)} blocks: {rows_s} s "
           f"({BIG_BLOCK / (sum(rows_s) / len(rows_s))} own rows/s); "
-          f"launches, rows launched, own rows built {counts}; peak device "
-          f"memory {peak} bytes")
+          f"launches, rows launched, own rows built, bytes collected "
+          f"{counts}; peak device memory {peak} bytes")
     if counts != (2 * len(blocks), 2 * len(blocks) * BIG_BLOCK,
-                  len(blocks) * BIG_BLOCK):
-        raise AssertionError(f"phase 21: launches, rows, own rows built "
-                             f"{counts}: not one launch a strand and block "
-                             f"with each own row built once")
+                  len(blocks) * BIG_BLOCK, 2 * len(blocks) * BIG_BLOCK):
+        raise AssertionError(f"phase 21: launches, rows, own rows built, "
+                             f"bytes collected {counts}: not one launch a "
+                             f"strand and block with each own row built "
+                             f"once and collected in 2 bytes")
     for (r0, _), o, f in zip(blocks, outs, folded):
         if not np.array_equal(o, f):
             raise AssertionError(f"phase 21: rows({r0}) differs from the "

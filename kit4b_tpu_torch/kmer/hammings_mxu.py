@@ -17,6 +17,9 @@ genome's codes and the one-hot windows of its own partner span, of both
 strands, on the card, and streams its own rows in blocks, each block's
 one-hot built from the codes, used and freed: a genome past 2^31 positions
 (GRCh38's 3.09 Gbp) needs 3.09 GB resident, not its 395 GB of windows.
+A block's maxima become uint16 distances on the device (K - max, capped
+at 0xFFFF; 0xFFFF for invalid rows) and reach the host in one copy of 2
+bytes a row through a pinned buffer the node keeps.
 """
 from __future__ import annotations
 
@@ -25,7 +28,7 @@ import torch
 
 from ..device import resolve
 from ..dna import BASE_EOG
-from ..kernels.minmm import NEG, TILE, minmm
+from ..kernels.minmm import TILE, minmm
 from ..utils.runtime import span
 
 OUT_BIG = np.uint16(0xFFFF)
@@ -98,10 +101,12 @@ class HammingsNode:
     then gives the distances of any own-row range, block by block.
 
     Counters, beside `minmm.launches` and `minmm.rows`: `own_rows_built`
-    (own one-hot rows built, padding to 128 included) and
-    `partner_cols_built` (partner one-hot rows built, both strands)."""
+    (own one-hot rows built, padding to 128 included),
+    `partner_cols_built` (partner one-hot rows built, both strands) and
+    `bytes_collected` (bytes of distances `rows` returns to the host, 2 a
+    row)."""
 
-    own_rows_built = partner_cols_built = 0
+    own_rows_built = partner_cols_built = bytes_collected = 0
 
     def __init__(self, genome_seq: np.ndarray, K: int, *,
                  antisense: bool = True, node: int = 0, numnodes: int = 1,
@@ -119,6 +124,7 @@ class HammingsNode:
         self.c0, self.c1 = self.lo * S, (self.lo + self.cnt) * S
         self.C = _round_up(5 * K, 128)
         self.parts: list[tuple[torch.Tensor, bool]] = []
+        self.pinned: torch.Tensor | None = None
         if G - K + 1 <= 0 or self.cnt <= 0:
             return
         with span("hammings.upload"):
@@ -154,12 +160,14 @@ class HammingsNode:
     def rows(self, r0: int, r1: int) -> np.ndarray:
         """uint16 [r1 - r0] least distances of own rows [r0, r1), 0 <= r0
         <= r1 <= Gp (0xFFFF where the window does not count), by one
-        minmm launch a strand over the block padded to TILE rows."""
+        minmm launch a strand over the block padded to TILE rows. The
+        distances are made on the device and copied to the host once; the
+        array returned is the caller's own."""
         if not self.parts or r1 <= r0:
             return np.full(r1 - r0, OUT_BIG, np.uint16)
-        K = self.K
+        K, m = self.K, r1 - r0
         with span("hammings.rows"):
-            n = _round_up(r1 - r0, TILE)
+            n = _round_up(m, TILE)
             with span("hammings.onehot"):
                 W, valid = onehot_windows(self.ext[r0:r0 + n + K - 1], r0, n,
                                           K=K, G=self.G)
@@ -170,11 +178,28 @@ class HammingsNode:
             del W
             with span("hammings.collect"):
                 mm = ms[0] if len(ms) == 1 else torch.maximum(*ms)
-                # an invalid row reads NEG: K - NEG folds to 0xFFFF
-                maxm = torch.where(valid, mm, NEG)[:r1 - r0].cpu().numpy()
-            with span("hammings.fold"):
-                np.minimum(K - maxm, int(OUT_BIG), out=maxm)
-                return maxm.astype(np.uint16)
+                with span("hammings.fold"):
+                    # a row whose every pair is masked reads NEG: K - NEG caps
+                    # to 0xFFFF
+                    d = torch.where(valid[:m], (K - mm[:m]).clamp_(
+                        max=int(OUT_BIG)), int(OUT_BIG)).to(torch.uint16)
+                HammingsNode.bytes_collected += 2 * m
+                return self._to_host(d)
+
+    def _to_host(self, d: torch.Tensor) -> np.ndarray:
+        """A new numpy array of the distances d; off the CPU through the
+        node's pinned buffer, sized at first for min(Gp, BLOCK_ROWS) rows
+        and grown when a larger block comes."""
+        if d.device.type == "cpu":
+            return d.numpy()
+        if self.pinned is None or len(self.pinned) < len(d):
+            self.pinned = None
+            self.pinned = torch.empty(max(len(d), min(self.Gp, BLOCK_ROWS)),
+                                      dtype=torch.uint16, pin_memory=True)
+        buf = self.pinned[:len(d)]
+        buf.copy_(d, non_blocking=True)
+        torch.cuda.current_stream(d.device).synchronize()
+        return buf.numpy().copy()
 
 
 def hammings_exhaustive_mxu(genome_seq: np.ndarray, K: int, *,

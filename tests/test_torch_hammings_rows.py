@@ -2,9 +2,11 @@
 (kit4b_tpu_torch/kmer/hammings_mxu.py `HammingsNode`): own rows in blocks
 against the partner one-hot of the node's span alone, on the CPU (the
 plain version of the max-match kernel), held to the benchmark's plain
-reference (kbench/reference/hammings_rows.py) and to the numpy oracle;
-the kernel wrapper's 64-bit row and column bases, on the plain version
-and through a stub of the kernel's library."""
+reference (kbench/reference/hammings_rows.py), to the numpy oracle and
+to the JAX package's engine (its kernel in interpret mode); the fold of a
+block's maxima into distances, byte for byte; the kernel wrapper's 64-bit
+row and column bases, on the plain version and through a stub of the
+kernel's library."""
 import ctypes
 import shutil
 import subprocess
@@ -15,6 +17,7 @@ import pytest
 import torch
 
 from kbench.reference import hammings_rows as ref
+from kit4b_tpu.kmer import hammings_mxu as jm
 from kit4b_tpu_torch import dna
 from kit4b_tpu_torch.kernels import minmm as minmm_mod
 from kit4b_tpu_torch.kmer import hammings_mxu as hm
@@ -114,6 +117,84 @@ def test_each_own_row_is_built_once_a_pass(monkeypatch):
     eng = hm.HammingsNode(G_NODE, 25, node=2, numnodes=8, device="cpu", **TS)
     eng.rows(100, 301)          # 201 rows: one tile of padding past them
     assert hm.HammingsNode.own_rows_built == 8960 + 256
+
+
+@pytest.mark.parametrize("K,anti", [(13, True), (13, False), (25, True),
+                                    (25, False)])
+def test_block_equals_the_jax_engine(K, anti):
+    """A block of node 2 of 6 from row 300 past G: a separator, N runs,
+    the windows from G - K + 1 on and the rows past G read 0xFFFF; the
+    block is padded past r1 = 750 to 512 rows, beyond Gp = 768."""
+    kw = dict(antisense=anti, node=2, numnodes=6, **TS)
+    want = jm.hammings_exhaustive_mxu(G_SMALL, K, use_pallas=True,
+                                      interpret=True, **kw)
+    eng = hm.HammingsNode(G_SMALL, K, device="cpu", **kw)
+    got = eng.rows(300, 750)
+    assert got.dtype == np.uint16 and len(got) == 450
+    np.testing.assert_array_equal(got[:433], want[300:])
+    assert (got[len(G_SMALL) - K + 1 - 300:] == 0xFFFF).all()
+    assert got[201] == 0xFFFF and (got < K).sum() > 300    # the separator
+
+
+def _lone_partner_genome(K):
+    """G = 256 + K bases: with T 256 and S 128, node 2 of 4 takes columns
+    [256, 384), where only window 256 is valid. Window 100 equals it;
+    window 0 differs from it at every base."""
+    g = np.random.default_rng(K).integers(0, 4, 256 + K).astype(np.uint8)
+    g[100:100 + K] = g[256:]
+    g[:K] = (g[256:] + 1) % 4
+    return g
+
+
+def test_fold_of_a_lone_partner_and_of_the_self_pair():
+    """One strand: row 100 copies the span's one valid window (0), row 0
+    differs from it at every base (K), and row 256, the window itself, has
+    no partner but its masked self pair and the span's invalid windows,
+    whose all-zero rows match nothing: K, as in the JAX package; every
+    row from G - K + 1 on is 0xFFFF."""
+    K = 13
+    g = _lone_partner_genome(K)
+    eng = hm.HammingsNode(g, K, antisense=False, node=2, numnodes=4,
+                          device="cpu", **TS)
+    assert (eng.c0, eng.c1, eng.Gp) == (256, 384, 512)
+    got = eng.rows(0, 512)
+    assert (got[0], got[100], got[256]) == (K, 0, K)
+    assert (got[257:] == 0xFFFF).all() and (got[:256] <= K).all()
+    np.testing.assert_array_equal(got[:len(g)], jm.hammings_exhaustive_mxu(
+        g, K, antisense=False, node=2, numnodes=4, use_pallas=True,
+        interpret=True, **TS))
+
+
+def test_fold_caps_a_row_whose_every_partner_is_masked(monkeypatch):
+    """A row whose maximum reads NEG on both strands folds to 0xFFFF, on
+    one strand to the other's distance; invalid rows stay 0xFFFF."""
+    def masked(W_own, W_part, **kw):
+        mm = minmm_mod.minmm_plain(W_own, W_part, **kw)
+        mm[:40 if kw["diag"] else 20] = minmm_mod.NEG
+        return mm
+    eng = hm.HammingsNode(G_NODE, 25, node=4, numnodes=9, device="cpu", **TS)
+    want = eng.rows(8800, 8960)
+    monkeypatch.setattr(hm, "minmm", masked)
+    got = eng.rows(8800, 8960)
+    assert (got[:20] == 0xFFFF).all() and (want[:20] < 25).all()
+    assert ((want[20:40] <= got[20:40]) & (got[20:40] <= 25)).all()
+    np.testing.assert_array_equal(got[40:], want[40:])
+    assert (want[8903 - 25 + 1 - 8800:] == 0xFFFF).all()
+
+
+def test_rows_returns_a_new_array_and_counts_2_bytes_a_row(monkeypatch):
+    monkeypatch.setattr(hm.HammingsNode, "bytes_collected", 0)
+    eng = hm.HammingsNode(G_NODE, 25, node=4, numnodes=9, device="cpu", **TS)
+    first = eng.rows(3900, 5077)
+    kept = first.copy()
+    assert hm.HammingsNode.bytes_collected == 2 * 1177
+    second = eng.rows(3901, 5078)
+    assert hm.HammingsNode.bytes_collected == 2 * 1177 * 2
+    np.testing.assert_array_equal(first, kept)
+    np.testing.assert_array_equal(second[:-1], kept[1:])
+    assert not np.shares_memory(first, second)
+    eng.rows(7, 7)          # an empty range collects nothing
+    assert hm.HammingsNode.bytes_collected == 2 * 1177 * 2
 
 
 def _w(g, K, rc):

@@ -205,6 +205,33 @@ def test_node_run_on_card_launches_once_a_strand(cuda, monkeypatch, anti):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("anti", [True, False])
+def test_node_rows_on_card_equal_cpu_and_are_the_callers_own(cuda,
+                                                            monkeypatch,
+                                                            anti):
+    # node 3 of 10 of Gp = 5,120 takes columns [1536, 2048); the block
+    # [1400, 5077) crosses them, the separator, and the rows from
+    # G - K + 1 = 4,976 and past G, which read 0xFFFF
+    g = _genome(5000, seed=8)
+    kw = dict(antisense=anti, node=3, numnodes=10, T=256, S=128)
+    monkeypatch.setattr(hammings_mxu.HammingsNode, "bytes_collected", 0)
+    eng = hammings_mxu.HammingsNode(g, 25, device=cuda, **kw)
+    got = eng.rows(1400, 5077)
+    assert hammings_mxu.HammingsNode.bytes_collected == 2 * 3677
+    want = hammings_mxu.HammingsNode(g, 25, device="cpu", **kw).rows(1400,
+                                                                     5077)
+    assert got.dtype == np.uint16 and got.shape == (3677,)
+    np.testing.assert_array_equal(got, want)
+    assert (got[4976 - 1400:] == 0xFFFF).all() and got[1666 - 1400] == 0xFFFF
+    assert (got < 25).sum() > 3000
+    kept = got.copy()
+    eng.rows(0, 1000)
+    np.testing.assert_array_equal(got, kept)
+    assert eng.pinned.is_pinned() and eng.pinned.dtype == torch.uint16
+    assert not np.shares_memory(got, eng.pinned.numpy())
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("diag", [True, False])
 def test_kernel_at_bases_past_2_31_matches_plain_on_card(cuda, diag):
     # own rows [B + 256, B + 4352) against a partner map of 2,048 columns

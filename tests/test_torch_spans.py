@@ -117,7 +117,7 @@ ROW_BLOCK = ["hammings.rows", "hammings.onehot", "hammings.collect",
 def test_hammings_sweep_spans(antisense):
     """One `hammings.sweep` around one `upload`, one `partners` (the node's
     partner one-hot of both strands), then a `rows` a row block holding its
-    `onehot`, `collect` and `fold`, in that order."""
+    `onehot`, then its `collect`, which holds the `fold`."""
     g = _genome(3000, 5)
     kw = dict(antisense=antisense, node=1, numnodes=2, T=256, S=128,
               row_chunk=512, device="cpu")
@@ -133,11 +133,14 @@ def test_hammings_sweep_spans(antisense):
     assert [e[0] for e in inner] == names
     assert all(e[3] == "cpu_op" and _inside(e, sweep) for e in spans)
     blocks = _named(inner, "hammings.rows")
-    outer = [e for e in inner if e[0] != "hammings.rows"]
+    outer = [e for e in inner if e[0] not in ("hammings.rows",
+                                               "hammings.fold")]
     assert all(a[2] <= b[1] for a, b in zip(outer, outer[1:]))
     assert all(a[2] <= b[1] for a, b in zip(blocks, blocks[1:]))
     for i, blk in enumerate(blocks):
-        assert all(_inside(e, blk) for e in inner[3 + 4 * i:6 + 4 * i])
+        onehot, collect, fold = inner[3 + 4 * i:6 + 4 * i]
+        assert all(_inside(e, blk) for e in (onehot, collect, fold))
+        assert _inside(fold, collect)
 
 
 def test_hammings_exhaustive_has_one_sweep():
