@@ -323,13 +323,17 @@ result:
    and v5 and the position-sharded SE, PE and deep PE kalign passes at the
    JAX package's test shapes, hammings_mesh and hammings_ring at D 1-8,
    SWService at D 1, 2, 4) against the JAX package's committed golden,
-   every array equal. (b) `hammings -M -K 25 -n 4 -N 1` through the CLI on
-   phase 4's genome, checked as phase 4 is against a direct node partial
-   with the mesh's own Gp and spans, its launches one a card and
-   strand. (c) `hammings -R` through the CLI, `hammings_ring` and
-   `hammings_mesh` on `[cuda:0] * 4`, on phase 6's chrIV-length genome,
-   each equal to phase 6's minimum at every position, with its minmm time,
-   launches and share of the int8 bound. (d) The sharded kalign passes on
+   every array equal. Both hammings engines run their shards on the node
+   engine (`HammingsNode`): `-M`'s shard i is its rows [i*R, (i+1)*R),
+   `-R` the minimum of those shards over the partner nodes j of D. (b)
+   `hammings -M -K 25 -n 4 -N 1` through the CLI on phase 4's genome,
+   checked as phase 4 is against a direct node partial with the mesh's
+   own Gp and spans, its launches one a card and strand. (c) `hammings -R`
+   through the CLI, `hammings_ring` and `hammings_mesh` on `[cuda:0] * 4`,
+   on phase 6's chrIV-length genome, each equal to phase 6's minimum at
+   every position, with its minmm time, launches (2 D^2 for the CLI's
+   ring over D cards, 32 for the ring and 8 for the mesh on `[cuda:0] *
+   4`) and share of the int8 bound. (d) The sharded kalign passes on
    config #1's genome and 8b's first 98,304 reads: v5 and v4 key-sharded
    at (dp, tp) (1, 4), (2, 2), (4, 1), v3 at (2, 2), position-sharded SE
    at (1, 4) and (2, 2), each equal in every field to the single-device
@@ -4382,11 +4386,12 @@ class _TimedMinmm:
         self.events, self.ops, self.bound = [], 0, 0.0
 
     def __call__(self, W_own, W_part, *, diag, span_lo, span_cnt, S,
-                 row_base=0):
+                 row_base=0, col_base=0):
         ev = [self.torch.cuda.Event(enable_timing=True) for _ in range(2)]
         ev[0].record()
         out = self.fn(W_own, W_part, diag=diag, span_lo=span_lo,
-                      span_cnt=span_cnt, S=S, row_base=row_base)
+                      span_cnt=span_cnt, S=S, row_base=row_base,
+                      col_base=col_base)
         ev[1].record()
         self.events.append(ev)
         R, cw = W_own.shape
@@ -4403,15 +4408,16 @@ class _TimedMinmm:
 
 @contextlib.contextmanager
 def _timed_minmm(torch):
-    """minmm timed in the two parallel engines' modules."""
-    from kit4b_tpu_torch.parallel import hammings_mesh, hammings_ring
-    real = hammings_mesh.minmm
+    """minmm timed in the node engine's module, on which both parallel
+    engines run their shards."""
+    from kit4b_tpu_torch.kmer import hammings_mxu
+    real = hammings_mxu.minmm
     timed = _TimedMinmm(torch, real)
-    hammings_mesh.minmm = hammings_ring.minmm = timed
+    hammings_mxu.minmm = timed
     try:
         yield timed
     finally:
-        hammings_mesh.minmm = hammings_ring.minmm = real
+        hammings_mxu.minmm = real
 
 
 def mesh_cli(torch, dev, card, tmp: Path, chroms, seq, planted) -> int:
@@ -4476,8 +4482,9 @@ def ring_mesh_chr4(torch, dev, card, tmp: Path, chr4, chr4_min) -> int:
     """Phase 20c: on phase 5-6's chrIV-length genome, K 25, both strands,
     `hammings -R` through the CLI, `hammings_ring` and `hammings_mesh` on
     `[cuda:0] * 4`, each equal at every position to phase 6's whole-genome
-    minimum; each run's minmm time, launches and share of the int8 bound.
-    Returns the launches."""
+    minimum; each run's minmm time, launches (2 D^2 for the CLI's ring
+    over the D visible cards, 32 for the ring and 8 for the mesh) and
+    share of the int8 bound. Returns the launches."""
     from kit4b_tpu_torch import cli
     from kit4b_tpu_torch.kernels.minmm import minmm
     from kit4b_tpu_torch.parallel.hammings_mesh import hammings_mesh
@@ -4492,13 +4499,14 @@ def ring_mesh_chr4(torch, dev, card, tmp: Path, chr4, chr4_min) -> int:
         if rc != 0:
             raise AssertionError(f"phase 20c: hammings -R exited {rc}")
         return np.load(out)
-    runs = (("CLI hammings -R", cli_ring),
+    cards = torch.cuda.device_count()
+    runs = (("CLI hammings -R", cli_ring, 2 * cards * cards),
             (f"hammings_ring on [{dev}] * {D}", lambda: hammings_ring(
-                chr4, K, devices=[dev] * D)),
+                chr4, K, devices=[dev] * D), 2 * D * D),
             (f"hammings_mesh on [{dev}] * {D}", lambda: hammings_mesh(
-                chr4, K, devices=[dev] * D)))
+                chr4, K, devices=[dev] * D), 2 * D))
     total = 0
-    for label, run in runs:
+    for label, run, want_launches in runs:
         reset_launches()
         with _timed_minmm(torch) as timed:
             t0 = time.perf_counter()
@@ -4509,13 +4517,15 @@ def ring_mesh_chr4(torch, dev, card, tmp: Path, chr4, chr4_min) -> int:
         bad = np.nonzero(got != chr4_min)[0] if got.shape == chr4_min.shape \
             else [-1]
         print(f"{label} on {len(chr4)} bp (K {K}, both strands) on {card}: "
-              f"wall {wall} s; minmm {ms} ms over {minmm.launches} launches, "
-              f"{timed.ops / ms / 1e9} int8 TOP/s, bound "
+              f"wall {wall} s; minmm {ms} ms over {minmm.launches} launches "
+              f"(want {want_launches}), {timed.ops / ms / 1e9} int8 TOP/s, "
+              f"bound "
               f"{timed.bound * 1e3} ms, {timed.bound * 1e3 / ms} of it; "
               f"{len(bad)} positions differ from phase 6's minimum")
-        if len(bad) or minmm.launches == 0:
+        if len(bad) or minmm.launches != want_launches:
             raise AssertionError(f"phase 20c: {label} differs at "
-                                 f"{bad[:5]}")
+                                 f"{bad[:5]} or launches {minmm.launches} "
+                                 f"times")
     return total
 
 

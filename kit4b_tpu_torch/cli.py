@@ -2220,11 +2220,15 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-n", "--numnodes", type=int, default=1)
     p.add_argument("-y", "--watsononly", action="store_true")
     p.add_argument("-M", "--mesh", action="store_true",
-                   help="shard own rows over all local devices "
+                   help="shard own rows over all local devices, each "
+                        "holding the genome's codes, the node's partner "
+                        "windows and a block of own rows "
                         "(parallel/hammings_mesh.py)")
     p.add_argument("-R", "--ring", action="store_true",
-                   help="ring over all local devices: O(G/D) memory per "
-                        "device (parallel/hammings_ring.py)")
+                   help="ring over all local devices: the minimum over "
+                        "partner blocks of the -M shards, a device holding "
+                        "one block's partner windows at a time "
+                        "(parallel/hammings_ring.py)")
     p.add_argument("-r", "--restricted", type=int, default=0,
                    help="pigeonhole mode bound; 0 = exhaustive")
     p.add_argument("--device", choices=("cuda", "cpu"), default="cuda",

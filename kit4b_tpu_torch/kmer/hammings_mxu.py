@@ -32,7 +32,7 @@ from ..kernels.minmm import TILE, minmm
 from ..utils.runtime import span
 
 OUT_BIG = np.uint16(0xFFFF)
-BLOCK_ROWS = 1 << 24      # own rows a block by default
+BLOCK_ROWS = 1 << 24      # own rows a block
 
 
 def _round_up(x: int, m: int) -> int:
@@ -98,7 +98,8 @@ class HammingsNode:
     windows of the node's partner columns [c0, c1) (spans [lo, hi) of S
     columns of the genome padded to Gp, a multiple of max(T, S)), of the
     sense strand and, with antisense, of the reverse complement. `rows`
-    then gives the distances of any own-row range, block by block.
+    then gives the distances of any own-row range in one block, and
+    `rows_in_blocks` in blocks of BLOCK_ROWS.
 
     Counters, beside `minmm.launches` and `minmm.rows`: `own_rows_built`
     (own one-hot rows built, padding to 128 included),
@@ -186,6 +187,15 @@ class HammingsNode:
                 HammingsNode.bytes_collected += 2 * m
                 return self._to_host(d)
 
+    def rows_in_blocks(self, r0: int, r1: int) -> np.ndarray:
+        """`rows` of own rows [r0, r1), BLOCK_ROWS at a time, into one new
+        uint16 [r1 - r0] array."""
+        out = np.empty(r1 - r0, np.uint16)
+        for a in range(r0, r1, BLOCK_ROWS):
+            b = min(a + BLOCK_ROWS, r1)
+            out[a - r0:b - r0] = self.rows(a, b)
+        return out
+
     def _to_host(self, d: torch.Tensor) -> np.ndarray:
         """A new numpy array of the distances d; off the CPU through the
         node's pinned buffer, sized at first for min(Gp, BLOCK_ROWS) rows
@@ -206,30 +216,19 @@ def hammings_exhaustive_mxu(genome_seq: np.ndarray, K: int, *,
                             antisense: bool = True,
                             node: int = 0, numnodes: int = 1,
                             T: int = 2048, S: int = 1024,
-                            row_chunk: int | None = None,
                             device: str | torch.device = "cuda") -> np.ndarray:
     """Min window-Hamming per position (uint16 [G]; 0xFFFF where no valid
     window). Node n of N takes partner spans [n*n_spans//N, (n+1)*n_spans//N)
     of S columns; partials merge with an elementwise min (ePMmerge).
 
     A `HammingsNode` over the genome padded to Gp, a multiple of max(T, S),
-    then its own rows in blocks: by default all Gp rows at once up to
-    BLOCK_ROWS (one launch a strand, the kernel's blocks filling whole
-    waves but for the last), else blocks of BLOCK_ROWS; a row_chunk cuts
-    blocks of row_chunk rounded to T, the last one shorter, and no row runs
-    twice."""
+    then all its Gp own rows in blocks of BLOCK_ROWS: a genome up to
+    BLOCK_ROWS runs in one launch a strand, the kernel's blocks filling
+    whole waves but for the last, and no row runs twice."""
     with span("hammings.sweep"):
         G = len(genome_seq)
-        out = np.full(G, OUT_BIG, np.uint16)
         if G - K + 1 <= 0:
-            return out
+            return np.full(G, OUT_BIG, np.uint16)
         eng = HammingsNode(genome_seq, K, antisense=antisense, node=node,
                            numnodes=numnodes, T=T, S=S, device=device)
-        if not eng.parts:
-            return out
-        R = min(eng.Gp, BLOCK_ROWS) if row_chunk is None \
-            else _round_up(row_chunk, T)
-        for r0 in range(0, eng.Gp, R):
-            d = eng.rows(r0, min(r0 + R, eng.Gp))
-            out[r0:r0 + R] = d[:max(G - r0, 0)]
-        return out
+        return eng.rows_in_blocks(0, eng.Gp)[:G]

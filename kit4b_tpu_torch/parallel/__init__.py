@@ -11,8 +11,8 @@ the calling process, as the tests do. `torch.distributed` appears only in
 - `mesh`: the dp x tp mesh, the key- and position-sharded index builders
   and the sharded kalign passes (SE v3/v4/v5, SE, PE and deep PE by
   position);
-- `hammings_mesh` and `hammings_ring`: `hammings -M` and `-R` on the
-  min-match kernel;
+- `hammings_mesh` and `hammings_ring`: `hammings -M` and `-R` as shards
+  of the node engine (`kmer/hammings_mxu.py` `HammingsNode`);
 - `swservice`: batched SW scoring over a list of devices;
 - `distributed`: process groups and per-process input and output shards.
 """

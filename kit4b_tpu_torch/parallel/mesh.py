@@ -106,13 +106,6 @@ def psum(parts: list, device: torch.device):
     return total
 
 
-def ppermute(blocks: list, devices: list) -> list:
-    """`jax.lax.ppermute` with JAX's ring permutation `[(j, (j - 1) % D)]`:
-    device i receives the block of device i + 1 (mod D)."""
-    D = len(blocks)
-    return [blocks[(i + 1) % D].to(devices[i]) for i in range(D)]
-
-
 # --- placement ------------------------------------------------------------
 
 def _tensor(x):

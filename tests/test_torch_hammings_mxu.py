@@ -132,26 +132,31 @@ def test_node_partials_and_merge_match_jax():
         g, 13, use_pallas=True, interpret=True, **kw))
 
 
-def test_row_chunk_short_tail_matches_jax():
-    # Gp = 1280 is not a multiple of R = 512: the port's last chunk runs
-    # its own 256 rows, JAX's overlaps the one before; the maxima agree
+def test_row_chunk_short_tail_matches_jax(monkeypatch):
+    # Gp = 1280 is not a multiple of the 512-row block: the port's last
+    # block runs its own 256 rows, JAX's row_chunk 400 overlaps the one
+    # before; the maxima agree
     g = _genome(1200, seed=9)
-    kw = dict(T=256, S=128, row_chunk=400)
+    kw = dict(T=256, S=128)
+    whole = tm.hammings_exhaustive_mxu(g, 25, device="cpu", **kw)
+    monkeypatch.setattr(tm, "BLOCK_ROWS", 512)
     got = tm.hammings_exhaustive_mxu(g, 25, device="cpu", **kw)
     want = jm.hammings_exhaustive_mxu(g, 25, use_pallas=True, interpret=True,
-                                      **kw)
+                                      row_chunk=400, **kw)
     np.testing.assert_array_equal(got, want)
-    np.testing.assert_array_equal(
-        got, tm.hammings_exhaustive_mxu(g, 25, device="cpu", T=256, S=128))
+    np.testing.assert_array_equal(got, whole)
 
 
-def _record_minmm(monkeypatch, module):
-    """Each call of `module.minmm` as (row_base, own rows, diag), in
-    order; the calls still run."""
+def _record_minmm(monkeypatch, module, partners=False):
+    """Each call of `module.minmm` as (row_base, own rows, diag), with
+    `partners` also (col_base, partner rows, span_lo, span_cnt), in order;
+    the calls still run."""
     calls, real = [], module.minmm
 
     def recorded(W_own, W_part, **kw):
-        calls.append((kw["row_base"], W_own.shape[0], kw["diag"]))
+        calls.append((kw["row_base"], W_own.shape[0], kw["diag"]) + (
+            (kw.get("col_base", 0), W_part.shape[0], kw["span_lo"],
+             kw["span_cnt"]) if partners else ()))
         return real(W_own, W_part, **kw)
     monkeypatch.setattr(module, "minmm", recorded)
     return calls
@@ -165,17 +170,22 @@ def test_default_node_run_launches_once_a_strand(monkeypatch, anti):
     calls = _record_minmm(monkeypatch, tm)
     got = tm.hammings_exhaustive_mxu(g, 13, **kw)
     assert calls == [(0, 1280, True)] + [(0, 1280, False)] * anti
-    np.testing.assert_array_equal(
-        got, tm.hammings_exhaustive_mxu(g, 13, row_chunk=256, **kw))
+    monkeypatch.setattr(tm, "BLOCK_ROWS", 256)
+    np.testing.assert_array_equal(got, tm.hammings_exhaustive_mxu(g, 13,
+                                                                  **kw))
 
 
-@pytest.mark.parametrize("row_chunk", [1, 300, 400, 1000, 5000])
-def test_row_chunks_cover_every_row_once(monkeypatch, row_chunk):
+@pytest.mark.parametrize("chunk", [1, 300, 400, 1000, 5000])
+def test_row_chunks_cover_every_row_once(monkeypatch, chunk):
+    # blocks of chunk rows rounded up to T
     g = _genome(1200, seed=9)         # Gp = 1280 with T = 256
     kw = dict(T=256, S=128, device="cpu")
+    whole = tm.hammings_exhaustive_mxu(g, 25, **kw)
+    R = -(-chunk // 256) * 256
+    monkeypatch.setattr(tm, "BLOCK_ROWS", R)
     calls = _record_minmm(monkeypatch, tm)
-    got = tm.hammings_exhaustive_mxu(g, 25, row_chunk=row_chunk, **kw)
-    R = min(-(-row_chunk // 256) * 256, 1280)
+    got = tm.hammings_exhaustive_mxu(g, 25, **kw)
+    R = min(R, 1280)
     for diag in (True, False):
         spans = [(rb, n) for rb, n, d in calls if d == diag]
         assert spans == [(rb, min(R, 1280 - rb)) for rb in range(0, 1280, R)]
@@ -183,14 +193,14 @@ def test_row_chunks_cover_every_row_once(monkeypatch, row_chunk):
         for rb, n in spans:
             runs[rb:rb + n] += 1
         assert (runs == 1).all()
-    np.testing.assert_array_equal(got, tm.hammings_exhaustive_mxu(g, 25, **kw))
+    np.testing.assert_array_equal(got, whole)
 
 
 @pytest.mark.parametrize("D", [1, 2, 4])
 def test_mesh_launches_once_a_shard_and_strand(monkeypatch, D):
     from kit4b_tpu_torch.parallel import hammings_mesh as pm
     g = _genome(1100, seed=4)
-    calls = _record_minmm(monkeypatch, pm)
+    calls = _record_minmm(monkeypatch, tm)
     got = pm.hammings_mesh(g, 13, devices=[torch.device("cpu")] * D,
                            T=256, S=128)
     Gp = -(-1100 // max(D * 256, 128)) * max(D * 256, 128)
@@ -199,6 +209,80 @@ def test_mesh_launches_once_a_shard_and_strand(monkeypatch, D):
                      for diag in (True, False)]
     np.testing.assert_array_equal(got, tm.hammings_exhaustive_mxu(
         g, 13, device="cpu", T=256, S=128))
+
+
+def test_mesh_shards_run_against_the_node_span_alone(monkeypatch):
+    """`-M` at D 4, node 1 of 3 (0-based): one node engine for the one
+    device, built with T' = 4 * 256, whose Gp = 2,048 is the mesh's; a
+    launch a shard and strand at row base i * 512 against the node's
+    partner columns [640, 1280) alone (spans [5, 10) of 128)."""
+    from kit4b_tpu_torch.parallel import hammings_mesh as pm
+    g = _genome(1900, seed=6)
+    monkeypatch.setattr(tm.HammingsNode, "partner_cols_built", 0)
+    calls = _record_minmm(monkeypatch, tm, partners=True)
+    got = pm.hammings_mesh(g, 13, devices=[torch.device("cpu")] * 4,
+                           node=1, numnodes=3, T=256, S=128)
+    assert calls == [(i * 512, 512, diag, 640, 640, 5, 5) for i in range(4)
+                     for diag in (True, False)]
+    assert tm.HammingsNode.partner_cols_built == 2 * 640
+    np.testing.assert_array_equal(got, tm.hammings_exhaustive_mxu(
+        g, 13, node=1, numnodes=3, T=4 * 256, S=128, device="cpu"))
+
+
+@pytest.mark.parametrize("anti", [True, False])
+def test_ring_runs_every_shard_against_each_partner_block(monkeypatch,
+                                                          anti):
+    """`-R` at D 4 on `[cpu] * 4`: B = 512 (Gp = 2,048); for each partner
+    block j a node engine whose span is block j, built once, then the 4
+    shards against it: D^2 launches a strand, and D partner blocks built,
+    not D^2."""
+    from kit4b_tpu_torch.parallel import hammings_ring as pr
+    g = _genome(1900, seed=2)
+    monkeypatch.setattr(tm.HammingsNode, "partner_cols_built", 0)
+    calls = _record_minmm(monkeypatch, tm, partners=True)
+    got = pr.hammings_ring(g, 13, antisense=anti,
+                           devices=[torch.device("cpu")] * 4, T=256, S=128)
+    strands = (True, False) if anti else (True,)
+    assert calls == [(i * 512, 512, diag, j * 512, 512, 4 * j, 4)
+                     for j in range(4) for i in range(4)
+                     for diag in strands]
+    assert tm.HammingsNode.partner_cols_built == 4 * 512 * len(strands)
+    np.testing.assert_array_equal(got, tm.hammings_exhaustive_mxu(
+        g, 13, antisense=anti, T=256, S=128, device="cpu"))
+
+
+@pytest.mark.parametrize("engine,D", [("mesh", 2), ("mesh", 4),
+                                      ("ring", 2)])
+def test_shard_rows_in_blocks_run_each_own_row_once(monkeypatch, engine,
+                                                    D):
+    """With BLOCK_ROWS below a shard's R, a shard's own rows go in blocks;
+    every own row of the padded genome is launched exactly once a strand
+    and partner block, and the result does not change."""
+    from kit4b_tpu_torch.parallel import hammings_mesh as pm
+    from kit4b_tpu_torch.parallel import hammings_ring as pr
+    g = _genome(1100, seed=5)
+    run = pm.hammings_mesh if engine == "mesh" else pr.hammings_ring
+    kw = dict(devices=[torch.device("cpu")] * D, T=256, S=128)
+    whole = run(g, 13, **kw)
+    Gp = -(-1100 // (D * 256)) * D * 256
+    R = Gp // D
+    monkeypatch.setattr(tm, "BLOCK_ROWS", 384)
+    calls = _record_minmm(monkeypatch, tm, partners=True)
+    got = run(g, 13, **kw)
+    partners = sorted({c[3] for c in calls})
+    assert len(partners) == (1 if engine == "mesh" else D)
+    for col in partners:
+        for diag in (True, False):
+            spans = [(rb, n) for rb, n, d, cb, *_ in calls
+                     if d == diag and cb == col]
+            assert spans == [(rb, min(384, (i + 1) * R - rb))
+                             for i in range(D)
+                             for rb in range(i * R, (i + 1) * R, 384)]
+            runs = np.zeros(Gp, int)
+            for rb, n in spans:
+                runs[rb:rb + n] += 1
+            assert (runs == 1).all()
+    np.testing.assert_array_equal(got, whole)
 
 
 @pytest.mark.parametrize("case", ["G<K", "all sentinels", "one window"])

@@ -55,18 +55,19 @@ G_NODE = _genome([3000, 2500, 3400], 7, 200)     # G = 8,903, Gp = 8,960
 G_SMALL = _genome([240, 260, 230], 8, 40)        # G = 733, Gp = 768
 
 
-@pytest.mark.parametrize("K,node,numnodes,anti,row_chunk", [
+@pytest.mark.parametrize("K,node,numnodes,anti,chunk", [
     (25, 3, 8, True, 1000),       # blocks of 1,024, the last of 1,024
     (25, 5, 7, True, 3000),       # blocks of 3,072 (the last one shorter)
     (13, 0, 9, True, 2100),       # node 0: the copies' sources in its span
     (13, 1, 9, False, 2100),      # one strand
     (25, 6, 7, True, None),       # the default: all Gp rows at once
 ])
-def test_node_in_row_blocks_equals_the_reference(K, node, numnodes, anti,
-                                                 row_chunk):
+def test_node_in_row_blocks_equals_the_reference(monkeypatch, K, node,
+                                                 numnodes, anti, chunk):
+    if chunk is not None:     # blocks of chunk rows rounded up to T
+        monkeypatch.setattr(hm, "BLOCK_ROWS", -(-chunk // 256) * 256)
     got = hm.hammings_exhaustive_mxu(G_NODE, K, antisense=anti, node=node,
-                                     numnodes=numnodes, row_chunk=row_chunk,
-                                     device="cpu", **TS)
+                                     numnodes=numnodes, device="cpu", **TS)
     pos = np.arange(len(G_NODE))
     want = ref.node_rows_min(G_NODE, K, pos, node, numnodes, anti, "cpu",
                              **TS)
@@ -95,10 +96,10 @@ def test_rows_of_any_range_equal_the_whole_sweep():
 
 
 @pytest.mark.parametrize("anti", [True, False])
-def test_merging_every_node_equals_the_oracle(anti):
+def test_merging_every_node_equals_the_oracle(monkeypatch, anti):
+    monkeypatch.setattr(hm, "BLOCK_ROWS", 256)
     parts = [hm.hammings_exhaustive_mxu(G_SMALL, 13, antisense=anti, node=n,
-                                        numnodes=4, row_chunk=256,
-                                        device="cpu", **TS)
+                                        numnodes=4, device="cpu", **TS)
              for n in range(4)]
     np.testing.assert_array_equal(np.minimum.reduce(parts),
                                   hammings_oracle(G_SMALL, 13,
@@ -108,8 +109,9 @@ def test_merging_every_node_equals_the_oracle(anti):
 def test_each_own_row_is_built_once_a_pass(monkeypatch):
     monkeypatch.setattr(hm.HammingsNode, "own_rows_built", 0)
     monkeypatch.setattr(hm.HammingsNode, "partner_cols_built", 0)
+    monkeypatch.setattr(hm, "BLOCK_ROWS", 1536)
     hm.hammings_exhaustive_mxu(G_NODE, 25, node=2, numnodes=8,
-                               row_chunk=1500, device="cpu", **TS)
+                               device="cpu", **TS)
     # Gp = 8,960 own rows in blocks of 1,536; the node's 9 spans of 128
     # columns on both strands
     assert hm.HammingsNode.own_rows_built == 8960

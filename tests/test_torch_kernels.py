@@ -192,9 +192,12 @@ def test_node_run_on_card_launches_once_a_strand(cuda, monkeypatch, anti):
     Gp, strands = 2_398_208, 1 + anti
     kw = dict(antisense=anti, node=1, numnodes=292, device=cuda)
     runs = []
-    for row_chunk, launches in ((None, strands), (1 << 21, 2 * strands)):
-        before = minmm.launches, minmm.rows
-        runs.append(hammings_exhaustive_mxu(g, 25, row_chunk=row_chunk, **kw))
+    for block, launches in ((None, strands), (1 << 21, 2 * strands)):
+        with monkeypatch.context() as m:
+            if block is not None:
+                m.setattr(hammings_mxu, "BLOCK_ROWS", block)
+            before = minmm.launches, minmm.rows
+            runs.append(hammings_exhaustive_mxu(g, 25, **kw))
         assert (minmm.launches - before[0], minmm.rows - before[1]) == \
             (launches, Gp * strands)
     monkeypatch.setattr(hammings_mxu, "minmm", minmm_plain)

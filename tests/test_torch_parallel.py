@@ -319,7 +319,6 @@ def test_make_mesh_and_placement():
     with pytest.raises(ValueError, match="equal blocks"):
         pm.device_put(m, torch.zeros(6), ("tp",))
     blocks = [torch.full((2,), i) for i in range(4)]
-    assert [int(b[0]) for b in pm.ppermute(blocks, [CPU] * 4)] == [1, 2, 3, 0]
     assert pm.all_gather(blocks, CPU).tolist() == [0, 0, 1, 1, 2, 2, 3, 3]
     flags = [torch.tensor([True, False]), torch.tensor([False, False])]
     assert (pm.psum(flags, CPU) > 0).tolist() == [True, False]

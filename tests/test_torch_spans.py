@@ -114,13 +114,14 @@ ROW_BLOCK = ["hammings.rows", "hammings.onehot", "hammings.collect",
 
 
 @pytest.mark.parametrize("antisense", [True, False])
-def test_hammings_sweep_spans(antisense):
+def test_hammings_sweep_spans(monkeypatch, antisense):
     """One `hammings.sweep` around one `upload`, one `partners` (the node's
     partner one-hot of both strands), then a `rows` a row block holding its
     `onehot`, then its `collect`, which holds the `fold`."""
     g = _genome(3000, 5)
+    monkeypatch.setattr(hammings_mxu, "BLOCK_ROWS", 512)
     kw = dict(antisense=antisense, node=1, numnodes=2, T=256, S=128,
-              row_chunk=512, device="cpu")
+              device="cpu")
     want = hammings_mxu.hammings_exhaustive_mxu(g, 13, **kw)
     got, evs = _profiled(
         lambda: hammings_mxu.hammings_exhaustive_mxu(g, 13, **kw))
