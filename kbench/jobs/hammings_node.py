@@ -2,12 +2,15 @@
 minimum K-mer Hamming distances (`hammings -K <K> -n <N> -N <n>`).
 
 One unit is one call of `kmer/hammings.py` `hammings_exhaustive` on the
-genome's codes, as the CLI's `sweep` phase makes it: the one-hot windows
-of both strands built on the device, then the node's row chunks through
-the max-match kernel (`kernels/minmm.py` -> `csrc/minmm.cu`), one launch
-a chunk and strand. Set-up makes the genome and runs the same call with
-the node's share cut to one partner span, which builds and loads the
-kernel and allocates every tensor of the timed shapes.
+genome's codes, as the CLI's `sweep` phase makes it: a node engine
+(`kmer/hammings_mxu.py` `HammingsNode`) uploads the codes and builds the
+one-hot of the node's partner span for both strands, then all Gp own rows
+run as one block: their one-hot built on the device, one launch of the
+max-match kernel a strand (`kernels/minmm.py` -> `csrc/minmm.cu`), the
+maxima folded to distances on the card and copied to the host. Set-up
+makes the genome and runs the same call with the node's share cut to one
+partner span, which builds and loads the kernel and allocates every
+tensor of the timed shapes.
 
 The check: every unit returned the first unit's distances; on positions
 drawn from the seed (uniform over the genome, and inside the planted

@@ -29,7 +29,6 @@ import numpy as np
 
 from .. import recipes
 from ..reference import hammings_rows as ref
-from ..roofline import one_hot_width
 
 SPANS = [
     ("kit4b_tpu_torch.kmer.hammings_mxu", "HammingsNode.rows",
@@ -118,7 +117,7 @@ class Job:
         self.work_per_unit = self.unit_rows
         self.info = {"minmm": {"rows": self.unit_rows,
                                "cols": self.c1 - self.c0,
-                               "cw": one_hot_width(self.K),
+                               "K": self.K,
                                "strands": 2 if self.antisense else 1}}
         self.engine = None
         self.outs: list[np.ndarray] = []

@@ -1,8 +1,9 @@
 """Milliseconds a unit in which the device ran nothing while the host was
 between two own-row blocks of the streamed-rows hammings cell: inside the
-program's span `hammings.collect` (the strands' maximum, the blocking copy
-of the block's maxima to the host) or `hammings.fold` (the maxima made
-distances on the host). The arithmetic is
+program's span `hammings.collect` (the strands' maximum, the distances
+made on the card, one copy of 2 bytes a row into the node's pinned
+buffer, the sync and the copy-out) or `hammings.fold` (inside it: the
+maxima made distances on the card). The arithmetic is
 `idle_between_sweeps_ms.hammings`'s, with `hammings.rows` (one own-row
 block) as the span the window must hold; None where it holds none: a
 program without its own spans."""

@@ -1,7 +1,8 @@
 """Milliseconds a sweep in which the device ran nothing while the host was
-collecting a row chunk of the exhaustive hammings cell: inside the
-program's span `hammings.collect` (the strands' maximum, the blocking copy
-of the chunk's maxima to the host and their copy into the sweep's array).
+collecting a block of own rows of the exhaustive hammings cell: inside the
+program's span `hammings.collect` (the strands' maximum, the distances
+made on the card, one copy of 2 bytes a row into the node's pinned
+buffer, the sync and the copy-out).
 The arithmetic is `idle_between_sweeps_ms.hammings`'s; None where the
 window holds no `hammings.sweep` span."""
 import importlib.util

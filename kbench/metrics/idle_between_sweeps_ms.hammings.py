@@ -1,7 +1,8 @@
 """Milliseconds a sweep in which the device ran nothing while the host was
 between two of the exhaustive hammings cell's sweeps: inside the program's
-span `hammings.fold` (the node's maxima made distances on the host) or
-`hammings.upload` (the next sweep's genome padded and copied to the card).
+span `hammings.fold` (the maxima made distances on the card, inside
+`hammings.collect`) or `hammings.upload` (the next sweep's genome padded
+and copied to the card).
 
 The window's idle intervals (the gaps between the device's busy
 intervals) intersected with the union of those spans, clipped to the

@@ -1,5 +1,5 @@
 """The frozen input recipes repeat for a seed and keep their model, and
-the minmm bound counts chip_smoke.py's operations."""
+the minmm bound counts chip_smoke.py's operations at the 2:4-sparse rate."""
 from __future__ import annotations
 
 import hashlib
@@ -80,12 +80,14 @@ def test_reads_fasta_is_one_line_a_read(tmp_path):
 
 
 def test_minmm_bound_counts_chip_smokes_operations():
-    ops = roofline.minmm_ops(2 ** 21, 3_017_728, 128)
+    ops = roofline.minmm_ops(2 ** 21, 3_017_728,
+                             roofline.sparse_channels(25))
     assert f"{ops:.3e}" == "1.620e+15"
-    t = roofline.minmm_bound_s(2 ** 21, 3_017_728, 128,
+    t = roofline.minmm_bound_s(2 ** 21, 3_017_728, 25,
                                "NVIDIA H100 80GB HBM3")
-    assert abs(t - ops / 1979e12) < 1e-12          # bound by operations
+    assert abs(t - ops / 3958e12) < 1e-12          # bound by operations
+    assert round(t * 1e3, 2) == 409.33
     G = sum(R64) + len(R64)          # the codes and a separator each
     shape = roofline.hammings_node_shape(G, 25, 0, 4, True)
-    assert shape == {"rows": 12_072_960, "cols": 3_017_728, "cw": 128,
+    assert shape == {"rows": 12_072_960, "cols": 3_017_728, "K": 25,
                      "strands": 2}
