@@ -18,12 +18,14 @@ result:
    strand against the node's partner spans) on its first and its last
    2^21 rows; then 2^21-row slices at a shorter span with diag on and off,
    a non-zero row_base and span_lo > 0; then wide rows (K 51 and 153:
-   Cw 256 and 768) and R = 384 (not a multiple of the kernel's 256 own
-   rows). Phase 4's launch and its first 2^21 rows (kernel and plain)
-   timed with CUDA events, each with its share of the int8 bound; then
-   every width the kernel is built for (Cw 128-768) timed on 131,072 own
-   rows against 262,144 partner columns
-   (`kit4b_tpu_torch.tools.time_minmm`), each beside its bound.
+   Cw 256 and 768) and R = 384 (not a multiple of the kernel's 512 own
+   rows); after each, the kernel's count of own-row groups that are not
+   2:4-sparse must read 0. Phase 4's launch and its first 2^21 rows
+   (kernel and plain) timed with CUDA events, each with its shares of the
+   2:4-sparse int8 bound (the rate the kernel runs at) and of the dense
+   one; then every width the kernel is built for (Cw 128-768) timed on
+   131,072 own rows against 262,144 partner columns
+   (`kit4b_tpu_torch.tools.time_minmm`), each beside both bounds.
 3. `hammings_exhaustive_mxu` on the card against the numpy oracle on a
    2 kbp seeded genome with N bases and an EOS, K 7 and 25, antisense on
    and off: exact equality (the four oracles run in worker processes from
@@ -354,7 +356,7 @@ result:
    map, one minmm launch with row_base and col_base past or beside 2^31,
    held to the plain version bit for bit on its first and last 2^17 rows
    and on every row whose self column lies in the span; each launch timed
-   with CUDA events beside its int8 bound. Then `HammingsNode.rows` over
+   with CUDA events beside its 2:4-sparse and dense int8 bounds. Then `HammingsNode.rows` over
    both blocks: one launch a strand and block, each own row built once
    and collected to the host in 2 bytes, equal to the host's fold of
    those launches, and at 2,000 sampled positions
@@ -368,7 +370,8 @@ script prints its seconds, and
 each phase's, before the kernels line. The line before the last is a JSON
 table of the kernels, each with its bound (the least time the card could
 take: int8 tensor operations for minmm and sweep, int32 operations for
-sw_scan, bytes for take and sw_traceback; take's `ms` is device time;
+sw_scan, bytes for take and sw_traceback; minmm's `bound_ms` is dense and
+its `sparse_bound_ms` the 2:4-sparse one it runs at; take's `ms` is device time;
 minmm's `ms` and bound are of phase 4's launch over all Gp rows, which the
 plain version is not timed at, its `slice` gives the kernel, the plain
 version and the bound at 2^21 of those rows, and its `node` phase 21's
@@ -4379,11 +4382,13 @@ def pos_shards(cfg1: str, out: str) -> dict:
 class _TimedMinmm:
     """Stands in for `kernels.minmm.minmm` in a module: each call runs the
     real wrapper (which counts its launch) between two CUDA events, and
-    adds up the int8 operations and the bound as phase 2 computes them."""
+    adds up the int8 operations and the dense and 2:4-sparse bounds as
+    phase 2 computes them."""
 
     def __init__(self, torch, fn):
         self.torch, self.fn = torch, fn
         self.events, self.ops, self.bound = [], 0, 0.0
+        self.sparse_bound = 0.0
 
     def __call__(self, W_own, W_part, *, diag, span_lo, span_cnt, S,
                  row_base=0, col_base=0):
@@ -4399,6 +4404,8 @@ class _TimedMinmm:
         self.ops += ops
         self.bound += max(ops / INT8_PEAK,
                           (R * cw + span_cnt * S * cw + 4 * R) / HBM_RATE)
+        from kit4b_tpu_torch.tools.time_minmm import bounds_ms
+        self.sparse_bound += bounds_ms(R, span_cnt * S, K)[0] / 1e3
         return out
 
     def ms(self) -> float:
@@ -4451,7 +4458,9 @@ def mesh_cli(torch, dev, card, tmp: Path, chroms, seq, planted) -> int:
           f"wall {wall} s; node 1 of {NUMNODES}: partner spans [0, {cnt}) "
           f"of {n_spans} (Gp {Gp}); minmm {ms} ms over {launches} launches "
           f"(want {want_launches}) and {rows} own rows (want {2 * Gp}), "
-          f"bound {timed.bound * 1e3} ms, {timed.bound * 1e3 / ms} of it")
+          f"bound {timed.bound * 1e3} ms, {timed.bound * 1e3 / ms} of it; "
+          f"2:4-sparse bound {timed.sparse_bound * 1e3} ms, "
+          f"{timed.sparse_bound * 1e3 / ms} of it")
     if rc != 0 or (launches, rows) != (want_launches, 2 * Gp):
         raise AssertionError(f"phase 20b: exit {rc}, {launches} launches "
                              f"over {rows} rows")
@@ -4521,6 +4530,8 @@ def ring_mesh_chr4(torch, dev, card, tmp: Path, chr4, chr4_min) -> int:
               f"(want {want_launches}), {timed.ops / ms / 1e9} int8 TOP/s, "
               f"bound "
               f"{timed.bound * 1e3} ms, {timed.bound * 1e3 / ms} of it; "
+              f"2:4-sparse bound {timed.sparse_bound * 1e3} ms, "
+              f"{timed.sparse_bound * 1e3 / ms} of it; "
               f"{len(bad)} positions differ from phase 6's minimum")
         if len(bad) or minmm.launches != want_launches:
             raise AssertionError(f"phase 20c: {label} differs at "
@@ -4796,8 +4807,10 @@ def node_past_2_31(torch, dev, card) -> dict:
     the two own-row blocks that meet at BIG_TOP, through the kernel and
     through `HammingsNode.rows`. Returns minmm's `node` entry of the
     kernels line."""
-    from kit4b_tpu_torch.kernels.minmm import NEG, minmm, minmm_plain
+    from kit4b_tpu_torch.kernels.minmm import (NEG, check_faults, minmm,
+                                               minmm_plain)
     from kit4b_tpu_torch.kmer.hammings_mxu import HammingsNode, onehot_windows
+    from kit4b_tpu_torch.tools.time_minmm import bounds_ms
     rng = np.random.default_rng(SEED + 21)
     t0 = time.perf_counter()
     seq = synthetic_grch38(rng)
@@ -4827,8 +4840,7 @@ def node_past_2_31(torch, dev, card) -> dict:
           f"both strands, own-row blocks {blocks}; engine prepared in "
           f"{t_prep} s")
     cols, cw = c1 - c0, eng.C
-    bound = max(2 * BIG_BLOCK * cols * cw / INT8_PEAK,
-                (BIG_BLOCK * cw + cols * cw + 4 * BIG_BLOCK) / HBM_RATE) * 1e3
+    sparse_bound, bound = bounds_ms(BIG_BLOCK, cols, K)
     reset_launches()
     max_err, launch_ms, folded = 0, [], []
     for r0, r1 in blocks:
@@ -4839,6 +4851,7 @@ def node_past_2_31(torch, dev, card) -> dict:
             kw = dict(diag=diag, span_lo=eng.lo, span_cnt=eng.cnt, S=S,
                       row_base=r0, col_base=c0)
             got, ms = _with_ms(torch, lambda: minmm(W, Wp, **kw))
+            check_faults(dev)
             launch_ms.append(ms)
             for label, a, b in (
                     ("head", 0, BIG_SLICE),
@@ -4866,7 +4879,9 @@ def node_past_2_31(torch, dev, card) -> dict:
           f"on {card}: kernel {launch_ms} ms (sense, antisense of each "
           f"block); bound {bound} ms (int8 operations at "
           f"{INT8_PEAK / 1e12:g} TOP/s), kernel at "
-          f"{bound * len(launch_ms) / sum(launch_ms)} of it")
+          f"{bound * len(launch_ms) / sum(launch_ms)} of it; 2:4-sparse "
+          f"bound {sparse_bound} ms, kernel at "
+          f"{sparse_bound * len(launch_ms) / sum(launch_ms)} of it")
     # the engine's own path over both blocks
     reset_launches()
     HammingsNode.own_rows_built = HammingsNode.bytes_collected = 0
@@ -4922,19 +4937,22 @@ def node_past_2_31(torch, dev, card) -> dict:
                                                            blocks],
             "col_base": c0, "launches": direct_launches + counts[0],
             "max_abs_err": max_err, "ms": launch_ms, "bound_ms": bound,
-            "rows_s": rows_s}
+            "sparse_bound_ms": sparse_bound, "rows_s": rows_s}
 
 
 def minmm_cases(torch, cases, minmm, minmm_plain) -> int:
     """Phase 2: the min-match kernel against its plain version, bit for
     bit, on (label, own rows, partner, diag, span_lo, span_cnt, row_base)
-    cases. Returns the largest absolute difference (0)."""
+    cases, and the kernel's 2:4 fault count after each. Returns the largest
+    absolute difference (0)."""
+    from kit4b_tpu_torch.kernels.minmm import check_faults
     max_err = 0
     for label, wo, wp, diag, lo, n, rb in cases:
         kw = dict(diag=diag, span_lo=lo, span_cnt=n, S=S, row_base=rb)
         got = minmm(wo, wp, **kw)
         want = minmm_plain(wo, wp, **kw)
         torch.cuda.synchronize()
+        check_faults(wo.device)
         err = int((got.long() - want.long()).abs().max())
         max_err = max(max_err, err)
         print(f"kernel vs plain [{label}]: R={wo.shape[0]} Cw={wo.shape[1]} "
@@ -5003,11 +5021,13 @@ def main() -> int:
     sys.path.insert(0, str(root))
     from kit4b_tpu_torch import cli
     from kit4b_tpu_torch.kernels import build
-    from kit4b_tpu_torch.kernels.minmm import minmm, minmm_plain
+    from kit4b_tpu_torch.kernels.minmm import check_faults, minmm, minmm_plain
     from kit4b_tpu_torch.kmer.hammings import hammings_oracle, read_hmg
     from kit4b_tpu_torch.kmer.hammings_mxu import (build_w,
                                                    hammings_exhaustive_mxu)
-    from kit4b_tpu_torch.tools.time_minmm import COLS, ROWS, time_widths
+    from kit4b_tpu_torch.kmer.hammings_mxu import onehot_windows
+    from kit4b_tpu_torch.tools.time_minmm import (COLS, ROWS, bounds_ms,
+                                                  time_widths)
     dev = torch.device("cuda")
     rng = np.random.default_rng(SEED)
 
@@ -5079,6 +5099,7 @@ def main() -> int:
     # the main path's launch: all Gp own rows of a strand at once (47,160
     # blocks), held on its first and last R rows to the plain version
     full = minmm(W, W, row_base=0, **node)
+    check_faults(dev)
     max_err = 0
     for label, rb in (("head", 0), ("tail", Gp - R)):
         want = minmm_plain(W[rb:rb + R], W, row_base=rb, **node)
@@ -5108,9 +5129,8 @@ def main() -> int:
     cw = W.shape[1]
 
     def bound_ms(rows: int) -> float:
-        """The int8 bound of `rows` own rows against node 1's spans."""
-        return max(2 * rows * cnt * S * cw / INT8_PEAK,
-                   (rows * cw + cnt * S * cw + 4 * rows) / HBM_RATE) * 1e3
+        """The dense int8 bound of `rows` own rows against node 1's spans."""
+        return bounds_ms(rows, cnt * S, K)[1]
     # the main path's launch ("full") and its first R rows, kernel and
     # plain, in turns (the checks above ran both functions)
     turns = []
@@ -5123,17 +5143,20 @@ def main() -> int:
           for name in ("full", "kernel", "plain")}
     full_ms, kernel_ms, plain_ms = (sum(v) / 2 for v in ms.values())
     full_bound, minmm_bound = bound_ms(Gp), bound_ms(R)
+    full_sparse, minmm_sparse = (bounds_ms(r, cnt * S, K)[0] for r in (Gp, R))
     ops = 2 * cnt * S * cw       # int8 operations an own row
     print(f"min-match at the main path's R={Gp} span={cnt * S} Cw={cw} on "
           f"{card}: kernel {ms['full']} ms, {ops * Gp / full_ms / 1e9} int8 "
           f"TOP/s; bound {full_bound} ms (int8 operations at "
           f"{INT8_PEAK / 1e12:g} TOP/s), kernel at {full_bound / full_ms} "
-          f"of it")
+          f"of it; 2:4-sparse bound {full_sparse} ms, kernel at "
+          f"{full_sparse / full_ms} of it")
     print(f"min-match at R={R}, the same span: kernel {ms['kernel']} ms, "
           f"plain {ms['plain']} ms (turns plain, kernel, full, full, kernel, "
           f"plain); kernel {ops * R / kernel_ms / 1e9} int8 TOP/s, plain "
           f"{ops * R / plain_ms / 1e9} TOP/s; bound {minmm_bound} ms, kernel "
-          f"at {minmm_bound / kernel_ms} of it")
+          f"at {minmm_bound / kernel_ms} of it; 2:4-sparse bound "
+          f"{minmm_sparse} ms, kernel at {minmm_sparse / kernel_ms} of it")
     del W, Wrc, cases
     torch.cuda.empty_cache()
     # wide rows on a prefix of the genome: Cw 256 and 768, R = 384 included
@@ -5154,12 +5177,15 @@ def main() -> int:
         del Wk, Wkrc, e
     del ext
     torch.cuda.empty_cache()
-    # every width timed on a card-filling shape, beside its int8 bound
-    for row in time_widths(torch, minmm):
+    # every width timed on a card-filling shape, beside its int8 bounds
+    for row in time_widths(torch, minmm, onehot_windows, check_faults):
+        mean = sum(row["ms"]) / 2
         print(f"min-match width timing on {card}: Cw={row['Cw']} "
-              f"R={ROWS} span={COLS}: kernel {row['ms']} ms; bound "
-              f"{row['bound_ms']} ms ({row['bound_by']}), kernel at "
-              f"{row['bound_ms'] / (sum(row['ms']) / 2)} of it")
+              f"K={row['K']} R={ROWS} span={COLS}: kernel {row['ms']} ms; "
+              f"2:4-sparse bound {row['bound_ms']} ms, kernel at "
+              f"{row['bound_ms'] / mean} of it; dense bound "
+              f"{row['dense_bound_ms']} ms, kernel at "
+              f"{row['dense_bound_ms'] / mean} of it")
     torch.cuda.empty_cache()
 
     done("2")
@@ -5398,9 +5424,10 @@ def main() -> int:
          "launches": launches + par_launches["minmm"] + big["launches"],
          "max_abs_err": max(max_err, big["max_abs_err"]),
          "rows": Gp, "ms": full_ms, "plain_ms": None, "bound_ms": full_bound,
+         "sparse_bound_ms": full_sparse,
          "bound_by": "operations", "library_ms": None,
          "slice": {"rows": R, "ms": kernel_ms, "plain_ms": plain_ms,
-                   "bound_ms": minmm_bound},
+                   "bound_ms": minmm_bound, "sparse_bound_ms": minmm_sparse},
          "node": big},
         {"name": "sweep", "route": "cuda",
          "source": "kit4b_tpu_torch/csrc/sweep.cu",

@@ -14,32 +14,72 @@
 // 2^31 (TMA coordinates are 32-bit). The caller turns the result into the
 // minimum Hamming distance K - out[i].
 //
-// What bounds it: the int8 tensor rate. A launch does 2*R*span*Cw operations
-// (R own rows, span partner columns) on R*Cw + span*Cw input bytes; the
-// [R, span] pair matrix never leaves registers, so bytes are negligible.
+// Why the own rows are 2:4. Channel 5k + b of a window is 1 when base k has
+// code b: a base owns 5 consecutive channels and holds at most one 1 among
+// them, so an aligned group of 4 channels touches at most 2 bases and holds
+// at most 2 ones (padding channels and invalid rows are 0). That is the 2:4
+// structured sparsity of `wgmma.mma_async.sp`, whose A operand (the own
+// rows) it takes compressed at twice the dense int8 rate; the integer dot
+// products are the same, bit for bit: only zero channels are skipped.
 //
-// Design. The TPU ran its span axis in order and carried the running max
-// from one grid step to the next. Here blocks run in parallel: a block owns
-// 256 own rows (128 at Cw = 768), keeps them in shared memory for its whole
-// life, and walks the partner range itself, so the running max stays in
-// registers and no block needs another's result.
-// - Operands. Both matrices are K-major (a window's Cw bytes are contiguous),
-//   which is the only layout 8-bit `wgmma` takes, and one 128-byte K-chunk
-//   is one 128-byte swizzle atom. TMA copies each K-chunk of a tile into
-//   shared memory in that swizzle (tensor maps built on the host per launch),
-//   and `wgmma` reads both operands from there through descriptors.
+// What bounds it: the 2:4-sparse int8 tensor rate, and the bytes shared
+// memory delivers a clock. A launch does 2*R*span*Cw logical operations (R
+// own rows, span partner columns); the [R, span] pair matrix never leaves
+// registers. Each m64 step reads its N x 64-byte B tile from shared memory,
+// so at the sparse rate B alone needs 128 bytes a clock and SM, twice the
+// dense kernel's; A's compressed bytes from shared memory and TMA's writes
+// of the partner tiles come on top (16 bytes a clock each at Cw 128). The
+// probe (tools/probe_minmm_sp.py: the consumer loop, B resident, on an
+// H100) reaches 99.4 % of the sparse peak with B alone, 88.5 % with A from
+// shared memory too.
+//
+// Design. Blocks run in parallel: a block owns kOwnRows own rows (512 at
+// Cw 128, 128 wider), keeps them for its whole life, and walks the partner
+// range itself, so the running max stays in registers and no block needs
+// another's result.
+// - Operands. Both matrices are K-major (a window's Cw bytes are contiguous)
+//   and one 128-byte K-chunk is one 128-byte swizzle atom. TMA copies each
+//   K-chunk of the own rows and of a 256-column partner tile into shared
+//   memory in that swizzle (tensor maps built on the host per launch).
+// - Where the compressed operand lives. After the own rows land, each
+//   consumer thread builds its metadata (1 register an m64 pass and k-step
+//   of 64 channels, wgmma_sp.cuh `sp_meta`; rows of 3 chunks or more park
+//   theirs in shared memory) from them once; then the
+//   consumer writes the kept values (`sp_vals`) over its dense rows in
+//   shared memory, in place and in the same swizzle (`compress_in_place`),
+//   and wgmma reads them through descriptors. A in registers (4 a pass and
+//   k-step, 32 at Cw 128) beside the 128 accumulators does not fit the 168
+//   registers ptxas gives a consumer here, which `setmaxnreg` does not
+//   raise; without a producer warpgroup (255 a thread) it spilled and ran
+//   1.3-1.9 % slower at both cells' shapes.
+// - The violation count. A group of 4 own-row channels with more than two
+//   non-zeros cannot be compressed: the kernel adds the number of such
+//   groups, counted once each while the metadata is built, to `faults`, a
+//   device int the wrapper passes in, and the caller raises where it is not
+//   0 at its next sync (kernels/minmm.py). The result is then wrong and is
+//   never returned.
 // - Warp specialisation. Warpgroup 0 is the producer: `setmaxnreg` drops its
-//   registers and one thread issues the TMA loads, first the block's own rows
-//   (zero-filled past R), then 128-column x 128-byte partner chunks into a
-//   ring of stages guarded by full/empty mbarriers. Warpgroups 1 and 2 are
-//   consumers, 128 own rows each (two m64 groups; one at Cw = 768):
-//   `wgmma.mma_async m64n128k32 s32.s8.s8` over the chunks of a tile, the
-//   first k-step with scale-d = 0 in place of zeroed registers, then an
-//   epilogue that folds the 128x128 tile into four running row maxima with
-//   the DPX three-way max. The two consumers run independently, so one's
-//   epilogue overlaps the other's `wgmma`; each warp of both arrives on a
-//   stage's empty barrier when its products are done.
-// - The self-pair mask costs only on tiles that cross the block's diagonal.
+//   registers and one thread issues the TMA loads, first the block's own
+//   rows (zero-filled past R), then 256-column x 128-byte partner chunks
+//   into a ring of stages guarded by full/empty mbarriers. Warpgroups 1 and
+//   2 are consumers, kOwnRows / 2 own rows each, in kPasses m64 passes over
+//   every tile: `wgmma.mma_async.sp m64n256k64 s32.s8.s8`, the first k-step
+//   with scale-d = 0, commit and wait, then a fold of the 64 x 256 tile
+//   into two running row maxima with the DPX three-way max. The two
+//   consumers run independently, so one's fold overlaps the other's
+//   products; each warp of both arrives on a stage's empty barrier when its
+//   last products from it are done.
+// - Geometry. N 256 with one accumulator set of 128 registers: in the
+//   probe it beat N 128 with two sets (the dense kernel's geometry) for
+//   either source of A on every card it ran on (88.5-89.3 % against
+//   64-80 % on one). At Cw 128 a 256-column tile is one stage, which
+//   stays while a consumer runs its 4 passes, so a block holds 512 own rows
+//   and each partner byte that TMA brings from L2 serves 512 rows: 16 bytes
+//   a clock and SM at the sparse rate, what the dense kernel drew at the
+//   dense one. Wider rows stream a tile's CH chunks through the ring in one
+//   pass of 128 own rows.
+// - The self-pair mask, and the mask of columns past the span in a last
+//   tile of 128 columns, cost only on the tiles that need them.
 // - At the end a quad shuffle-max leaves each row's maximum in one thread,
 //   which stores it.
 // Wider rows (Cw = 256 ... 768) are compile-time instantiations of the same
@@ -49,44 +89,51 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "wgmma_sp.cuh"
+
 namespace {
 
 constexpr int kNeg = -(1 << 20);
-constexpr int kTile = 128;                   // partner columns per tile
+constexpr int kFar = 1 << 29;                // a row-to-column distance no tile holds
+constexpr int kTile = 256;                   // partner columns per tile (the wgmma's N)
 constexpr int kChunk = 128;                  // bytes of one K-chunk: one 128-byte swizzle atom
 constexpr int kStageBytes = kTile * kChunk;  // one ring stage: a tile's K-chunk
+constexpr int kBox = 256;                    // most rows of one TMA box
 constexpr int kThreads = 384;                // producer warpgroup + two consumer warpgroups
 constexpr int kDataBudget = 224 * 1024;      // own rows + ring; barriers and alignment take the rest
 
 template <int CH>   // K-chunks per row: Cw = 128 * CH
 struct Cfg {
-  static constexpr int kGroups = CH <= 5 ? 2 : 1;          // m64 row groups per consumer
-  static constexpr int kOwnRows = 2 * kGroups * 64;
+  static constexpr int kPasses = CH == 1 ? 4 : 1;           // m64 passes a consumer and tile
+  static constexpr int kSteps = 2 * CH;                      // k-steps of 64 channels a row
+  static constexpr int kOwnRows = 2 * kPasses * 64;
   static constexpr int kOwnBytes = kOwnRows * CH * kChunk;
   static constexpr int kFit = (kDataBudget - kOwnBytes) / kStageBytes;
   static constexpr int kStages = kFit < 6 ? kFit : 6;
   static constexpr int kSmem = 1024 + kOwnBytes + kStages * kStageBytes + 256;
   static_assert(kStages >= 2, "the ring needs two stages");
   static_assert(kSmem <= 232448, "a block has 227 KB of shared memory");
+  static_assert(kOwnRows % kBox == 0 || kOwnRows < kBox, "own rows load in whole boxes");
+  // rows of 3 chunks or more keep their metadata in shared memory (from
+  // registers ptxas spilled it at Cw 768)
+  static constexpr bool kMetaInSmem = CH >= 3;
+  static_assert(!kMetaInSmem || kSteps * 128 * 4 <= 64 * kChunk,
+                "a consumer's metadata fits its rows of a free chunk");
 };
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
 
 __device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;"
-               :: "r"(smem_addr(bar)), "r"(count) : "memory");
+               :: "r"(smem_u32(bar)), "r"(count) : "memory");
 }
 
 __device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
   asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];"
-               :: "r"(smem_addr(bar)) : "memory");
+               :: "r"(smem_u32(bar)) : "memory");
 }
 
 __device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
   asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
-               :: "r"(smem_addr(bar)), "r"(bytes) : "memory");
+               :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
 }
 
 // Waits until the phase of parity `parity` of the barrier has completed.
@@ -97,7 +144,7 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
         "{\n.reg .pred p;\n"
         "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
         "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done) : "r"(smem_addr(bar)), "r"(parity) : "memory");
+        : "=r"(done) : "r"(smem_u32(bar)), "r"(parity) : "memory");
   } while (!done);
 }
 
@@ -108,83 +155,98 @@ __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
   asm volatile(
       "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
       " [%0], [%1, {%3, %4}], [%2];"
-      :: "r"(smem_addr(dst)), "l"(reinterpret_cast<uint64_t>(map)),
-         "r"(smem_addr(bar)), "r"(x), "r"(y)
+      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)),
+         "r"(smem_u32(bar)), "r"(x), "r"(y)
       : "memory");
 }
 
-// wgmma descriptor of a K-major operand in 128-byte swizzle: rows of 128
-// bytes, 8-row groups 1024 bytes apart (SBO), layout type 1. A k-step of 32
-// bytes inside the atom moves the start address; the atom is 1024-aligned.
-__device__ __forceinline__ uint64_t sw128_desc(const void* p) {
-  return (uint64_t)((smem_addr(p) & 0x3FFFF) >> 4)
-       | (uint64_t)(16 >> 4) << 16          // LBO: unused for swizzled K-major
-       | (uint64_t)(1024 >> 4) << 32        // SBO
-       | (uint64_t)1 << 62;                 // 128-byte swizzle
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
-}
-
-// Pins the accumulators so that no read of them moves across a wgmma fence
-// or wait.
-__device__ __forceinline__ void pin(int (&d)[64]) {
+// Folds one consumer's 64 x 256 tile of products into its two running row
+// maxima (rows lane/4 and lane/4 + 8 of each warp's 16). Accumulator i holds
+// (row warp*16 + lane/4 + 8*((i>>1)&1), column (i>>2)*8 + (lane&3)*2 + (i&1)).
+// With `masked`, columns from `lim` on, and the column d of the row's self
+// pair (d + 8 for the second row; kFar where the tile holds none), read kNeg.
+__device__ __forceinline__ void fold(const int (&acc)[128], int (&best)[2],
+                                     bool masked, int lim, int d, int lane) {
+  if (masked) {
+    const int lc = lim - (lane & 3) * 2;
+    d -= (lane & 3) * 2;
 #pragma unroll
-  for (int i = 0; i < 64; ++i) asm volatile("" : "+r"(d[i]) :: "memory");
+    for (int j = 0; j < 32; ++j) {
+      const int c = j * 8;
+      const int v0 = c >= lc || d == c ? kNeg : acc[4 * j];
+      const int v1 = c + 1 >= lc || d == c + 1 ? kNeg : acc[4 * j + 1];
+      const int v2 = c >= lc || d + 8 == c ? kNeg : acc[4 * j + 2];
+      const int v3 = c + 1 >= lc || d + 8 == c + 1 ? kNeg : acc[4 * j + 3];
+      best[0] = __vimax3_s32(best[0], v0, v1);
+      best[1] = __vimax3_s32(best[1], v2, v3);
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < 32; ++j) {
+      best[0] = __vimax3_s32(best[0], acc[4 * j], acc[4 * j + 1]);
+      best[1] = __vimax3_s32(best[1], acc[4 * j + 2], acc[4 * j + 3]);
+    }
+  }
 }
 
-// d (64x128 s32) = a (64x32 s8) * b (128x32 s8)^T + (accumulate ? d : 0)
-__device__ __forceinline__ void wgmma_s8(int (&d)[64], uint64_t a, uint64_t b,
-                                         int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
-      "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "
-      "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "
-      "%58, %59, %60, %61, %62, %63}, %64, %65, p;\n}\n"
-      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]),
-        "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
-        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]), "+r"(d[16]),
-        "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]),
-        "+r"(d[22]), "+r"(d[23]), "+r"(d[24]), "+r"(d[25]), "+r"(d[26]),
-        "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
-        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]),
-        "+r"(d[37]), "+r"(d[38]), "+r"(d[39]), "+r"(d[40]), "+r"(d[41]),
-        "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]),
-        "+r"(d[47]), "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]),
-        "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]), "+r"(d[56]),
-        "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]),
-        "+r"(d[62]), "+r"(d[63])
-      : "l"(a), "l"(b), "r"(accumulate));
+// Compresses one consumer warpgroup's ROWS / 2 own rows from `row0` of a
+// block's CH dense K-chunks (chunk c at own + c * ROWS * 128) in place
+// (thread `tid` of 128, named barrier `bar`): dense chunks 2cc and 2cc + 1
+// become compressed chunk cc, in cc's place, the values of dense chunk c at
+// bytes 64 (c % 2) + [0, 64) of each row, so that k-step s of 64 channels
+// is 32 bytes at 32 (s % 4) of compressed chunk s / 4. A round reads its
+// chunks before it writes: cc's place holds dense chunk cc, read in round
+// cc / 2 <= cc.
+template <int ROWS, int CH>
+__device__ __forceinline__ void compress_in_place(uint8_t* own, int row0,
+                                                  int tid, int bar) {
+  constexpr int kPieces = 16;                       // 8 dense bytes a piece
+  constexpr int kMost = ROWS / 2 * 2 * kPieces / 128;
+#pragma unroll
+  for (int cc = 0; 2 * cc < CH; ++cc) {
+    const int nch = 2 * cc + 1 < CH ? 2 : 1;
+    const int n = ROWS / 2 * nch * kPieces / 128;   // pieces a thread
+    uint32_t v[kMost];
+#pragma unroll
+    for (int k = 0; k < kMost; ++k) {
+      const int q = tid + 128 * k, row = row0 + q / (nch * kPieces);
+      const int c = 2 * cc + (q / kPieces) % nch;
+      if (k < n) v[k] = sp_vals(own + c * ROWS * 128, row, 8 * (q % kPieces));
+    }
+    asm volatile("bar.sync %0, 128;" :: "r"(bar) : "memory");
+#pragma unroll
+    for (int k = 0; k < kMost; ++k) {
+      const int q = tid + 128 * k, row = row0 + q / (nch * kPieces);
+      const int c = 2 * cc + (q / kPieces) % nch;
+      if (k < n)
+        *reinterpret_cast<uint32_t*>(own + cc * ROWS * 128 +
+                                     sw128(row, 64 * (c % 2) + 4 * (q % kPieces))) = v[k];
+    }
+  }
+  fence_proxy_async();
+  asm volatile("bar.sync %0, 128;" :: "r"(bar) : "memory");
 }
 
 template <int CH>
 __global__ void __launch_bounds__(kThreads, 1)
 minmm_kernel(const __grid_constant__ CUtensorMap own_map,
              const __grid_constant__ CUtensorMap part_map, int rows,
-             int col_lo, int ntiles, int diag, long long row_base,
-             long long col_base, int* __restrict__ out) {
+             int col_lo, int ncols, int diag, long long row_base,
+             long long col_base, int* __restrict__ out,
+             int* __restrict__ faults) {
   using C = Cfg<CH>;
+  constexpr int P = C::kPasses;
   extern __shared__ uint8_t smem_raw[];
   // the swizzle atoms must sit on 1024-byte boundaries
   uint8_t* smem = reinterpret_cast<uint8_t*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
   uint8_t* s_own = smem;                    // CH chunks of [kOwnRows, 128] bytes
-  uint8_t* s_ring = smem + C::kOwnBytes;    // kStages of [128, 128] bytes
+  uint8_t* s_ring = smem + C::kOwnBytes;    // kStages of [256, 128] bytes
   uint64_t* full = reinterpret_cast<uint64_t*>(s_ring + C::kStages * kStageBytes);
   uint64_t* empty = full + C::kStages;
   uint64_t* own_full = empty + C::kStages;
-  const int wg = threadIdx.x / 128;
   const int row0 = blockIdx.x * C::kOwnRows;
+  const int ntiles = (ncols + kTile - 1) / kTile;
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < C::kStages; ++s) {
@@ -196,14 +258,17 @@ minmm_kernel(const __grid_constant__ CUtensorMap own_map,
   }
   __syncthreads();
 
+  const int wg = threadIdx.x / 128;
   if (wg == 0) {
     // --- producer: one thread keeps the ring full ---------------------
     asm volatile("setmaxnreg.dec.sync.aligned.u32 40;");
     if (threadIdx.x == 0) {
+      constexpr int box = C::kOwnRows < kBox ? C::kOwnRows : kBox;
       mbar_expect_tx(own_full, C::kOwnBytes);
       for (int c = 0; c < CH; ++c)
-        tma_load(s_own + c * C::kOwnRows * kChunk, &own_map, own_full,
-                 c * kChunk, row0);
+        for (int r = 0; r < C::kOwnRows; r += box)
+          tma_load(s_own + (c * C::kOwnRows + r) * kChunk, &own_map, own_full,
+                   c * kChunk, row0 + r);
       int stage = 0;
       uint32_t phase = 0;
       for (int t = 0; t < ntiles; ++t) {
@@ -217,84 +282,117 @@ minmm_kernel(const __grid_constant__ CUtensorMap own_map,
       }
     }
   } else {
-    // --- consumers: 128 own rows each (kGroups x m64) ------------------
+    // --- consumers: kPasses m64 passes of own rows each ----------------
     asm volatile("setmaxnreg.inc.sync.aligned.u32 232;");
     const int cons = wg - 1;
     const int tid = threadIdx.x & 127, warp = tid >> 5, lane = tid & 31;
-    // accumulator i of group g holds (row warp*16 + lane/4 + 8*((i>>1)&1),
-    // column (i>>2)*8 + (lane&3)*2 + (i&1)) of the group's 64x128 tile
-    const int lrow = cons * C::kGroups * 64 + warp * 16 + (lane >> 2);  // row in the block
-    const long long grow = row_base + row0 + lrow;                      // global own row
+    const int lrow = cons * P * 64 + warp * 16 + (lane >> 2);   // pass 0's row in the block
+    const long long grow = row_base + row0 + lrow;              // its global own row
     const long long block_lo = row_base + row0;
-    const long long col0 = col_base + col_lo;                           // global column of tile 0
-    int acc[C::kGroups][64];
-    int best[C::kGroups][2];
-#pragma unroll
-    for (int g = 0; g < C::kGroups; ++g) best[g][0] = best[g][1] = kNeg;
-    const uint8_t* a_base = s_own + (cons * C::kGroups) * 64 * kChunk;
+    const long long col0 = col_base + col_lo;                   // global column of tile 0
 
+    // the compressed own rows, once: the metadata of each pass and k-step
+    // into registers (wgmma_sp.cuh gives the layout; rows of 3 chunks or
+    // more in a rolled loop, through local memory, since unrolled ptxas
+    // spilled at Cw 768), then the kept values over the dense rows in place
     mbar_wait(own_full, 0);
+    uint32_t e[P][C::kSteps];
+    int bad = 0;
+#pragma unroll
+    for (int p = 0; p < P; ++p)
+#pragma unroll(C::kMetaInSmem ? 1 : C::kSteps)
+      for (int s = 0; s < C::kSteps; ++s)
+        e[p][s] = sp_meta(s_own + (s / 2) * C::kOwnRows * kChunk,
+                          lrow + p * 64 + 8 * (lane & 1),
+                          64 * (s % 2) + 32 * ((lane >> 1) & 1), bad);
+    if (bad) atomicAdd(faults, bad);
+    compress_in_place<C::kOwnRows, CH>(s_own, cons * P * 64, tid, 1 + cons);
+    // Rows of 3 chunks or more keep their metadata (kSteps words) in the
+    // place of dense chunk (CH + 1) / 2, free once compressed, within this
+    // consumer's own rows; each thread reads back only what it wrote.
+    uint32_t* s_meta = reinterpret_cast<uint32_t*>(
+        s_own + ((CH + 1) / 2 * C::kOwnRows + cons * 64) * kChunk);
+    if constexpr (C::kMetaInSmem) {
+#pragma unroll 1
+      for (int s = 0; s < C::kSteps; ++s) s_meta[s * 128 + tid] = e[0][s];
+    }
+    // pass 0's metadata of k-step s
+    const auto meta = [&](int s) -> uint32_t {
+      if constexpr (C::kMetaInSmem) return s_meta[s * 128 + tid];
+      else return e[0][s];
+    };
+
+    // descriptor of pass p's compressed rows at k-step s (32 bytes of
+    // compressed chunk s / 4), and of k-step h of a ring stage: a base
+    // descriptor plus the offset's 16-byte units in its address field
+    const uint64_t a_desc0 = sw128_desc(s_own + cons * P * 64 * kChunk);
+    const uint64_t b_desc0 = sw128_desc(s_ring);
+    const auto a_desc = [&](int p, int s) {
+      return a_desc0 + (uint64_t)(((s / 4) * C::kOwnRows * kChunk +
+                                   p * 64 * kChunk + 32 * (s % 4)) >> 4);
+    };
+    const auto b_desc = [&](int stage, int h) {
+      return b_desc0 + (uint64_t)((stage * kStageBytes + 64 * h) >> 4);
+    };
+    int acc[128];
+    int best[P][2];
+#pragma unroll
+    for (int p = 0; p < P; ++p) best[p][0] = best[p][1] = kNeg;
+
     int stage = 0;
     uint32_t phase = 0;
     for (int t = 0; t < ntiles; ++t) {
-      for (int c = 0; c < CH; ++c) {
-        mbar_wait(&full[stage], phase);
-        const uint8_t* b = s_ring + stage * kStageBytes;
-        const uint8_t* a = a_base + c * C::kOwnRows * kChunk;
-#pragma unroll
-        for (int g = 0; g < C::kGroups; ++g) pin(acc[g]);
-        wgmma_fence();
-#pragma unroll
-        for (int k = 0; k < kChunk / 32; ++k) {
-#pragma unroll
-          for (int g = 0; g < C::kGroups; ++g)
-            wgmma_s8(acc[g], sw128_desc(a + g * 64 * kChunk + k * 32),
-                     sw128_desc(b + k * 32), (c | k) != 0);
-        }
-        wgmma_commit();
-        wgmma_wait_all();
-#pragma unroll
-        for (int g = 0; g < C::kGroups; ++g) pin(acc[g]);
-        if (lane == 0) mbar_arrive(&empty[stage]);
-        if (++stage == C::kStages) { stage = 0; phase ^= 1; }
-      }
-      // fold the tile into the running maxima
       const long long c0 = col0 + (long long)t * kTile;
-      if (diag && c0 < block_lo + C::kOwnRows && block_lo < c0 + kTile) {
-        // the tile holds self pairs: row == column counts as kNeg
+      const int lim = min(kTile, ncols - t * kTile);
+      const bool cross = diag && c0 < block_lo + C::kOwnRows && block_lo < c0 + kTile;
+      const bool masked = cross || lim < kTile;
+      if constexpr (P == 1) {
+        // CH chunks of the tile stream through the ring, one pass
+#pragma unroll(C::kMetaInSmem ? 1 : CH)
+        for (int c = 0; c < CH; ++c) {
+          mbar_wait(&full[stage], phase);
+          pin(acc);
+          wgmma_fence();
 #pragma unroll
-        for (int g = 0; g < C::kGroups; ++g) {
-          const int d = (int)(grow + g * 64 - c0) - (lane & 3) * 2;
-#pragma unroll
-          for (int j = 0; j < 16; ++j) {
-            const int v0 = d == j * 8 ? kNeg : acc[g][4 * j];
-            const int v1 = d == j * 8 + 1 ? kNeg : acc[g][4 * j + 1];
-            const int v2 = d + 8 == j * 8 ? kNeg : acc[g][4 * j + 2];
-            const int v3 = d + 8 == j * 8 + 1 ? kNeg : acc[g][4 * j + 3];
-            best[g][0] = __vimax3_s32(best[g][0], v0, v1);
-            best[g][1] = __vimax3_s32(best[g][1], v2, v3);
-          }
+          for (int h = 0; h < 2; ++h)
+            wgmma_sp_ss(acc, a_desc(0, 2 * c + h), b_desc(stage, h),
+                        meta(2 * c + h), (c | h) != 0);
+          wgmma_commit();
+          wgmma_wait_all();
+          pin(acc);
+          if (lane == 0) mbar_arrive(&empty[stage]);
+          if (++stage == C::kStages) { stage = 0; phase ^= 1; }
         }
+        fold(acc, best[0], masked, lim, cross ? (int)(grow - c0) : kFar, lane);
       } else {
+        // the tile's one chunk stays in its stage for the P passes
+        mbar_wait(&full[stage], phase);
 #pragma unroll
-        for (int g = 0; g < C::kGroups; ++g) {
+        for (int p = 0; p < P; ++p) {
+          pin(acc);
+          wgmma_fence();
 #pragma unroll
-          for (int j = 0; j < 16; ++j) {
-            best[g][0] = __vimax3_s32(best[g][0], acc[g][4 * j], acc[g][4 * j + 1]);
-            best[g][1] = __vimax3_s32(best[g][1], acc[g][4 * j + 2], acc[g][4 * j + 3]);
-          }
+          for (int h = 0; h < 2; ++h)
+            wgmma_sp_ss(acc, a_desc(p, h), b_desc(stage, h), e[p][h], h);
+          wgmma_commit();
+          wgmma_wait_all();
+          pin(acc);
+          if (p == P - 1 && lane == 0) mbar_arrive(&empty[stage]);
+          fold(acc, best[p], masked, lim,
+               cross ? (int)(grow + p * 64 - c0) : kFar, lane);
         }
+        if (++stage == C::kStages) { stage = 0; phase ^= 1; }
       }
     }
     // the four threads of a quad hold the same rows
 #pragma unroll
-    for (int g = 0; g < C::kGroups; ++g) {
+    for (int p = 0; p < P; ++p) {
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
-        int v = best[g][h];
+        int v = best[p][h];
         v = max(v, __shfl_xor_sync(0xffffffffu, v, 1));
         v = max(v, __shfl_xor_sync(0xffffffffu, v, 2));
-        const int r = row0 + lrow + g * 64 + h * 8;
+        const int r = row0 + lrow + p * 64 + h * 8;
         if ((lane & 3) == 0 && r < rows) out[r] = v;
       }
     }
@@ -341,11 +439,12 @@ CUresult make_map(CUtensorMap* map, const void* base, long long nrows, int cw,
 template <int CH>
 int launch(const void* w_own, const void* w_part, long long rows,
            long long part_rows, long long col_lo, long long col_hi, int diag,
-           long long row_base, long long col_base, void* out,
+           long long row_base, long long col_base, void* out, void* faults,
            cudaStream_t stream) {
   using C = Cfg<CH>;
   CUtensorMap own_map, part_map;
-  if (make_map(&own_map, w_own, rows, CH * kChunk, C::kOwnRows) != CUDA_SUCCESS ||
+  const int own_box = C::kOwnRows < kBox ? C::kOwnRows : kBox;
+  if (make_map(&own_map, w_own, rows, CH * kChunk, own_box) != CUDA_SUCCESS ||
       make_map(&part_map, w_part, part_rows, CH * kChunk, kTile) != CUDA_SUCCESS)
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
@@ -353,9 +452,8 @@ int launch(const void* w_own, const void* w_part, long long rows,
   if (err != cudaSuccess) return (int)err;
   const unsigned grid = (unsigned)((rows + C::kOwnRows - 1) / C::kOwnRows);
   minmm_kernel<CH><<<grid, kThreads, C::kSmem, stream>>>(
-      own_map, part_map, (int)rows, (int)col_lo,
-      (int)((col_hi - col_lo) / kTile), diag, row_base, col_base,
-      static_cast<int*>(out));
+      own_map, part_map, (int)rows, (int)col_lo, (int)(col_hi - col_lo), diag,
+      row_base, col_base, static_cast<int*>(out), static_cast<int*>(faults));
   return (int)cudaGetLastError();
 }
 
@@ -366,14 +464,15 @@ int launch(const void* w_own, const void* w_part, long long rows,
 // part_rows rows, 0 <= col_lo <= col_hi <= part_rows, and all pointers are
 // device pointers (the Python wrapper checks). row_base and col_base are the
 // global row of W_own's first row and the global column of W_part's first
-// row. Returns the CUDA error of the launch, 0 on success;
-// cudaErrorInvalidValue where a tensor map cannot be built or a launch's rows
-// or the partner map's rows reach 2^31.
+// row. `faults` is a device int to which the kernel adds the own-row groups
+// of 4 channels that hold more than two non-zeros. Returns the CUDA error of
+// the launch, 0 on success; cudaErrorInvalidValue where a tensor map cannot
+// be built or a launch's rows or the partner map's rows reach 2^31.
 extern "C" int minmm_launch(int device, const void* w_own, const void* w_part,
                             long long rows, long long part_rows, int cw,
                             long long col_lo, long long col_hi, int diag,
                             long long row_base, long long col_base, void* out,
-                            void* stream) {
+                            void* faults, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (encode_tiled() == nullptr) return (int)cudaErrorNotSupported;
@@ -381,12 +480,12 @@ extern "C" int minmm_launch(int device, const void* w_own, const void* w_part,
     return (int)cudaErrorInvalidValue;   // TMA coordinates are 32-bit
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (cw / kChunk) {
-    case 1: return launch<1>(w_own, w_part, rows, part_rows, col_lo, col_hi, diag, row_base, col_base, out, s);
-    case 2: return launch<2>(w_own, w_part, rows, part_rows, col_lo, col_hi, diag, row_base, col_base, out, s);
-    case 3: return launch<3>(w_own, w_part, rows, part_rows, col_lo, col_hi, diag, row_base, col_base, out, s);
-    case 4: return launch<4>(w_own, w_part, rows, part_rows, col_lo, col_hi, diag, row_base, col_base, out, s);
-    case 5: return launch<5>(w_own, w_part, rows, part_rows, col_lo, col_hi, diag, row_base, col_base, out, s);
-    case 6: return launch<6>(w_own, w_part, rows, part_rows, col_lo, col_hi, diag, row_base, col_base, out, s);
+    case 1: return launch<1>(w_own, w_part, rows, part_rows, col_lo, col_hi, diag, row_base, col_base, out, faults, s);
+    case 2: return launch<2>(w_own, w_part, rows, part_rows, col_lo, col_hi, diag, row_base, col_base, out, faults, s);
+    case 3: return launch<3>(w_own, w_part, rows, part_rows, col_lo, col_hi, diag, row_base, col_base, out, faults, s);
+    case 4: return launch<4>(w_own, w_part, rows, part_rows, col_lo, col_hi, diag, row_base, col_base, out, faults, s);
+    case 5: return launch<5>(w_own, w_part, rows, part_rows, col_lo, col_hi, diag, row_base, col_base, out, faults, s);
+    case 6: return launch<6>(w_own, w_part, rows, part_rows, col_lo, col_hi, diag, row_base, col_base, out, faults, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -2,10 +2,11 @@
 
 Each kernel source `csrc/<name>.cu` has a plain C interface. `load(name)`
 compiles it with nvcc for Hopper (sm_90a) into
-`_build/lib<name>-<key>.so`, where the key is a hash of the source and the
-flags, and loads it with ctypes. A library that is already built for the
-same key is loaded as it is, so a process builds each kernel once and a
-changed source builds anew. `build(*names)` compiles several kernels at
+`_build/lib<name>-<key>.so`, where the key is a hash of the source, the
+headers of `csrc/` (`*.cuh`, which the sources include) and the flags, and
+loads it with ctypes. A library that is already built for the same key is
+loaded as it is, so a process builds each kernel once and a changed source
+or header builds anew. `build(*names)` compiles several kernels at
 once, one nvcc process each. nvcc's output, with ptxas's register and
 shared-memory report, is kept beside the library in a `.log` file.
 
@@ -70,9 +71,11 @@ def compile_libs(jobs) -> list[str]:
 
 
 def paths(name: str) -> tuple[Path, Path, Path]:
-    """(source, library, build log) of kernel `name`."""
+    """(source, library, build log) of kernel `name`; the key covers the
+    headers of `csrc/` too."""
     src = CSRC / f"{name}.cu"
-    stem = BUILD / f"lib{name}-{source_key([src], NVCC_FLAGS)}"
+    headers = sorted(CSRC.glob("*.cuh"))
+    stem = BUILD / f"lib{name}-{source_key([src, *headers], NVCC_FLAGS)}"
     return src, stem.with_suffix(".so"), stem.with_suffix(".log")
 
 

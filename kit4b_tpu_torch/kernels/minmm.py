@@ -14,6 +14,14 @@ Both compute, for every own row i of `W_own` (global row `row_base + i`),
 with the self pair (row_base + i == j) counted as NEG when `diag` is set.
 Row p of `W_part` is global column `col_base + p`, so the partner map may
 hold one node's span alone; both bases are 64-bit and may pass 2^31.
+
+The kernel runs on the card's 2:4-sparse int8 tensor path: it takes own
+rows that hold at most two non-zeros in every aligned group of 4 channels,
+as one-hot K-mer windows do. It counts the groups that hold more into a
+device int of the launch's card (`faults`), which the caller reads at a
+sync it already makes and hands to `raise_on_faults` (`check_faults` reads
+and checks it in one step): the result of such a launch is wrong, and the
+path raises in place of returning it.
 """
 from __future__ import annotations
 
@@ -25,7 +33,7 @@ import torch
 from . import build
 
 NEG = -(1 << 20)
-TILE = 128      # granule of own rows and partner columns (csrc/minmm.cu kTile)
+TILE = 128      # granule of own rows and partner columns
 MAX_CW = 768    # widest row the kernel is instantiated for (K <= 153)
 PLAIN_ROWS = 1 << 21   # own rows a call of the plain version on the CPU
 
@@ -66,7 +74,7 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
         ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong, ctypes.c_longlong,
         ctypes.c_int, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_void_p,
-        ctypes.c_void_p]
+        ctypes.c_void_p, ctypes.c_void_p]
     lib.minmm_launch.restype = ctypes.c_int
     return lib
 
@@ -74,6 +82,38 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
 @functools.cache
 def _lib() -> ctypes.CDLL:
     return bind(build.load("minmm"))
+
+
+_FAULTS: dict[torch.device, torch.Tensor] = {}
+
+
+def faults(device: torch.device) -> torch.Tensor:
+    """The int32 [1] count, on `device`, of own-row groups of 4 channels
+    with more than two non-zeros that the kernel's launches there have met
+    since the count was last found non-zero."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    if device not in _FAULTS:
+        _FAULTS[device] = torch.zeros(1, dtype=torch.int32, device=device)
+    return _FAULTS[device]
+
+
+def raise_on_faults(count: int, device: torch.device) -> None:
+    """Raises ValueError where `count`, a value of `faults(device)` read at
+    a sync, is not 0, and sets the count back to 0 first."""
+    if count:
+        faults(device).zero_()
+        raise ValueError(
+            f"minmm: own rows hold {count} group(s) of 4 channels with more "
+            "than 2 non-zeros; the kernel takes 2:4-sparse own rows (one-hot "
+            "K-mer windows), and its result is dropped")
+
+
+def check_faults(device: torch.device) -> None:
+    """Reads `faults(device)`, which waits for the device, and raises where
+    a launch met own rows that are not 2:4-sparse."""
+    raise_on_faults(int(faults(device)[0]), device)
 
 
 def _on_one_card(W_own: torch.Tensor, W_part: torch.Tensor) -> None:
@@ -89,7 +129,9 @@ def minmm(W_own: torch.Tensor, W_part: torch.Tensor, *, diag: bool,
     for CPU tensors, on at most PLAIN_ROWS own rows a call, so the memory
     the CPU takes does not grow with R. Each kernel launch adds one to
     `minmm.launches` and its own rows to `minmm.rows`. The kernel takes
-    fewer than 2^31 own rows and partner rows a launch, at any bases."""
+    fewer than 2^31 own rows and partner rows a launch, at any bases, and
+    own rows that are 2:4-sparse (see the module's note: the caller checks
+    `faults` at its next sync)."""
     if W_own.device.type == "cpu" and W_part.device.type == "cpu":
         return torch.cat([
             minmm_plain(W_own[r:r + PLAIN_ROWS], W_part, diag=diag,
@@ -128,6 +170,7 @@ def minmm(W_own: torch.Tensor, W_part: torch.Tensor, *, diag: bool,
     err = _lib().minmm_launch(
         dev, W_own.data_ptr(), W_part.data_ptr(), R, W_part.shape[0], cw,
         col_lo, col_hi, int(diag), row_base, col_base, out.data_ptr(),
+        faults(W_own.device).data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream)
     if err:
         raise RuntimeError(f"minmm kernel launch failed: CUDA error {err}")

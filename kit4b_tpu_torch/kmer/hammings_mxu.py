@@ -19,7 +19,9 @@ one-hot built from the codes, used and freed: a genome past 2^31 positions
 (GRCh38's 3.09 Gbp) needs 3.09 GB resident, not its 395 GB of windows.
 A block's maxima become uint16 distances on the device (K - max, capped
 at 0xFFFF; 0xFFFF for invalid rows) and reach the host in one copy of 2
-bytes a row through a pinned buffer the node keeps.
+bytes a row through a pinned buffer the node keeps; the kernel's count of
+own-row groups that are not 2:4-sparse comes with them, and a block that
+has any raises.
 """
 from __future__ import annotations
 
@@ -28,7 +30,7 @@ import torch
 
 from ..device import resolve
 from ..dna import BASE_EOG
-from ..kernels.minmm import TILE, minmm
+from ..kernels.minmm import TILE, faults, minmm, raise_on_faults
 from ..utils.runtime import span
 
 OUT_BIG = np.uint16(0xFFFF)
@@ -199,16 +201,22 @@ class HammingsNode:
     def _to_host(self, d: torch.Tensor) -> np.ndarray:
         """A new numpy array of the distances d; off the CPU through the
         node's pinned buffer, sized at first for min(Gp, BLOCK_ROWS) rows
-        and grown when a larger block comes."""
+        and grown when a larger block comes, with the kernel's fault count
+        (`kernels.minmm.faults`) in the same sync: raises where it is not
+        0."""
         if d.device.type == "cpu":
             return d.numpy()
         if self.pinned is None or len(self.pinned) < len(d):
             self.pinned = None
             self.pinned = torch.empty(max(len(d), min(self.Gp, BLOCK_ROWS)),
                                       dtype=torch.uint16, pin_memory=True)
+            self.pinned_faults = torch.empty(1, dtype=torch.int32,
+                                             pin_memory=True)
         buf = self.pinned[:len(d)]
         buf.copy_(d, non_blocking=True)
+        self.pinned_faults.copy_(faults(d.device), non_blocking=True)
         torch.cuda.current_stream(d.device).synchronize()
+        raise_on_faults(int(self.pinned_faults[0]), d.device)
         return buf.numpy().copy()
 
 

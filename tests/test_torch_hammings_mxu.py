@@ -46,6 +46,43 @@ def test_build_w_matches_jax(K, rc):
     np.testing.assert_array_equal(vt.numpy(), np.asarray(vj))
 
 
+def _nonzeros_per_group(W):
+    """[rows, Cw / 4] non-zeros in each aligned group of 4 channels."""
+    return (W.reshape(W.shape[0], -1, 4) != 0).sum(-1)
+
+
+def _premise_genome(n, seed):
+    """Codes with N runs, single Ns, separators and all four bases."""
+    g = _genome(n, seed)
+    g[40:52] = 4                      # an N run
+    g[n // 2] = 7                     # a second separator
+    g[n // 2 + 1:n // 2 + 30] = np.tile(np.arange(5, dtype=np.uint8), 6)[:29]
+    return g
+
+
+@pytest.mark.parametrize("rc", [False, True])
+def test_onehot_rows_are_2_of_4_sparse_at_every_k(rc):
+    # the premise of the card's 2:4-sparse kernel: every aligned group of 4
+    # channels of an own row holds at most 2 non-zeros, for K 1-153 (Cw
+    # 128-768), N runs, separators, the padded rows past G - K + 1 and the
+    # reverse strand; build_w's rows and a block's rows from
+    # onehot_windows alike
+    g = _premise_genome(700, seed=9)
+    G, Gp = len(g), 768
+    worst = 0
+    for K in range(1, 154):
+        ext = torch.from_numpy(_ext(g, K, Gp))
+        W, valid = tm.build_w(ext, K=K, Gp=Gp, G=G, rc=rc)
+        assert W.shape[1] % 64 == 0 and (W[~valid] == 0).all()
+        codes = tm.rc_codes(ext, G, 100, Gp + K) if rc else ext[100:]
+        Wb, _ = tm.onehot_windows(codes, 100, Gp - 100, K=K, G=G)
+        for w in (W, Wb):
+            worst = max(worst, int(_nonzeros_per_group(w).max()))
+        # a group holding 2 non-zeros exists wherever a window holds 2 bases
+        assert int(_nonzeros_per_group(W).max()) == (2 if K > 1 else 1)
+    assert worst == 2
+
+
 # (diag, span_lo, span_cnt, row_base, R) with T = 256, S = 128, Gp = 1024
 MINMM_CASES = [
     (True, 0, 4, 0, 512),

@@ -29,7 +29,7 @@ GP = 1024
 # (K, diag, span_lo, span_cnt, row_base, R): diag on and off, span_lo > 0,
 # non-zero row_base, own rows inside and outside the partner span, widths
 # of one, two, two and six 128-byte blocks (K = 25, 40, 51, 153: Cw 128,
-# 256, 256, 768), R = 384 (not a multiple of the kernel's 256 own rows)
+# 256, 256, 768), R = 384 (not a multiple of the kernel's 512 own rows)
 # and a span of one 128-column tile
 CASES = [
     (25, True, 0, 4, 0, 512),
@@ -139,9 +139,50 @@ def test_build_paths_are_keyed_by_the_source():
     _check_build_paths("minmm")
 
 
-@pytest.mark.parametrize("name", ["sweep", "take"])
+@pytest.mark.parametrize("name", ["sweep", "take", "sp_probe"])
 def test_build_paths_of_the_sweep_and_take_kernels(name):
     _check_build_paths(name)
+
+
+def test_build_key_covers_the_headers(monkeypatch, tmp_path):
+    # minmm.cu and sp_probe.cu include wgmma_sp.cuh: a changed header
+    # builds them anew
+    (tmp_path / "k.cu").write_text('#include "h.cuh"\n')
+    (tmp_path / "h.cuh").write_text("// one\n")
+    monkeypatch.setattr(build, "CSRC", tmp_path)
+    before = build.paths("k")[1]
+    (tmp_path / "h.cuh").write_text("// two\n")
+    assert build.paths("k")[1] != before
+    assert (build.CSRC / "k.cu").exists()
+
+
+@pytest.mark.parametrize("rows,cols,K", [(12_072_960, 3_017_728, 25),
+                                         (1 << 24, 753_664, 25),
+                                         (131_072, 262_144, 153)])
+def test_time_minmm_bounds_are_the_benchmarks(rows, cols, K):
+    # the tool's and the smoke test's 2:4-sparse bound is kbench's
+    # minmm_roofline bound; the dense one counts every stored channel
+    from kbench.roofline import minmm_bound_s
+    from kit4b_tpu_torch.tools.time_minmm import bounds_ms
+    sparse, dense = bounds_ms(rows, cols, K)
+    assert sparse == pytest.approx(
+        minmm_bound_s(rows, cols, K, "NVIDIA H100 80GB HBM3") * 1e3,
+        rel=1e-12)
+    cw = 128 * -(-5 * K // 128)
+    assert dense == pytest.approx(2 * rows * cols * cw / 1979e9, rel=1e-12)
+    assert dense / sparse == pytest.approx(cw / (64 * -(-5 * K // 64)) * 2)
+
+
+def test_fault_count_raises_and_resets():
+    # the count the kernel keeps of own-row groups that are not 2:4
+    dev = torch.device("cpu")
+    minmm_mod.raise_on_faults(0, dev)
+    minmm_mod.faults(dev).fill_(3)
+    assert minmm_mod.faults(dev) is minmm_mod.faults("cpu")
+    with pytest.raises(ValueError, match=r"hold 3 group\(s\) of 4 channels"):
+        minmm_mod.check_faults(dev)
+    assert int(minmm_mod.faults(dev)[0]) == 0
+    minmm_mod.check_faults(dev)
 
 
 def test_build_without_nvcc_raises(monkeypatch, tmp_path):
@@ -170,6 +211,56 @@ def test_kernel_matches_plain_on_card(cuda, K, diag, span_lo, span_cnt,
     plain = minmm_plain(wo, wp, diag=diag, span_lo=span_lo,
                         span_cnt=span_cnt, S=S, row_base=row_base)
     assert torch.equal(got, plain)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("base", [0, (1 << 31) + 3 * S])
+@pytest.mark.parametrize("K", [25, 51, 76, 102, 128, 153])
+def test_sparse_kernel_matches_plain_at_every_width_on_card(cuda, K, base):
+    # one-hot rows at Cw 128, 256, ..., 768 (the widest K of each): 896
+    # own rows (not a multiple of a block's 512 or 128) whose diagonal
+    # crosses the tiles, against 7 spans of 128 columns (the last tile
+    # half full), sense with the self pairs masked and antisense, at bases
+    # below and past 2^31
+    W, Wrc = _w(K, False, cuda), _w(K, True, cuda)
+    assert W.shape[1] == 128 * -(-5 * K // 128)
+    for wp, diag in ((W, True), (Wrc, False)):
+        kw = dict(diag=diag, span_lo=base // S + 1, span_cnt=7, S=S,
+                  row_base=base + 128, col_base=base)
+        got = minmm(W[128:], wp, **kw)
+        torch.cuda.synchronize()
+        minmm_mod.check_faults(cuda)
+        assert torch.equal(got, minmm_plain(W[128:], wp, **kw))
+        assert got.max() > 0
+
+
+@pytest.mark.cuda
+def test_own_rows_that_break_2_of_4_raise_on_card(cuda, monkeypatch):
+    W = _w(25, False, cuda)
+    wo = W[:256].clone()
+    wo[5, :3] = 1                      # 3 non-zeros in one group
+    wo[200, 4:8] = -1                  # and 4 in another
+    minmm_mod.check_faults(cuda)
+    minmm(wo, W, diag=True, span_lo=0, span_cnt=2, S=S)
+    with pytest.raises(ValueError, match=r"hold 2 group\(s\) of 4 channels"):
+        minmm_mod.check_faults(cuda)
+    minmm_mod.check_faults(cuda)       # the count is back at 0
+    # the node's path raises in place of returning the block
+    g = _genome(5000, seed=8)
+    eng = hammings_mxu.HammingsNode(g, 25, node=3, numnodes=10, T=256,
+                                    S=128, device=cuda)
+    real = hammings_mxu.onehot_windows
+
+    def broken(*args, **kw):
+        W, valid = real(*args, **kw)
+        W[7, 8:12] = 1
+        return W, valid
+    monkeypatch.setattr(hammings_mxu, "onehot_windows", broken)
+    # counted by each strand's launch
+    with pytest.raises(ValueError, match=r"hold 2 group\(s\) of 4 channels"):
+        eng.rows(0, 1000)
+    monkeypatch.setattr(hammings_mxu, "onehot_windows", real)
+    assert (eng.rows(0, 1000) < 25).sum() > 500
 
 
 @pytest.mark.cuda
