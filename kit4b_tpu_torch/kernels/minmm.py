@@ -128,7 +128,10 @@ def minmm(W_own: torch.Tensor, W_part: torch.Tensor, *, diag: bool,
     """[R] int32 max matches: the CUDA kernel for CUDA tensors, `minmm_plain`
     for CPU tensors, on at most PLAIN_ROWS own rows a call, so the memory
     the CPU takes does not grow with R. Each kernel launch adds one to
-    `minmm.launches` and its own rows to `minmm.rows`. The kernel takes
+    `minmm.launches` and its own rows to `minmm.rows` and to
+    `minmm.rows_by_cw[cw]`, under the stored row width cw (128 * CH: the
+    kernel's compile-time instantiation, Cw 128 for K <= 25, 512 for K 77
+    to 102). The kernel takes
     fewer than 2^31 own rows and partner rows a launch, at any bases, and
     own rows that are 2:4-sparse (see the module's note: the caller checks
     `faults` at its next sync)."""
@@ -176,7 +179,9 @@ def minmm(W_own: torch.Tensor, W_part: torch.Tensor, *, diag: bool,
         raise RuntimeError(f"minmm kernel launch failed: CUDA error {err}")
     minmm.launches += 1
     minmm.rows += R
+    minmm.rows_by_cw[cw] = minmm.rows_by_cw.get(cw, 0) + R
     return out
 
 
 minmm.launches = minmm.rows = 0
+minmm.rows_by_cw = {}

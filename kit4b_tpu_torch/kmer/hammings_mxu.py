@@ -103,7 +103,8 @@ class HammingsNode:
     then gives the distances of any own-row range in one block, and
     `rows_in_blocks` in blocks of BLOCK_ROWS.
 
-    Counters, beside `minmm.launches` and `minmm.rows`: `own_rows_built`
+    Counters, beside `minmm.launches`, `minmm.rows` and
+    `minmm.rows_by_cw`: `own_rows_built`
     (own one-hot rows built, padding to 128 included),
     `partner_cols_built` (partner one-hot rows built, both strands) and
     `bytes_collected` (bytes of distances `rows` returns to the host, 2 a

@@ -61,6 +61,8 @@ G_SMALL = _genome([240, 260, 230], 8, 40)        # G = 733, Gp = 768
     (13, 0, 9, True, 2100),       # node 0: the copies' sources in its span
     (13, 1, 9, False, 2100),      # one strand
     (25, 6, 7, True, None),       # the default: all Gp rows at once
+    (100, 0, 35, True, 1000),     # K 100 (Cw 512): node 0's two spans
+    (100, 0, 35, False, 1000),    # hold the copies' sources; one strand
 ])
 def test_node_in_row_blocks_equals_the_reference(monkeypatch, K, node,
                                                  numnodes, anti, chunk):
@@ -73,10 +75,12 @@ def test_node_in_row_blocks_equals_the_reference(monkeypatch, K, node,
                              **TS)
     np.testing.assert_array_equal(got, want)
     assert (got == 0xFFFF).sum() < 0.1 * len(got)
-    if node == 0:     # columns [0, 896): each copy's sense source and the
-        # reverse-complement copy's windows on the antisense strand
+    if node == 0:     # columns [0, 896) (of 35 nodes [0, 256)): each
+        # copy's sense source and the reverse-complement copy's windows on
+        # the antisense strand
         assert (got[5552:5752 - K + 1] <= 2).all()    # the forward copy
-        assert (got[300:500 - K + 1] <= 2).all()      # its source
+        if anti:      # the reverse-complement copy's source
+            assert (got[300:500 - K + 1] <= 2).all()
 
 
 def test_rows_of_any_range_equal_the_whole_sweep():
@@ -122,11 +126,12 @@ def test_each_own_row_is_built_once_a_pass(monkeypatch):
 
 
 @pytest.mark.parametrize("K,anti", [(13, True), (13, False), (25, True),
-                                    (25, False)])
+                                    (25, False), (100, True), (100, False)])
 def test_block_equals_the_jax_engine(K, anti):
     """A block of node 2 of 6 from row 300 past G: a separator, N runs,
     the windows from G - K + 1 on and the rows past G read 0xFFFF; the
-    block is padded past r1 = 750 to 512 rows, beyond Gp = 768."""
+    block is padded past r1 = 750 to 512 rows, beyond Gp = 768. At K 100
+    (Cw 512) the separators leave 233 of its rows valid."""
     kw = dict(antisense=anti, node=2, numnodes=6, **TS)
     want = jm.hammings_exhaustive_mxu(G_SMALL, K, use_pallas=True,
                                       interpret=True, **kw)
@@ -135,7 +140,8 @@ def test_block_equals_the_jax_engine(K, anti):
     assert got.dtype == np.uint16 and len(got) == 450
     np.testing.assert_array_equal(got[:433], want[300:])
     assert (got[len(G_SMALL) - K + 1 - 300:] == 0xFFFF).all()
-    assert got[201] == 0xFFFF and (got < K).sum() > 300    # the separator
+    assert got[201] == 0xFFFF        # the separator
+    assert (got < K).sum() > (300 if K < 100 else 200)
 
 
 def _lone_partner_genome(K):
@@ -254,16 +260,23 @@ def stub_lib(tmp_path):
     return lib
 
 
-def test_wrapper_passes_64_bit_bases_unchanged(monkeypatch, stub_lib):
-    """The wrapper's launch path on meta tensors (no data, no card), with
-    the device checks and CUDA's stream lookups stood in for."""
-    monkeypatch.setattr(minmm_mod, "_lib", lambda: stub_lib)
+def _launch_through(monkeypatch, lib):
+    """The wrapper's launch path into `lib` on meta tensors (no data, no
+    card), with the device checks and CUDA's stream lookups stood in for,
+    and its counters at 0."""
+    monkeypatch.setattr(minmm_mod, "_lib", lambda: lib)
     monkeypatch.setattr(minmm_mod, "_on_one_card", lambda *a: None)
     monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
     monkeypatch.setattr(torch.cuda, "current_stream",
                         lambda d=None: types.SimpleNamespace(cuda_stream=0))
     monkeypatch.setattr(minmm_mod.minmm, "launches", 0)
     monkeypatch.setattr(minmm_mod.minmm, "rows", 0)
+    monkeypatch.setattr(minmm_mod.minmm, "rows_by_cw", {})
+
+
+def test_wrapper_passes_64_bit_bases_unchanged(monkeypatch, stub_lib):
+    """The wrapper's launch path on meta tensors."""
+    _launch_through(monkeypatch, stub_lib)
     base = (1 << 31) + 3 * 128
     wo = torch.empty((4096, 128), dtype=torch.int8, device="meta")
     wp = torch.empty((2048, 128), dtype=torch.int8, device="meta")
@@ -274,9 +287,32 @@ def test_wrapper_passes_64_bit_bases_unchanged(monkeypatch, stub_lib):
     seen = [stub_lib.minmm_seen(i) for i in range(11)]
     assert seen[3:11] == [4096, 2048, 128, 640, 1536, 1, base + 256, base]
     assert (minmm_mod.minmm.launches, minmm_mod.minmm.rows) == (1, 4096)
+    assert minmm_mod.minmm.rows_by_cw == {128: 4096}
     with pytest.raises(ValueError, match="outside W_part"):
         minmm_mod.minmm(wo, wp, diag=True, span_lo=base // 128 - 1,
                         span_cnt=2, S=128, col_base=base)
+
+
+def test_rows_by_cw_counts_a_block_under_its_stored_width(monkeypatch,
+                                                          stub_lib):
+    """`HammingsNode.rows` blocks whose launches go through the
+    wrapper's launch path (meta copies of the operands into the stub) and
+    whose result is the plain version's: 1,177 own rows padded to 1,280, a
+    launch a strand, counted under Cw 128 at K 25 and 512 at K 100."""
+    _launch_through(monkeypatch, stub_lib)
+
+    def launched(W_own, W_part, **kw):
+        minmm_mod.minmm(W_own.to("meta"), W_part.to("meta"), **kw)
+        return minmm_mod.minmm_plain(W_own, W_part, **kw)
+    monkeypatch.setattr(hm, "minmm", launched)
+    kw = dict(node=4, numnodes=9, device="cpu", **TS)
+    want = {}
+    for K, cw in ((25, 128), (100, 512)):
+        got = hm.HammingsNode(G_NODE, K, **kw).rows(3900, 5077)
+        want[cw] = 2 * 1280
+        assert minmm_mod.minmm.rows_by_cw == want
+        assert (got < K).sum() > 1000
+    assert minmm_mod.minmm.launches == 4
 
 
 GRCH38 = [248956422, 242193529, 198295559, 190214555, 181538259, 170805979,

@@ -348,6 +348,56 @@ def test_kernel_at_bases_past_2_31_matches_plain_on_card(cuda, diag):
         assert (got[1792 - 256:3072 - 256] < 25).all()
 
 
+@pytest.mark.cuda
+def test_node_rows_at_k100_past_2_31_bytes_equal_the_reference(cuda):
+    # the first own operand past 2^31 bytes: a K 100 block (Cw 512) of
+    # 2^22 + 200 own rows, padded to 2^22 + 256 (2^31 + 131,072 bytes of
+    # one-hot), from row 2^31 + 2^20 of a genome of 2^31 + 2^23 bases;
+    # node 32,800 of 32,896 takes the 65,536 columns from 2^31 + 2^21,
+    # inside the block, so it holds self pairs. Planted in the block: a
+    # sense and a reverse-complement copy of span windows (3 substitutions
+    # each), an N run and a separator. Sampled rows, the last two tiles'
+    # among them, equal kbench's plain reference; the kernel counts no
+    # group that is not 2:4.
+    from kbench.reference import hammings_rows as ref
+    K, G, cols = 100, (1 << 31) + (1 << 23), 1 << 16
+    r0, r1 = (1 << 31) + (1 << 20), (1 << 31) + (1 << 20) + (1 << 22) + 200
+    numnodes, node = G // cols, ((1 << 31) + (1 << 21)) // cols
+    c0 = node * cols
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    seq = torch.randint(0, 4, (G,), dtype=torch.uint8, device=cuda,
+                        generator=gen).cpu().numpy()
+    rng = np.random.default_rng(7)
+    sense = seq[c0 + 1000:c0 + 1300].copy()
+    anti = (3 - seq[G - c0 - 3300:G - c0 - 3000][::-1]).astype(np.uint8)
+    for d, seg in ((r0 + 5000, sense), (r0 + 9000, anti)):
+        pick = rng.choice(300, 3, replace=False)
+        seg[pick] = (seg[pick] + 1) % 4
+        seq[d:d + 300] = seg
+    seq[r0 + 20000:r0 + 20040] = 4          # an N run
+    seq[r0 + 30000] = 7                     # a separator
+    before = minmm.rows_by_cw.get(512, 0)
+    eng = hammings_mxu.HammingsNode(seq, K, node=node, numnodes=numnodes,
+                                    device=cuda)
+    assert (eng.Gp, eng.c0, eng.c1) == (G, c0, c0 + cols)
+    got = eng.rows(r0, r1)
+    assert minmm.rows_by_cw[512] - before == 2 * ((1 << 22) + 256)
+    assert int(minmm_mod.faults(cuda)[0]) == 0
+    pos = np.concatenate([
+        rng.integers(r0, r1, 1500), rng.integers(c0, c0 + cols, 300),
+        np.arange(r0 + 5000, r0 + 5201, 10), np.arange(r0 + 9000,
+                                                       r0 + 9201, 10),
+        np.arange(r0 + 19890, r0 + 20060, 5), np.arange(r0 + 29900,
+                                                        r0 + 30010, 5),
+        np.arange(r1 - 200, r1)])
+    want = ref.node_rows_min(seq, K, pos, node, numnodes, True, cuda)
+    np.testing.assert_array_equal(got[pos - r0], want)
+    assert (got[5000:5201] <= 3).all() and (got[9000:9201] <= 3).all()
+    # N matches N: windows over the N run count, over the separator not
+    assert (got[19941:20040] < 0xFFFF).all() and got[30000] == 0xFFFF
+    assert (got < 70).sum() > len(got) - 1000
+
+
 # --- offset sweep (kernels/sweep.py) --------------------------------------
 
 # (G, K, G_valid, partner: "self" or its length, d_lo, d_hi) at CPU sizes:
